@@ -7,10 +7,13 @@ Phases (each prints its own line; any failure exits non-zero before the
 result line):
 
 1. the card (``nvidia-smi`` name and power limit) and the nvcc build of the
-   three CUDA kernels from ``src/repro_torch/csrc``;
-2. each kernel against its plain PyTorch version on the card, bit for bit,
-   at the main path's shapes, timed with CUDA events beside its plain
-   version, a PyTorch library call where one computes the same function,
+   five CUDA kernels from ``src/repro_torch/csrc``;
+2. each kernel against its plain PyTorch version on the card at the main
+   path's shapes -- the three SNN kernels bit for bit, ``quant_matmul``
+   (int8 and int4) to the bf16 tolerance of ``tests/test_kernels.py``,
+   ``flash_attention`` to one bf16 ulp (and in f32 to 1e-4), with planted
+   faults shown to fail that tolerance -- timed with CUDA events beside its
+   plain version, a PyTorch library call where one computes the same function,
    and its roofline bound;
 3. ``run_int`` of the 256-128-10 LIF network (w6/u16, T=25, random weights
    from a seeded generator) on a ``mnist_like`` batch of 1024 through the
@@ -21,18 +24,35 @@ result line):
 5. ``SNNServeEngine`` (64 lanes, pallas event backend) on 256 ragged
    requests -- sparse, dense and graded -- each bit-exact with a serial
    ``run_int(reference)`` of its own raster;
-6. a ``kernels`` JSON line (launches on phases 3-5, times, bounds);
-7. the result line.
+6. LM decode serving at full width: stablelm-1.6b (24 layers, d_model 2048,
+   random weights from a seeded generator, int8 block weights) in
+   ``ServeEngine(max_batch=8, max_len=256)`` on 16 requests, two of them with
+   one prompt (identical tokens required), then a short int4 pass;
+   ``quant_matmul`` launches = 24 x 7 x decode steps; sampled requests'
+   logits against a serial decode of their prompt alone;
+7. one-pass ``prefill`` of 4096 tokens at full width (int8): 24
+   ``flash_attention`` and 168 ``quant_matmul`` launches, and its caches at
+   positions [0, 256) against a separate ``prefill`` of the first 256 tokens
+   (plain ``attend``), a check that faults planted in the flash kernel's
+   arguments (no causal mask, a 2x scale) must fail;
+8. the card against the CPU at full width and 2 layers: one ``decode_step``
+   of 2 slots and one ``prefill`` of 4096 tokens (the CPU runs the plain
+   versions);
+9. a ``kernels`` JSON line (launches on phases 3-7, times, bounds);
+10. the result line.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -42,6 +62,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core.backend import EventBackend  # noqa: E402
+from repro_torch.core.precision import (  # noqa: E402
+    PrecisionPolicy,
+    QTensor,
+    dequantize_weight,
+    quantize_tree,
+    quantize_weight,
+    tree_map,
+)
 from repro_torch.core.network import (  # noqa: E402
     NetworkConfig,
     init_float_params,
@@ -51,8 +79,13 @@ from repro_torch.core.network import (  # noqa: E402
 from repro_torch.core.snn_layer import LayerConfig, NeuronModel  # noqa: E402
 from repro_torch.data.snn_datasets import mnist_like, raster_tensor  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attend  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.lif_scan.lif_scan import lif_scan  # noqa: E402
 from repro_torch.kernels.lif_scan.ref import lif_scan_ref  # noqa: E402
+from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref  # noqa: E402
 from repro_torch.kernels.quant_matmul.spike_matmul import (  # noqa: E402
     spike_matmul,
     spike_matmul_plain,
@@ -60,6 +93,13 @@ from repro_torch.kernels.quant_matmul.spike_matmul import (  # noqa: E402
 from repro_torch.kernels.sparse_accum.ops import fixed_capacity_events  # noqa: E402
 from repro_torch.kernels.sparse_accum.ref import sparse_accum_ref  # noqa: E402
 from repro_torch.kernels.sparse_accum.sparse_accum import sparse_accum  # noqa: E402
+from repro_torch.launch.serve import QUANT_RULES  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.attention import AttnMask, attend  # noqa: E402
+from repro_torch.models.common import tree_leaves  # noqa: E402
+from repro_torch.models.registry import get_arch  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.snn_engine import SNNRequest, SNNServeEngine  # noqa: E402
 from repro_torch.snn.train import eval_int  # noqa: E402
 
@@ -67,6 +107,8 @@ from repro_torch.snn.train import eval_int  # noqa: E402
 HBM_BYTES_S = 3.35e12
 INT8_TC_OPS_S = 1979e12  # int8 tensor cores
 INT32_OPS_S = 33.5e12  # int32 on the CUDA cores
+BF16_TC_FLOPS = 989e12  # bf16 tensor cores
+L2_BYTES = 50 * 2**20
 BINARY_SERVE_BUDGET = 64  # EventBackend().serve_budget(256, 0.10)
 DEVICE = "cuda"
 
@@ -226,6 +268,194 @@ def check_sparse_accum(gen, w0) -> dict:
     )
 
 
+# quant_matmul: the bf16 tolerance of tests/test_kernels.py -- the kernel
+# accumulates in f32 in another K order than its plain version, and a
+# near-tie lands up to 2 bf16 ulps apart after the final cast.
+QM_TOL = dict(rtol=2**-7, atol=1e-5)
+# flash_attention keeps scores, probabilities and the accumulator in f32 like
+# its plain version, so bf16 outputs differ by at most one rounding of the
+# final cast: one ulp, <= 2^-7 |want|.  The atol, for values near zero, is
+# far below the typical |output| of a 4096-key causal row (~0.02), so
+# near-zero or mis-weighted rows fail; each case also shows that planted
+# faults fall outside it.  f32: the same math in another order.
+FA_TOL = dict(rtol=2**-7, atol=2e-3)
+FA_TOL_F32 = dict(rtol=1e-4, atol=1e-4)
+
+
+def tol_used(got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 within the tolerance."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def close(got: torch.Tensor, want: torch.Tensor, tol: dict, what: str) -> float:
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    used = tol_used(got, want, tol) if got.numel() else 0.0
+    ok = used <= 1 and bool(torch.isfinite(got).all())
+    check(ok, f"{what}: max_abs_err {err} ({used:.3f} of the tolerance {tol})")
+    return err
+
+
+# (count per layer, K, N) of the LM's quantized matmuls: wq wk wv wo, w_gate
+# w_up, w_down of stablelm-1.6b (d_model 2048, d_ff 5632)
+LM_QDOTS = [(4, 2048, 2048), (2, 2048, 5632), (1, 5632, 2048)]
+QDOTS_PER_LAYER = sum(n for n, _, _ in LM_QDOTS)
+
+
+def check_quant_matmul(gen, n_layers: int) -> dict:
+    """int8 and int4 at every full-width shape of the LM path -- decode
+    (M = max_batch = 8) and prefill (M = 4096) -- and one ragged shape; each
+    main-path shape timed (decode shapes with weights cold in L2), and the
+    kernel time of one decode step and of one prefill derived from those
+    times and the launch counts."""
+    dev = DEVICE
+    shapes = [(M, K, N) for M in (8, 4096) for _, K, N in LM_QDOTS] + [(5, 96, 24)]
+    err = 0.0
+    cases = {}
+    for bits in (8, 4):
+        for M, K, N in shapes:
+            w = torch.randn(K, N, device=dev, generator=gen) * K**-0.5
+            x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+            qt = quantize_weight(w, bits)
+            got = quant_matmul(x, qt.q, qt.scale, bits=bits)
+            want = quant_matmul_ref(x, qt.q, qt.scale, bits, torch.bfloat16)
+            torch.cuda.synchronize()
+            err = max(err, close(got, want, QM_TOL, f"quant_matmul int{bits} [{M},{K}]x[{K},{N}]"))
+            cases[(bits, M, K, N)] = (x, qt)
+    rows = {}
+    for M, K, N in shapes[:-1]:
+        x, qt = cases[(8, M, K, N)]
+        x4, qt4 = cases[(4, M, K, N)]
+        wd = dequantize_weight(qt, torch.bfloat16)  # the library call's weight, prepared beforehand
+        reps = dict(reps=15, inner=10) if M <= 8 else dict(reps=7, inner=3)
+        # a decode step reads each layer's weights once, so they come from
+        # device memory, not L2: decode shapes cycle through copies of the
+        # weights that together exceed twice the L2 (int4: half the bytes)
+        n = 1 if M > 8 else -(-4 * L2_BYTES // (K * N))
+        q8 = itertools.cycle([(qt.q.clone(), qt.scale.clone()) for _ in range(n)]).__next__
+        q4 = itertools.cycle([(qt4.q.clone(), qt4.scale.clone()) for _ in range(n)]).__next__
+        wds = itertools.cycle([wd.clone() for _ in range(n)]).__next__
+        b_ms, b_by = bound(2 * M * K + K * N + 4 * N + 2 * M * N, 2 * M * K * N, BF16_TC_FLOPS)
+        r = rows[(M, K, N)] = dict(
+            ms=time_ms(lambda: quant_matmul(x, *q8(), bits=8), **reps),
+            int4_ms=time_ms(lambda: quant_matmul(x4, *q4(), bits=4), **reps),
+            plain_ms=time_ms(lambda: quant_matmul_ref(x, *q8(), 8, torch.bfloat16), **reps),
+            library_ms=time_ms(lambda: torch.matmul(x, wds()), **reps),
+            bound_ms=b_ms,
+            bound_by=b_by,
+        )
+        del q8, q4, wds
+        print(
+            f"kernel quant_matmul [{M},{K}]x[{K},{N}] bf16 x int8"
+            f"{' (weights cold in L2)' * (n > 1)}: "
+            f"{r['ms']:.5f} ms "
+            f"(int4 {r['int4_ms']:.5f} ms), plain {r['plain_ms']:.5f} ms, library "
+            f"{r['library_ms']:.5f} ms (bf16 matmul of the dequantized weight), bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})"
+        )
+    for M, what in ((8, "decode step"), (4096, "4096-token prefill")):
+        per = {k: n_layers * sum(n * rows[(M, K, N)][k] for n, K, N in LM_QDOTS)
+               for k in ("ms", "int4_ms", "library_ms", "bound_ms")}
+        print(
+            f"quant_matmul time of one {what} ({n_layers} layers x {QDOTS_PER_LAYER} launches, "
+            f"from the times above): "
+            f"int8 {per['ms']:.4f} ms, int4 {per['int4_ms']:.4f} ms, library "
+            f"{per['library_ms']:.4f} ms, bound {per['bound_ms']:.4f} ms"
+        )
+    main = rows[(8, 2048, 5632)]  # a decode shape: the main path launches these most
+    return dict(
+        name="quant_matmul",
+        shape="[8,2048]x[2048,5632] bf16 x int8 (decode); int8 and int4 checked at 7 shapes",
+        replaces="src/repro/kernels/quant_matmul/quant_matmul.py:74",
+        max_abs_err=err,
+        **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+    )
+
+
+def check_flash_attention(gen, n_layers: int) -> dict:
+    """[1, 32, 4096, 64] causal (the full-width prefill) in bf16 and f32, a
+    window + softcap case whose scores the cap bends, a ragged Sq = 300 case
+    and a GQA case through ``flash_attend``; in each bf16 case the plain
+    version with a planted fault must fall outside the tolerance."""
+    dev = DEVICE
+    mk = lambda *shape: torch.randn(*shape, device=dev, generator=gen).to(torch.bfloat16)
+    err = 0.0
+    S = 4096
+    cases = [
+        # scores ~ N(0, 1)
+        ((1, 32, S, 64), 1.0, dict(causal=True), dict(
+            scale_x2=dict(causal=True, scale=2 / 8),
+            keys_past_S_minus_64_dropped=dict(causal=True, window=S - 64),
+            zero_output=None,
+        )),
+        # q x 8: scores ~ N(0, 64), where 30 tanh(s / 30) bends them
+        ((1, 8, 1024, 64), 8.0, dict(causal=True, window=64, softcap=30.0), dict(
+            no_softcap=dict(causal=True, window=64),
+            no_window=dict(causal=True, softcap=30.0),
+        )),
+        ((2, 4, 300, 64), 1.0, dict(causal=True), dict(not_causal=dict(causal=False))),
+    ]
+    used = {}
+    main = None
+    for shape, q_mult, kw, faults in cases:
+        q, k, v = (mk(*shape) * q_mult).to(torch.bfloat16), mk(*shape), mk(*shape)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        what = f"flash_attention {shape} {kw}"
+        err = max(err, close(got, want, FA_TOL, what))
+        used[what] = [tol_used(got, want, FA_TOL)]
+        for fault, fkw in faults.items():
+            wrong = torch.zeros_like(want) if fkw is None else flash_attention_ref(q, k, v, **fkw)
+            used[what].append(tol_used(wrong, want, FA_TOL))
+            check(used[what][-1] > 1, f"{what}: planted fault {fault} passes the tolerance")
+        main = main or (q, k, v)
+    q, k, v = main
+    got32 = flash_attention(q.float(), k.float(), v.float(), causal=True)
+    want32 = flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    torch.cuda.synchronize()
+    close(got32, want32, FA_TOL_F32, "flash_attention f32 [1,32,4096,64] causal")
+    f32_used = tol_used(got32, want32, FA_TOL_F32)
+    del got32, want32
+    q, k, v = mk(1, 1024, 32, 64), mk(1, 1024, 8, 64), mk(1, 1024, 8, 64)  # [B, S, H, D]
+    got = flash_attend(q, k, v, causal=True)
+    want = attend(q, k, v, mask=AttnMask(causal=True))
+    torch.cuda.synchronize()
+    err = max(err, close(got, want, FA_TOL, "flash_attend GQA 32/8 heads"))
+    # the classic GQA slip: query head h read from kv head h % 8, not h // 4
+    wrong = attend(q, k.repeat(1, 1, 4, 1), v.repeat(1, 1, 4, 1), mask=AttnMask(causal=True))
+    gqa = used["flash_attend GQA 32/8 heads"] = [tol_used(x, want, FA_TOL) for x in (got, wrong)]
+    check(gqa[-1] > 1, "GQA: planted head map passes the tolerance")
+    print(
+        f"flash_attention checks, tolerance used by the kernel, then by each planted fault "
+        f"(> 1 fails): {json.dumps({w: [round(u, 4) for u in x] for w, x in used.items()})}; "
+        f"f32 [1,32,4096,64] causal within {FA_TOL_F32} ({f32_used:.4f} of it)"
+    )
+
+    q, k, v = main
+    B, H, S, D = q.shape
+    ops = 4 * B * H * D * (S * (S + 1) // 2)  # QK^T and PV over the causal pairs only
+    b_ms, b_by = bound(4 * q.numel() * 2, ops, BF16_TC_FLOPS)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(
+        name="flash_attention",
+        shape=f"[{B},{H},{S},{D}] bf16 causal",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:77",
+        max_abs_err=err,
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=True), reps=7, inner=3),
+        plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, causal=True), reps=5, inner=2),
+        library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True)),
+        bound_ms=b_ms,
+        bound_by=b_by,
+    )
+    print(
+        f"flash_attention time of one 4096-token prefill ({n_layers} launches): "
+        f"{n_layers * row['ms']:.4f} ms, library {n_layers * row['library_ms']:.4f} ms, "
+        f"bound {n_layers * b_ms:.4f} ms"
+    )
+    return row
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-5: the main path
 # ---------------------------------------------------------------------------
@@ -352,6 +582,314 @@ def phase_serve(net, qparams) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 6-8: LM serving at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "stablelm-1.6b"
+
+
+def lm_policy(bits: int) -> PrecisionPolicy:
+    return PrecisionPolicy(rules=((QUANT_RULES[0], bits),))
+
+
+def lm_requests(n: int, max_new: int, vocab: int) -> list[Request]:
+    """Prompts of 4-32 tokens over the full vocab; request 9 repeats request
+    0's prompt, so with 8 slots the two land in different waves."""
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, vocab, int(rng.integers(4, 33))) for _ in range(n)]
+    if n > 9:
+        prompts[9] = prompts[0].copy()
+    return [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+
+
+def device_split(fn, n: int = 5) -> str:
+    """Wall vs device-busy time of ``n`` calls of ``fn`` under torch.profiler,
+    and the kernels that took the most device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    # device-side entries only (kernels, copies), so no time is counted twice
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+    if not events:
+        return f"wall {wall_ms:.3f} ms per call; device time not measured (the profiler saw none)"
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / n:.3f} ms" for e in top)
+    return (
+        f"wall {wall_ms:.3f} ms per call (under the profiler), device busy {busy_ms:.3f} ms "
+        f"({100 * (1 - busy_ms / wall_ms):.1f} % idle); top kernels per call: {names}"
+    )
+
+
+# a request's logits, served in a batch, against a serial decode of its
+# prompt alone: both run every operation at the same shapes, row for row, so
+# the rows should agree to float reordering at most; 1e-3 of max |logit|
+# must lie below what another prompt's row differs by (checked and printed)
+SERIAL_TOL = 1e-3
+SERIAL_UIDS = (0, 5, 9, 13)  # request 9 repeats request 0's prompt
+
+
+def record_logits(engine: ServeEngine, uids) -> tuple[dict, dict]:
+    """Wrap ``engine``'s decode step, admission and tick so that each request
+    in ``uids`` keeps its slot and the logits row that chose each of its
+    generated tokens (a device copy per token)."""
+    rows, slot_of, last = {u: [] for u in uids}, {}, {}
+    decode, admit, tick = engine._decode, engine.admit, engine.tick
+
+    def _decode(tokens):
+        last["logits"] = decode(tokens)
+        return last["logits"]
+
+    def _admit(req):
+        ok = admit(req)
+        if ok and req.uid in rows:
+            slot_of[req.uid] = next(i for i, r in enumerate(engine.slots) if r is req)
+            rows[req.uid].append(last["logits"][slot_of[req.uid], -1].clone())
+        return ok
+
+    def _tick():
+        live = [(i, r) for i, r in enumerate(engine.slots) if r is not None and r.uid in rows]
+        finished = tick()
+        for i, r in live:
+            rows[r.uid].append(last["logits"][i, -1].clone())
+        return finished
+
+    engine._decode, engine.admit, engine.tick = _decode, _admit, _tick
+    return rows, slot_of
+
+
+def serial_decode(engine: ServeEngine, req: Request, slot: int) -> list[torch.Tensor]:
+    """Greedy decode of one prompt alone through ``decode_step`` on the
+    engine's weights: fresh caches, the prompt in ``slot`` of
+    ``engine.max_batch`` (the other slots idle at length 0), so every
+    operation runs at the batched run's shapes.  Returns the logits row that
+    chose each generated token."""
+    B = engine.max_batch
+    caches = tfm.cache_init(engine.cfg, B, engine.max_len, DEVICE)
+    cur = torch.zeros(B, dtype=torch.int32, device=DEVICE)
+    tok = torch.zeros(B, 1, dtype=torch.int64, device=DEVICE)
+    feed, rows = [int(t) for t in req.prompt], []
+    while len(rows) < req.max_new_tokens:
+        for t in feed:
+            tok[slot, 0] = t
+            logits, caches = tfm.decode_step(engine.cfg, engine.params, caches, tok, cur)
+            cur[slot] += 1
+        rows.append(logits[slot, -1].clone())
+        feed = [int(rows[-1].argmax())]
+    return rows
+
+
+def phase_lm_decode(arch, params, bits: int, n_requests: int, max_new: int) -> dict:
+    full = dataclasses.replace(arch, reduced_config=arch.config)
+    engine = ServeEngine(
+        full, params, max_batch=8, max_len=256, quant=lm_policy(bits), device=DEVICE
+    )
+    reqs = lm_requests(n_requests, max_new, arch.config.vocab)
+    uids = [u for u in SERIAL_UIDS if u < n_requests] if bits == 8 else []
+    rows, slot_of = record_logits(engine, uids)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    steps = engine.decode_steps
+    check(len(done) == n_requests and all(r.done for r in done), f"int{bits}: all served")
+    check(all(len(r.generated) == max_new for r in done), f"int{bits}: token counts")
+    vocab = arch.config.vocab
+    check(all(0 <= t < vocab for r in done for t in r.generated), f"int{bits}: tokens in vocab")
+    n_qdots = QDOTS_PER_LAYER * arch.config.n_layers
+    check(counts["quant_matmul"] == n_qdots * steps, f"int{bits}: quant_matmul launches")
+    check(counts["flash_attention"] == 0, f"int{bits}: decode launches no flash attention")
+    by_uid = {r.uid: r.generated for r in done}
+    if n_requests > 9:
+        check(by_uid[0] == by_uid[9], "requests 0 and 9 (one prompt, two waves) differ")
+    toks = sum(len(r.generated) for r in done)
+    prompt_toks = sum(len(r.prompt) for r in reqs)
+    first = {r.uid: r.generated[0] for r in done}
+    print(
+        f"lm decode int{bits}: {arch.name} full width, {n_requests} requests ({prompt_toks} "
+        f"prompt tokens, prefilled token by token), {toks} generated; {steps} decode steps in "
+        f"{wall:.3f} s = {1e3 * wall / steps:.3f} ms/step, {toks / wall:.1f} generated tok/s, "
+        f"{(toks + prompt_toks) / wall:.1f} tok/s with prefill; req0 {by_uid[0][:6]}...; "
+        f"{len(set(first.values()))} distinct first tokens over "
+        f"{len({tuple(r.prompt.tolist()) for r in reqs})} distinct prompts"
+    )
+    if uids:
+        check_against_serial(engine, reqs, by_uid, rows, slot_of)
+    if bits == 8:  # where one decode step's time goes (after the counts were read)
+        print(f"lm decode step split: {device_split(lambda: engine._decode(engine.last_token))}")
+    return counts
+
+
+def check_against_serial(engine, reqs, by_uid, rows, slot_of) -> None:
+    """Each sampled request's logits and tokens, served in a batch, against a
+    serial decode of its prompt alone; request 9 against request 0's serial
+    decode.  Distinct prompts' rows must differ by more than the tolerance,
+    so a slot mix-up or a lost cache column would fail."""
+    serial = {}
+    for u in rows:
+        src = 0 if u == 9 else u
+        if src not in serial:
+            serial[src] = serial_decode(engine, reqs[src], slot_of[u])
+    errs, spread = {}, {}
+    for u, got_rows in rows.items():
+        want_rows = serial[0 if u == 9 else u]
+        check(len(got_rows) == len(want_rows) == len(by_uid[u]), f"request {u}: logits rows")
+        err = 0.0
+        for i, (g, w) in enumerate(zip(got_rows, want_rows)):
+            scale = float(w.abs().max())
+            err = max(err, float((g - w).abs().max()) / scale)
+            top2 = w.topk(2).values
+            if float(top2[0] - top2[1]) > 2 * SERIAL_TOL * scale:
+                same = by_uid[u][i] == int(w.argmax())
+                check(same, f"request {u}: token {i} differs from serial")
+        errs[u] = err
+        check(err <= SERIAL_TOL, f"request {u}: logits differ from a serial decode by {err:.3e}")
+    first = {u: r[0] for u, r in serial.items()}
+    for a, b in itertools.combinations(first, 2):
+        d = float((first[a] - first[b]).abs().max()) / float(first[b].abs().max())
+        spread[f"{a}-{b}"] = d
+        check(d > SERIAL_TOL, f"requests {a} and {b}: distinct prompts, logits within {d:.3e}")
+    print(
+        f"lm decode int8 against serial decodes of requests {list(rows)} alone: max |logit| "
+        f"error / max |logit| {json.dumps({u: float(f'{e:.3e}') for u, e in errs.items()})} "
+        f"(limit {SERIAL_TOL}); first-token logits of distinct prompts differ by "
+        f"{json.dumps({k: float(f'{d:.3e}') for k, d in spread.items()})}"
+    )
+
+
+# The 4096-token prefill's caches at positions [0, 256) against a 256-token
+# prefill on plain ``attend``: per layer, max |difference| / the layer's max
+# |value|.  Layer 0 comes before any attention, so it is bit for bit equal;
+# later layers differ by bf16 rounding that compounds through the residual
+# stream.  The same prefill is run again with a fault planted in the flash
+# kernel's arguments; each must exceed the limit.  On an H100 the sound
+# prefill reads 1.147e-2, a missing causal mask 1.753 and a 2x scale
+# 2.743e-2 (the residual stream of a random model carries little of the
+# attention output), so the limit sits between the sound and the 2x scale.
+CACHE_TOL = 0.02
+FLASH_FAULTS = {  # fault -> flash_attend's arguments with it
+    "no causal mask": lambda q, kw: {**kw, "causal": False},
+    "scale x2": lambda q, kw: {**kw, "scale": 2 * (kw["scale"] or q.shape[-1] ** -0.5)},
+}
+
+
+def cache_errs(caches, short, cfg) -> dict[str, list[float]]:
+    L = cfg.n_layers
+    errs = {}
+    for name in ("k", "v"):
+        got, want = caches["pos0"][name][:, :, :256].float(), short["pos0"][name].float()
+        want_shape = (L, 1, 256, cfg.n_kv_heads, cfg.d_head)
+        check(got.shape == want.shape == want_shape, f"prefill {name} cache shape")
+        scale = want.abs().amax(dim=(1, 2, 3, 4))
+        errs[name] = ((got - want).abs().amax(dim=(1, 2, 3, 4)) / scale).tolist()
+    return errs
+
+
+def phase_lm_prefill(arch, qparams) -> dict:
+    prefill = arch.prefill_fn(arch.config)
+    tokens = torch.from_numpy(np.random.default_rng(12).integers(0, arch.config.vocab, (1, 4096)))
+    tokens = tokens.to(DEVICE)
+    prefill(qparams, {"tokens": tokens[:, :8]})  # warm-up (S < 4096: no flash launch)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(qparams, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    L = arch.config.n_layers
+    check(counts["flash_attention"] == L, f"prefill: {L} flash_attention launches")
+    check(counts["quant_matmul"] == QDOTS_PER_LAYER * L, "prefill: 7 quant_matmul launches a layer")
+    check(logits.shape == (1, 1, arch.config.vocab), "prefill logits shape")
+    check(bool(torch.isfinite(logits).all()), "prefill logits finite")
+    _, short = prefill(qparams, {"tokens": tokens[:, :256]})  # plain attend below 4096
+    for name in ("k", "v"):
+        same = torch.equal(caches["pos0"][name][0, :, :256], short["pos0"][name][0])
+        check(same, f"prefill {name} cache: layer 0 not bit-identical")
+    errs = cache_errs(caches, short, arch.config)
+    worst = max(max(e) for e in errs.values())
+    check(worst <= CACHE_TOL, f"prefill caches [0, 256) vs a 256-token prefill: {errs}")
+    del caches
+    planted = {}
+    for fault, fkw in FLASH_FAULTS.items():
+        real = attn_mod.flash_attend
+        faulty = lambda q, k, v, fkw=fkw, **kw: real(q, k, v, **fkw(q, kw))
+        with mock.patch.object(attn_mod, "flash_attend", faulty):
+            _, bad = prefill(qparams, {"tokens": tokens})
+        planted[fault] = max(max(e) for e in cache_errs(bad, short, arch.config).values())
+        del bad
+    per_layer = lambda e: ", ".join(f"{x:.2e}" for x in e[:: max(1, L // 6)])
+    print(
+        f"lm prefill: S=4096 at full width (int8) in {wall:.3f} s "
+        f"({4096 / wall:.1f} tok/s); caches [0, 256) match a 256-token prefill: layer 0 "
+        f"bit-identical; max err / layer max every {max(1, L // 6)} layers: "
+        f"k [{per_layer(errs['k'])}], v [{per_layer(errs['v'])}]; worst {worst:.3e} (limit "
+        f"{CACHE_TOL}); with a planted flash fault: "
+        f"{json.dumps({f: float(f'{x:.3e}') for f, x in planted.items()})}"
+    )
+    for fault, reading in planted.items():
+        check(reading > CACHE_TOL, f"prefill caches: planted fault {fault} passes")
+    split = device_split(lambda: prefill(qparams, {"tokens": tokens}), n=2)
+    print(f"lm prefill split: {split}")
+    return counts
+
+
+def phase_lm_card_vs_cpu(arch) -> None:
+    """Full widths, 2 layers: the card (kernels) against the CPU (plain)."""
+    cfg = dataclasses.replace(arch.config, n_layers=2)
+    params = arch.init_params(torch.Generator().manual_seed(1), cfg)
+    params_cpu = quantize_tree(params, lm_policy(8))
+    params_gpu = tree_map(
+        lambda _, t: t.to(DEVICE) if isinstance(t, (torch.Tensor, QTensor)) else t, params_cpu
+    )
+    # bf16 compute: the kernels round in other places than the plain
+    # versions; hold logits to 5 % of max |logit| (tests/test_torch_lm_serve.py)
+    tol = 0.05
+
+    def agree(got, want, what):
+        got, want = got.float().cpu(), want.float()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= tol * scale, f"{what}: card vs CPU max err {err} > {tol} x {scale}")
+        top2 = want.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > 2 * tol * scale
+        same = got.argmax(-1)[decided] == want.argmax(-1)[decided]
+        check(bool(same.all()), f"{what}: greedy token differs where the margin is clear")
+        return err / scale, int(decided.sum())
+
+    tok = torch.tensor([[17], [cfg.vocab - 7]])
+    cur = torch.zeros(2, dtype=torch.int32)
+    caches = tfm.cache_init(cfg, 2, 8, DEVICE)
+    lg, _ = tfm.decode_step(cfg, params_gpu, caches, tok.to(DEVICE), cur.to(DEVICE))
+    lc, _ = tfm.decode_step(cfg, params_cpu, tfm.cache_init(cfg, 2, 8), tok, cur)
+    d_err, d_n = agree(lg, lc, "decode_step")
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(0, cfg.vocab, (1, 4096)))
+    kernels.reset_launch_counts()
+    pg, _ = tfm.prefill(cfg, params_gpu, tokens.to(DEVICE))
+    torch.cuda.synchronize()
+    check(kernels.launch_counts()["flash_attention"] == 2, "2-layer prefill launches flash twice")
+    check(kernels.launch_counts()["quant_matmul"] == 2 * QDOTS_PER_LAYER, "2-layer prefill qdots")
+    pc, _ = tfm.prefill(cfg, params_cpu, tokens)
+    p_err, p_n = agree(pg, pc, "prefill")
+    print(
+        f"lm card vs CPU (full width, 2 layers, int8): decode_step max err {d_err:.3e} of max "
+        f"|logit| ({d_n}/2 greedy tokens decided, equal); prefill S=4096 {p_err:.3e} "
+        f"({p_n}/1 decided, equal)"
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA card", file=sys.stderr)
@@ -364,7 +902,8 @@ def main() -> int:
         timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False  # the certified f32 lowering needs full f32
+    # the certified f32 lowering and the LM's f32 logits head need full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     t0 = time.perf_counter()
     nvcc_s = build.load_all()
@@ -393,24 +932,43 @@ def main() -> int:
         f"theta_q {[int(p.theta_q) for p in qparams]}"
     )
 
+    arch = get_arch(LM_ARCH)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = [
         check_spike_matmul(gen, [p.w_ff for p in qparams]),
         check_lif_scan(gen),
         check_sparse_accum(gen, qparams[0].w_ff),
+        check_quant_matmul(gen, arch.config.n_layers),
+        check_flash_attention(gen, arch.config.n_layers),
     ]
     for r in rows:
+        how = "bit-identical to" if r["max_abs_err"] == 0 else "within the bf16 tolerance of"
         print(
-            f"kernel {r['name']} {r['shape']}: bit-identical to plain (max_abs_err "
+            f"kernel {r['name']} {r['shape']}: {how} plain (max_abs_err "
             f"{r['max_abs_err']}); {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
         )
+
+    t0 = time.perf_counter()
+    lm_params = arch.init_params(torch.Generator(device=DEVICE).manual_seed(0))
+    lm_int8 = quantize_tree(lm_params, lm_policy(8))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_leaves(lm_params))
+    print(
+        f"lm model: {arch.name} at full width ({arch.config.n_layers} layers, d_model "
+        f"{arch.config.d_model}, vocab {arch.config.vocab}), {n_params} f32 parameters from "
+        f"torch.Generator('cuda').manual_seed(0), int8 block weights; "
+        f"{time.perf_counter() - t0:.2f} s"
+    )
 
     launches = dict.fromkeys(build.KERNELS, 0)
     for name, phase in [
         ("run_int", lambda: phase_run_int(net, qparams, qparams_cpu)),
         ("eval_int", lambda: phase_eval_int(net, qparams)),
         ("serve", lambda: phase_serve(net, qparams)),
+        ("lm_decode_int8", lambda: phase_lm_decode(arch, lm_params, 8, 16, 16)),
+        ("lm_decode_int4", lambda: phase_lm_decode(arch, lm_params, 4, 4, 8)),
+        ("lm_prefill", lambda: phase_lm_prefill(arch, lm_int8)),
     ]:
         # each phase reads the counts right after driving the main path,
         # before its own checks launch anything
@@ -421,6 +979,9 @@ def main() -> int:
             launches[k] += v
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was never launched on the main path")
+    del lm_params, lm_int8
+    torch.cuda.empty_cache()
+    phase_lm_card_vs_cpu(arch)
 
     line = {
         "kernels": [

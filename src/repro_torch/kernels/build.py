@@ -10,7 +10,8 @@ of them, and :func:`load_all` does the same on demand (the serving engine's
 timed region).
 
 Every C entry point takes its pointers and the CUDA stream as ``void *``,
-its sizes as ``int``, and returns ``cudaGetLastError()`` after the launch;
+its sizes and flags as ``int``, then its real-valued arguments as ``float``,
+and returns ``cudaGetLastError()`` after the launch;
 :func:`check` raises on a non-zero code.
 """
 
@@ -29,7 +30,7 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "build_all", "load_all", "entry", "check"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("spike_matmul", "lif_scan", "sparse_accum")
+KERNELS = ("spike_matmul", "lif_scan", "sparse_accum", "quant_matmul", "flash_attention")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -99,15 +100,20 @@ def load_all() -> float:
     return seconds
 
 
-def entry(name: str, symbol: str, n_pointers: int, n_ints: int):
+def entry(name: str, symbol: str, n_pointers: int, n_ints: int, n_floats: int = 0):
     """The C entry point ``symbol`` of kernel library ``name``, typed as
-    ``(void *) * n_pointers, int * n_ints, void *stream -> int``."""
+    ``(void *) * n_pointers, int * n_ints, float * n_floats, void *stream -> int``."""
     fn = _ENTRIES.get(symbol)
     if fn is None:
         if name not in _LIBS:
             load_all()
         fn = getattr(_LIBS[name], symbol)
-        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_pointers
+            + [ctypes.c_int] * n_ints
+            + [ctypes.c_float] * n_floats
+            + [ctypes.c_void_p]
+        )
         fn.restype = ctypes.c_int
         _ENTRIES[symbol] = fn
     return fn

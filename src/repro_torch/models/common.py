@@ -1,0 +1,126 @@
+"""Parameter templates, norms and init helpers shared by the LM architectures.
+
+Port of ``repro/models/common.py``.  A *template* is a nested dict whose
+leaves are :class:`ParamSpec` (shape, dtype, init, scale); :func:`materialize`
+turns it into tensors from a ``torch.Generator``.  The sharding half of the
+JAX module (logical axes, ``shardings``) belongs to the multi-device port
+and is not here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core.precision import QTensor, tree_map
+
+__all__ = [
+    "ParamSpec",
+    "dense",
+    "materialize",
+    "params_from_numpy",
+    "tree_leaves",
+    "rms_norm",
+    "layer_norm",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    init: str = "normal"  # normal | zeros | ones
+    scale: float | None = None  # stddev; default 1/sqrt(fan_in)
+
+
+def dense(*shape, init="normal", scale=None, dtype=torch.float32) -> ParamSpec:
+    return ParamSpec(tuple(shape), dtype, init, scale)
+
+
+def _fan_in(shape: tuple[int, ...]) -> int:
+    if len(shape) == 0:
+        return 1
+    if len(shape) == 1:
+        return shape[0]
+    # convention: last axis is the output features; everything else is fan-in
+    return int(np.prod(shape[:-1]))
+
+
+def tree_leaves(tree, path: str = ""):
+    """(path, leaf) pairs of a nested dict in sorted-key order."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(tree_leaves(tree[k], f"{path}/{k}" if path else str(k)))
+        return out
+    return [(path, tree)]
+
+
+def materialize(gen: torch.Generator, template, device=None):
+    """Initialise every leaf of ``template`` on ``device`` (default: the
+    generator's), drawing normals from ``gen`` in sorted-path order."""
+    device = torch.device(device) if device is not None else gen.device
+
+    def make(_, s: ParamSpec):
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=s.dtype, device=device)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=s.dtype, device=device)
+        std = s.scale if s.scale is not None else 1.0 / math.sqrt(max(1, _fan_in(s.shape)))
+        z = torch.randn(s.shape, generator=gen, dtype=torch.float32, device=gen.device)
+        return (z * std).to(device=device, dtype=s.dtype)
+
+    # visit leaves in sorted-path order so the draw sequence does not depend
+    # on the template's dict insertion order
+    values = {p: make(p, s) for p, s in tree_leaves(template)}
+    return tree_map(lambda p, _: values[p], template)
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.array(a)  # a writable copy (arrays from JAX are read-only)
+    if a.dtype.name == "bfloat16":  # numpy has no native bf16: widen exactly, then narrow
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree, device="cpu"):
+    """Carry a parameter tree of numpy arrays (e.g. a JAX tree after
+    ``np.asarray``) onto ``device``.  Quantized leaves -- any object with
+    ``q``, ``scale``, ``bits`` and ``shape`` -- become :class:`QTensor`."""
+    device = torch.device(device)
+
+    def carry(tree):
+        if isinstance(tree, dict):
+            return {k: carry(v) for k, v in tree.items()}
+        if all(hasattr(tree, a) for a in ("q", "scale", "bits", "shape")):
+            return QTensor(
+                q=_tensor_from_numpy(tree.q, device),
+                scale=_tensor_from_numpy(tree.scale, device),
+                bits=int(tree.bits),
+                shape=tuple(tree.shape),
+            )
+        return _tensor_from_numpy(tree, device)
+
+    return carry(tree)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6, *, plus_one: bool = False):
+    """RMSNorm in f32 (numerics match the reference implementations)."""
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    w = weight.to(torch.float32)
+    if plus_one:  # gemma convention: weight stored as (gamma - 1)
+        w = w + 1.0
+    return (normed * w).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * weight.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)

@@ -1,0 +1,358 @@
+"""The decoder LM: prefill and one-token decode with caches.
+
+Port of the serving half of ``repro/models/transformer.py`` for the dense
+family.  A model is a repeating *pattern* of blocks (gemma2: alternating
+local / global attention); parameters of each pattern position are stacked
+over the repeat-group axis, and the JAX ``lax.scan`` over groups becomes a
+Python loop that indexes the stacked leaves.
+
+Two execution modes share one block implementation:
+  * prefill  -- full-sequence, emits exact-length KV caches
+  * decode   -- one token against preallocated caches, written in place
+
+SSM, mixture-of-experts and M-RoPE / vision blocks raise
+``NotImplementedError`` (ROADMAP Queue 1 #12); ``forward`` and ``lm_loss``
+come with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.core.precision import QTensor, qdot, tree_map
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.attention import AttnMask, KVCache
+from repro_torch.models.common import dense, rms_norm
+from repro_torch.models.mlp import MLPConfig, MoEConfig, mlp_apply, mlp_template
+
+__all__ = [
+    "ModelConfig",
+    "BlockKind",
+    "layer_pattern",
+    "n_groups",
+    "model_template",
+    "prefill",
+    "decode_step",
+    "cache_template",
+    "cache_init",
+]
+
+_TODO = "is not ported yet (ROADMAP Queue 1 #12)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The JAX package's ``ModelConfig``, field for field; ``compute_dtype`` is a torch dtype."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    act: str = "swiglu"
+    rope_theta: float = 10_000.0
+    rope_frac: float = 1.0  # stablelm applies rotary to 25% of head dims
+    mrope: bool = False
+    mrope_sections: tuple[int, int, int] = (16, 24, 24)
+    window: int | None = None  # sliding-window size for "local" layers
+    local_global_period: int = 0  # gemma2: 2 -> alternate local/global
+    attn_softcap: float | None = None
+    logit_softcap: float | None = None
+    sandwich_norm: bool = False  # gemma2 post-norms
+    embed_scale: bool = False  # gemma2 multiplies embeddings by sqrt(d)
+    tie_embeddings: bool = True
+    qkv_bias: bool = False  # qwen2 family
+    moe: MoEConfig | None = None
+    moe_period: int = 1
+    ssm: Any = None  # SSM blocks are not ported; kept so configs carry the same fields
+    attn_period: int = 0  # hybrid: 0 = all-attention; k = attn every k-th; -1 = none
+    remat: str = "none"  # training only; no effect on prefill / decode
+    compute_dtype: torch.dtype = torch.bfloat16
+    shard_head_dim: bool = True  # sharding only; no effect on one device
+    kv_cache_bits: int | None = None  # 8 = int8 KV cache
+    kv_scale: float = 32.0
+    gqa_flat: bool = False  # repeat KV heads to n_heads before prefill attention
+
+    @property
+    def attention_free(self) -> bool:
+        return self.attn_period == -1
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockKind:
+    mixer: str  # "attn" | "ssm"
+    window: int | None
+    moe: bool
+
+
+def layer_pattern(cfg: ModelConfig) -> tuple[BlockKind, ...]:
+    """The repeating block pattern; its length divides n_layers."""
+    period = 1
+    if cfg.attn_period > 0:
+        period = max(period, cfg.attn_period)
+    if cfg.local_global_period:
+        period = max(period, cfg.local_global_period)
+    if cfg.moe is not None and cfg.moe_period > 1:
+        period = math.lcm(period, cfg.moe_period)
+    kinds = []
+    for i in range(period):
+        if cfg.attention_free:
+            mixer = "ssm"
+        elif cfg.attn_period > 0:
+            mixer = "attn" if i % cfg.attn_period == 0 else "ssm"
+        else:
+            mixer = "attn"
+        window = None
+        if cfg.local_global_period and i % cfg.local_global_period == 0:
+            window = cfg.window  # even positions local (gemma2 ordering)
+        moe = cfg.moe is not None and (i % cfg.moe_period == 0 if cfg.moe_period > 1 else True)
+        kinds.append(BlockKind(mixer=mixer, window=window, moe=moe))
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} not divisible by pattern {period}")
+    return tuple(kinds)
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    return cfg.n_layers // len(layer_pattern(cfg))
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.mrope:
+        raise NotImplementedError(f"M-RoPE / vision blocks {_TODO}")
+    for kind in layer_pattern(cfg):
+        if kind.mixer != "attn" or kind.moe:
+            raise NotImplementedError(f"{cfg.family} blocks {_TODO}")
+
+
+# --------------------------------------------------------------------------
+# Templates
+# --------------------------------------------------------------------------
+
+
+def _attn_template(cfg: ModelConfig) -> dict:
+    qdim = cfg.n_heads * cfg.d_head
+    kvdim = cfg.n_kv_heads * cfg.d_head
+    t = {
+        "wq": dense(cfg.d_model, qdim),
+        "wk": dense(cfg.d_model, kvdim),
+        "wv": dense(cfg.d_model, kvdim),
+        "wo": dense(qdim, cfg.d_model),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = dense(qdim, init="zeros")
+        t["bk"] = dense(kvdim, init="zeros")
+        t["bv"] = dense(kvdim, init="zeros")
+    return t
+
+
+def _block_template(cfg: ModelConfig) -> dict:
+    t: dict = {"norm1": dense(cfg.d_model, init="ones"), "attn": _attn_template(cfg)}
+    if cfg.d_ff > 0:
+        t["norm2"] = dense(cfg.d_model, init="ones")
+        t["mlp"] = mlp_template(MLPConfig(cfg.d_model, cfg.d_ff, cfg.act))
+    if cfg.sandwich_norm:
+        t["post_norm1"] = dense(cfg.d_model, init="ones")
+        if cfg.d_ff > 0:
+            t["post_norm2"] = dense(cfg.d_model, init="ones")
+    return t
+
+
+def _stack(template, n: int):
+    """Prepend the repeat-group axis to every leaf spec."""
+    return tree_map(lambda _, s: dataclasses.replace(s, shape=(n, *s.shape)), template)
+
+
+def model_template(cfg: ModelConfig) -> dict:
+    _check_supported(cfg)
+    pattern = layer_pattern(cfg)
+    ng = n_groups(cfg)
+    t: dict = {
+        "embed": dense(cfg.vocab, cfg.d_model, scale=0.02),
+        "final_norm": dense(cfg.d_model, init="ones"),
+        "blocks": {f"pos{i}": _stack(_block_template(cfg), ng) for i in range(len(pattern))},
+    }
+    if not cfg.tie_embeddings:
+        t["lm_head"] = dense(cfg.d_model, cfg.vocab, scale=0.02)
+    return t
+
+
+# --------------------------------------------------------------------------
+# Block application
+# --------------------------------------------------------------------------
+
+
+def _attn_apply(cfg, kind, p, x, positions, mode, cache):
+    B, S, _ = x.shape
+    q = qdot(x, p["wq"])
+    k = qdot(x, p["wk"])
+    v = qdot(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    if cfg.gqa_flat and cfg.n_kv_heads < cfg.n_heads and mode != "decode":
+        rep = cfg.n_heads // cfg.n_kv_heads
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+
+    rot = int(cfg.d_head * cfg.rope_frac)
+
+    def apply_rope(t):
+        if rot == t.shape[-1]:
+            return attn_lib.rope(t, positions, cfg.rope_theta)
+        t_rot = attn_lib.rope(t[..., :rot], positions, cfg.rope_theta)
+        return torch.cat([t_rot, t[..., rot:]], dim=-1)
+
+    q = apply_rope(q)
+    k = apply_rope(k)
+
+    new_cache = None
+    if mode == "decode":
+        kv_inv_scale = None
+        if cfg.kv_cache_bits == 8:
+            k = torch.clamp(torch.round(k.float() * cfg.kv_scale), -127, 127)
+            v = torch.clamp(torch.round(v.float() * cfg.kv_scale), -127, 127)
+            kv_inv_scale = 1.0 / cfg.kv_scale
+        cache = KVCache.append_one(cache, k.to(cache["k"].dtype), v.to(cache["v"].dtype))
+        out = attn_lib.decode_attend(
+            q, cache, softcap=cfg.attn_softcap, window=kind.window, kv_inv_scale=kv_inv_scale
+        )
+        new_cache = cache
+    else:
+        attend_fn = attn_lib.attend_chunked if S >= 4096 else attn_lib.attend
+        out = attend_fn(
+            q, k, v, mask=AttnMask(causal=True, window=kind.window), q_positions=positions,
+            k_positions=positions, softcap=cfg.attn_softcap,
+        )
+        new_cache = {
+            "k": k.to(cfg.compute_dtype),
+            "v": v.to(cfg.compute_dtype),
+            "len": torch.full((B,), S, dtype=torch.int32, device=x.device),
+        }
+    out = out.reshape(B, S, cfg.n_heads * cfg.d_head)
+    return qdot(out, p["wo"]), new_cache
+
+
+def _block_apply(cfg, kind, p, x, positions, mode, cache):
+    """Pre-norm block. Returns (x, new_cache)."""
+    h = rms_norm(x, p["norm1"])
+    mix, new_cache = _attn_apply(cfg, kind, p["attn"], h, positions, mode, cache)
+    if cfg.sandwich_norm:
+        mix = rms_norm(mix, p["post_norm1"])
+    x = x + mix
+    if cfg.d_ff > 0:
+        h = rms_norm(x, p["norm2"])
+        ff = mlp_apply(MLPConfig(cfg.d_model, cfg.d_ff, cfg.act), p["mlp"], h)
+        if cfg.sandwich_norm:
+            ff = rms_norm(ff, p["post_norm2"])
+        x = x + ff
+    return x, new_cache
+
+
+# --------------------------------------------------------------------------
+# Full passes
+# --------------------------------------------------------------------------
+
+
+def _embed_tokens(cfg, params, tokens):
+    # index first, then cast: the same values as casting the whole table first
+    h = params["embed"][tokens].to(cfg.compute_dtype)
+    if cfg.embed_scale:
+        h = h * torch.tensor(cfg.d_model**0.5, dtype=cfg.compute_dtype, device=h.device)
+    return h
+
+
+def _logits(cfg, params, h):
+    h = rms_norm(h, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.matmul(h.to(torch.float32), head.to(torch.float32))
+    if cfg.logit_softcap is not None:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+def _group(tree, g: int):
+    """Group ``g``'s slice of every stacked leaf (views, no copy)."""
+    return tree_map(lambda _, t: t.layer(g) if isinstance(t, QTensor) else t[g], tree)
+
+
+def _scan_blocks(cfg, params, h, positions, mode, caches):
+    """Loop over repeat groups; within a group, pattern positions unroll.
+
+    decode: ``caches`` are updated in place and returned.  prefill: returns
+    the new exact-length caches, stacked over groups.
+    """
+    pattern = layer_pattern(cfg)
+    new = {f"pos{i}": [] for i in range(len(pattern))}
+    for g in range(n_groups(cfg)):
+        block_params = _group(params["blocks"], g)
+        group_caches = None if caches is None else _group(caches, g)
+        for i, kind in enumerate(pattern):
+            cache_i = None if group_caches is None else group_caches[f"pos{i}"]
+            h, new_cache = _block_apply(
+                cfg, kind, block_params[f"pos{i}"], h, positions, mode, cache_i
+            )
+            new[f"pos{i}"].append(new_cache)
+    if mode == "decode":
+        return h, caches
+    stacked = {
+        pos: {name: torch.stack([c[name] for c in per_group]) for name in per_group[0]}
+        for pos, per_group in new.items()
+    }
+    return h, stacked
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor):
+    """Full-context forward that also returns per-layer caches.
+
+    tokens [B, S] -> (logits [B, 1, V] of the last position, caches with
+    exact-length K/V [groups, B, S, Hk, D]).
+    """
+    _check_supported(cfg)
+    h = _embed_tokens(cfg, params, tokens)
+    S = h.shape[1]
+    positions = torch.arange(S, device=h.device)
+    h, caches = _scan_blocks(cfg, params, h, positions, "prefill", None)
+    return _logits(cfg, params, h[:, -1:, :]), caches
+
+
+def decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor, cur_len: torch.Tensor):
+    """One-token decode. tokens [B, 1]; cur_len [B] current context length.
+
+    Appends each slot's K/V to ``caches`` in place; returns (logits [B, 1, V], caches).
+    """
+    _check_supported(cfg)
+    h = _embed_tokens(cfg, params, tokens)
+    positions = cur_len[:, None]  # [B, 1]
+    h, caches = _scan_blocks(cfg, params, h, positions, "decode", caches)
+    return _logits(cfg, params, h), caches
+
+
+def cache_template(cfg: ModelConfig, batch: int, max_len: int):
+    """{pos: {name: (shape, dtype)}} of the stacked decode caches."""
+    _check_supported(cfg)
+    ng = n_groups(cfg)
+    kv_dtype = torch.int8 if cfg.kv_cache_bits == 8 else cfg.compute_dtype
+    one = KVCache.template(batch, max_len, cfg.n_kv_heads, cfg.d_head, kv_dtype)
+    return {
+        f"pos{i}": {name: ((ng, *shape), dt) for name, (shape, dt) in one.items()}
+        for i in range(len(layer_pattern(cfg)))
+    }
+
+
+def cache_init(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
+    return {
+        pos: {name: torch.zeros(shape, dtype=dt, device=device) for name, (shape, dt) in c.items()}
+        for pos, c in cache_template(cfg, batch, max_len).items()
+    }

@@ -148,3 +148,190 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
     for uid in range(len(rasters)):
         np.testing.assert_array_equal(gpu[uid].spike_counts, cpu[uid].spike_counts)
         assert gpu[uid].route == cpu[uid].route
+
+
+# ---------------------------------------------------------------------------
+# LM slice: quant_matmul, flash_attention, the model and the serving engine
+# ---------------------------------------------------------------------------
+
+# (bits, M, K, N, dtype): the QM_CASES of tests/test_kernels.py, then ragged
+# M / K / N, int4 with N even but not a multiple of the 64-column tile, and
+# the full-width decode shapes
+QM_CARD_CASES = [
+    (8, 256, 1024, 256, torch.bfloat16),
+    (8, 128, 512, 128, torch.float32),
+    (6, 128, 512, 128, torch.bfloat16),
+    (5, 128, 1024, 256, torch.bfloat16),
+    (4, 128, 512, 256, torch.bfloat16),
+    (4, 256, 1536, 512, torch.bfloat16),
+    (8, 5, 96, 24, torch.bfloat16),
+    (4, 7, 33, 70, torch.float32),
+    (8, 8, 2048, 5632, torch.bfloat16),
+    (4, 8, 5632, 2048, torch.bfloat16),
+]
+
+
+def _qm_tol(dtype):
+    # f32 accumulation in another K order than the plain version: up to 2
+    # bf16 ulps after the final cast (tests/test_kernels.py), f32 noise else
+    return dict(rtol=2**-7 if dtype == torch.bfloat16 else 1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bits,M,K,N,dtype", QM_CARD_CASES)
+def test_quant_matmul_kernel_matches_plain(cuda, bits, M, K, N, dtype):
+    from repro_torch.core.precision import quantize_weight
+    from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+    rng = np.random.default_rng(bits * M + N)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.02).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dtype)
+    qt = quantize_weight(w, bits)
+    want = quant_matmul_ref(x, qt.q, qt.scale, bits, dtype)  # on the CPU
+    n0 = quant_matmul.launches
+    got = quant_matmul(x.to(cuda), qt.q.to(cuda), qt.scale.to(cuda), bits=bits)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == n0 + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(), **_qm_tol(dtype))
+    out32 = quant_matmul(x.to(cuda), qt.q.to(cuda), qt.scale.to(cuda), bits=bits,
+                         out_dtype=torch.float32)
+    want32 = quant_matmul_ref(x, qt.q, qt.scale, bits, torch.float32)
+    torch.testing.assert_close(out32.cpu(), want32, rtol=1e-5, atol=1e-5)
+
+
+def _fa_tol(dtype):
+    # the kernel keeps scores, probabilities and the accumulator in f32 like
+    # its plain version: bf16 outputs differ by at most one rounding of the
+    # final cast (one ulp, <= 2^-7 |want|); the atol, for values near zero,
+    # is far below a 4096-key row's typical |output| (~0.02); f32: the same
+    # math in another order
+    if dtype == torch.bfloat16:
+        return dict(rtol=2**-7, atol=2e-3)
+    return dict(rtol=1e-4, atol=1e-4)
+
+
+FA_CARD_CASES = [
+    ((2, 4, 4, 512, 512, 64), dict(causal=True)),
+    ((1, 2, 2, 1024, 1024, 128), dict(causal=True, window=256)),
+    ((1, 2, 2, 512, 512, 64), dict(causal=True, softcap=50.0)),
+    ((1, 2, 2, 256, 512, 64), dict(causal=False)),
+    ((1, 1, 1, 256, 256, 128), dict(causal=True, window=64, softcap=30.0)),
+    ((2, 4, 4, 300, 300, 64), dict(causal=True)),  # ragged Sq = Sk
+    ((1, 3, 3, 77, 130, 32), dict(causal=False, window=20)),  # ragged, D < 64
+    ((1, 8, 2, 200, 200, 96), dict(causal=True)),  # GQA, D between the kernel's two widths
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,kwargs", FA_CARD_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, shape, kwargs, dtype):
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+
+    B, Hq, Hk, Sq, Sk, D = shape
+    rng = np.random.default_rng(Sq + D)
+    mk = lambda h, s: torch.from_numpy(rng.standard_normal((B, h, s, D)).astype(np.float32)).to(dtype)
+    q, k, v = mk(Hq, Sq), mk(Hk, Sk), mk(Hk, Sk)
+    want = flash_attention(q, k, v, **kwargs)  # the CPU: plain version
+    n0 = flash_attention.launches
+    got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), **kwargs)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(), **_fa_tol(dtype))
+
+
+def test_flash_attend_gqa_model_layout_matches_attend(cuda):
+    from repro_torch.kernels.flash_attention.ops import flash_attend
+    from repro_torch.models.attention import AttnMask, attend
+
+    rng = np.random.default_rng(9)
+    mk = lambda h: torch.from_numpy(rng.standard_normal((2, 256, h, 64)).astype(np.float32)).to(
+        torch.bfloat16
+    )
+    q, k, v = mk(8), mk(2), mk(2)
+    want = attend(q, k, v, mask=AttnMask(causal=True))
+    got = flash_attend(q.to(cuda), k.to(cuda), v.to(cuda), causal=True)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 256, 8, 64) and got.is_contiguous()  # written in model layout
+    torch.testing.assert_close(got.cpu().float(), want.float(), **_fa_tol(torch.bfloat16))
+
+
+def test_lm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul
+    from repro_torch.models.attention import attend_chunked
+
+    q8 = torch.ones(16, 8, dtype=torch.int8, device=cuda)
+    s = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(torch.ones(16, 3, device=cuda).t(), q8, s)
+    with pytest.raises(ValueError, match="bf16/f32"):
+        quant_matmul(torch.ones(3, 16, device=cuda, dtype=torch.float16), q8, s)
+    with pytest.raises(ValueError, match="int8 q"):
+        quant_matmul(torch.ones(3, 16, device=cuda), q8.to(torch.int32), s)
+    x = torch.ones(1, 2, 8, 160, device=cuda)
+    with pytest.raises(ValueError, match="D <= 128"):
+        flash_attention(x, x, x)
+    x = torch.ones(1, 2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="one bf16/f32 dtype"):
+        flash_attention(x, x.to(torch.bfloat16), x)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(x, x, torch.ones(1, 2, 16, 8, device=cuda).transpose(2, 3))
+    qm = torch.ones(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="positions 0..S-1"):
+        attend_chunked(qm, qm, qm, q_positions=torch.arange(3, 11, device=cuda))
+
+
+def _lm(cuda_dev, compute=torch.float32, bits=8, **overrides):
+    import dataclasses
+
+    from repro_torch.core.precision import PrecisionPolicy, QTensor, quantize_tree, tree_map
+    from repro_torch.launch.serve import QUANT_RULES
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch("stablelm-1.6b")
+    cfg = dataclasses.replace(arch.reduced_config, compute_dtype=compute, **overrides)
+    params = arch.init_params(torch.Generator().manual_seed(0), cfg)
+    qp = quantize_tree(params, PrecisionPolicy(rules=((QUANT_RULES[0], bits),)))
+    qp_gpu = tree_map(lambda _, t: t.to(cuda_dev) if isinstance(t, (torch.Tensor, QTensor)) else t, qp)
+    return dataclasses.replace(arch, reduced_config=cfg), cfg, qp, qp_gpu
+
+
+def test_decode_and_prefill_on_the_card_match_the_cpu(cuda):
+    """f32 compute: the card (both kernels) against the CPU (plain
+    versions); prefill at S = 4096 goes through attend_chunked -> flash."""
+    from repro_torch import kernels
+    from repro_torch.models import transformer as tt
+
+    _, cfg, qp, qp_gpu = _lm(cuda)
+    tok = torch.tensor([[3], [77]])
+    cur = torch.tensor([0, 0], dtype=torch.int32)
+    kernels.reset_launch_counts()
+    lg, _ = tt.decode_step(cfg, qp_gpu, tt.cache_init(cfg, 2, 8, cuda), tok.to(cuda), cur.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["quant_matmul"] == 7 * cfg.n_layers
+    lc, _ = tt.decode_step(cfg, qp, tt.cache_init(cfg, 2, 8), tok, cur)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4 * float(lc.abs().max()))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, 4096)))
+    kernels.reset_launch_counts()
+    pg, cg = tt.prefill(cfg, qp_gpu, tokens.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+    pc, cc = tt.prefill(cfg, qp, tokens)
+    torch.testing.assert_close(pg.cpu(), pc, rtol=0, atol=1e-4 * float(pc.abs().max()))
+    torch.testing.assert_close(cg["pos0"]["k"].cpu(), cc["pos0"]["k"], rtol=1e-4, atol=1e-4)
+
+
+def test_lm_serve_engine_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    arch, _, qp, _ = _lm(cuda)
+    prompts = [[1, 2, 3, 4, 5], [7], [8, 9, 10], [1, 2, 3, 4, 5]]
+
+    def serve(device):
+        eng = ServeEngine(arch, qp, max_batch=2, max_len=32, device=device)
+        done = eng.run([Request(uid=i, prompt=np.array(p), max_new_tokens=6) for i, p in enumerate(prompts)])
+        return {r.uid: r.generated for r in done}
+
+    gpu, cpu = serve(cuda), serve("cpu")
+    assert gpu == cpu
+    assert gpu[0] == gpu[3]

@@ -22,8 +22,10 @@ from repro.kernels.sparse_accum.ops import fixed_capacity_events as j_fixed_capa
 from repro.kernels.sparse_accum.ref import sparse_accum_ref as j_sparse_accum_ref
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.lif_scan.lif_scan import lif_scan
 from repro_torch.kernels.lif_scan.ops import fused_lif_window
+from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul
 from repro_torch.kernels.quant_matmul.spike_matmul import spike_integrate, spike_matmul
 from repro_torch.kernels.sparse_accum.ops import fixed_capacity_events, sparse_accum_currents
 from repro_torch.kernels.sparse_accum.sparse_accum import sparse_accum
@@ -230,8 +232,12 @@ def test_wrappers_count_no_launch_on_cpu():
         torch.ones(3, 2, dtype=torch.int32), torch.zeros(3, 2, dtype=torch.int32),
         torch.ones(4, 5, dtype=torch.int32),
     )
+    quant_matmul(torch.ones(3, 4), torch.ones(4, 2, dtype=torch.int8), torch.ones(2), bits=8)
+    flash_attention(torch.ones(1, 2, 3, 4), torch.ones(1, 1, 3, 4), torch.ones(1, 1, 3, 4))
     assert kernels.launch_counts() == before
-    assert set(before) == {"spike_matmul", "lif_scan", "sparse_accum"}
+    assert set(before) == {
+        "spike_matmul", "lif_scan", "sparse_accum", "quant_matmul", "flash_attention",
+    }
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -245,6 +251,11 @@ def test_wrappers_refuse_devices_without_a_kernel():
         sparse_accum(torch.empty(3, 2, dtype=torch.int32, device=m),
                      torch.empty(3, 2, dtype=torch.int32, device=m),
                      torch.empty(4, 5, dtype=torch.int32, device=m))
+    with pytest.raises(ValueError, match="no kernel"):
+        quant_matmul(torch.empty(3, 4, device=m), torch.empty(4, 2, dtype=torch.int8, device=m),
+                     torch.empty(2, device=m))
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention(*(torch.empty(1, 2, 3, 4, device=m) for _ in range(3)))
     with pytest.raises(ValueError, match="do not chain"):
         spike_matmul(torch.ones(3, 4, dtype=torch.int32), torch.ones(5, 2, dtype=torch.int32))
 
