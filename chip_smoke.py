@@ -12,9 +12,11 @@ result line):
    path's shapes -- the three SNN kernels bit for bit, ``quant_matmul``
    (int8 and int4) to the bf16 tolerance of ``tests/test_kernels.py``,
    ``flash_attention`` to one bf16 ulp (and in f32 to 1e-4), with planted
-   faults shown to fail that tolerance -- timed with CUDA events beside its
+   faults shown to fail that tolerance, the two tensor-core kernels shown to
+   give identical bits across launches and ``quant_matmul``'s rows not to
+   depend on M -- timed (device time per call, torch.profiler) beside its
    plain version, a PyTorch library call where one computes the same function,
-   and its roofline bound;
+   and its roofline bound, with the achieved rate and share of the bound;
 3. ``run_int`` of the 256-128-10 LIF network (w6/u16, T=25, random weights
    from a seeded generator) on a ``mnist_like`` batch of 1024 through the
    ``reference``, ``fused`` and ``event`` (pallas strategy) backends: every
@@ -118,9 +120,10 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_ms(fn, reps: int = 15, inner: int = 10, warmup: int = 3) -> float:
-    """Median per-launch milliseconds over ``reps`` CUDA-event windows of
-    ``inner`` back-to-back calls."""
+def stream_ms(fn, reps: int = 15, inner: int = 10, warmup: int = 3) -> float:
+    """Median milliseconds per call over ``reps`` CUDA-event windows of
+    ``inner`` back-to-back calls: device time plus any gap the host leaves
+    between launches."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -136,9 +139,34 @@ def time_ms(fn, reps: int = 15, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def time_ms(fn, reps: int = 15, inner: int = 10, warmup: int = 3) -> float:
+    """Device milliseconds per call: the time the card spent in ``fn``'s
+    kernels and copies (torch.profiler) over ``reps * inner`` calls, divided
+    by the calls.  Host time between launches is left out -- at decode shapes
+    a kernel runs for less time than its Python wrapper takes to launch it.
+    Falls back to :func:`stream_ms` if the profiler sees no device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps * inner):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    return us / 1e3 / (reps * inner) if us > 0 else stream_ms(fn, reps, inner, 0)
+
+
 def bound(n_bytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, ops / ops_rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bits16(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor's bit patterns, so that equality means identical bits."""
+    return t.view(torch.int16)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -322,6 +350,24 @@ def check_quant_matmul(gen, n_layers: int) -> dict:
             torch.cuda.synchronize()
             err = max(err, close(got, want, QM_TOL, f"quant_matmul int{bits} [{M},{K}]x[{K},{N}]"))
             cases[(bits, M, K, N)] = (x, qt)
+    # the same call twice gives the same bits (no float atomics, a fixed
+    # order of the split-K sum); a wide call's rows do not depend on M
+    # (phase 7 needs it of the layer-0 K/V cache)
+    for (bits, M, K, N), (x, qt) in cases.items():
+        if M < 8:
+            continue
+        a, b = (quant_matmul(x, qt.q, qt.scale, bits=bits) for _ in range(2))
+        shape = f"int{bits} [{M},{K}]x[{K},{N}]"
+        check(torch.equal(bits16(a), bits16(b)), f"quant_matmul {shape}: two launches differ")
+        if M == 4096:
+            part = quant_matmul(x[:256].contiguous(), qt.q, qt.scale, bits=bits)
+            same = torch.equal(bits16(part), bits16(a[:256]))
+            check(same, f"quant_matmul {shape}: rows of M = 256 differ from M = 4096's")
+    torch.cuda.synchronize()
+    print(
+        "quant_matmul: two launches bit-identical at the 6 main-path shapes, int8 and int4; "
+        "at the 3 prefill shapes the rows of M = 256 equal the first 256 of M = 4096 bit for bit"
+    )
     rows = {}
     for M, K, N in shapes[:-1]:
         x, qt = cases[(8, M, K, N)]
@@ -335,8 +381,12 @@ def check_quant_matmul(gen, n_layers: int) -> dict:
         q8 = itertools.cycle([(qt.q.clone(), qt.scale.clone()) for _ in range(n)]).__next__
         q4 = itertools.cycle([(qt4.q.clone(), qt4.scale.clone()) for _ in range(n)]).__next__
         wds = itertools.cycle([wd.clone() for _ in range(n)]).__next__
-        b_ms, b_by = bound(2 * M * K + K * N + 4 * N + 2 * M * N, 2 * M * K * N, BF16_TC_FLOPS)
+        ops = 2 * M * K * N
+        n_bytes = {b: 2 * M * K + K * N * b // 8 + 4 * N + 2 * M * N for b in (8, 4)}
+        b_ms, b_by = bound(n_bytes[8], ops, BF16_TC_FLOPS)
+        b4_ms, b4_by = bound(n_bytes[4], ops, BF16_TC_FLOPS)
         r = rows[(M, K, N)] = dict(
+            stream_ms=stream_ms(lambda: quant_matmul(x, *q8(), bits=8), **reps),
             ms=time_ms(lambda: quant_matmul(x, *q8(), bits=8), **reps),
             int4_ms=time_ms(lambda: quant_matmul(x4, *q4(), bits=4), **reps),
             plain_ms=time_ms(lambda: quant_matmul_ref(x, *q8(), 8, torch.bfloat16), **reps),
@@ -345,11 +395,21 @@ def check_quant_matmul(gen, n_layers: int) -> dict:
             bound_by=b_by,
         )
         del q8, q4, wds
+
+        def rate(ms, bits, by, b):
+            if by == "bytes":
+                got = f"{n_bytes[bits] / ms / 1e6:.1f} GB/s"
+            else:
+                got = f"{ops / ms / 1e9:.1f} TFLOP/s"
+            return f"{got}, {b / ms:.4f} of the bound"
+
         print(
             f"kernel quant_matmul [{M},{K}]x[{K},{N}] bf16 x int8"
             f"{' (weights cold in L2)' * (n > 1)}: "
-            f"{r['ms']:.5f} ms "
-            f"(int4 {r['int4_ms']:.5f} ms), plain {r['plain_ms']:.5f} ms, library "
+            f"{r['ms']:.5f} ms ({rate(r['ms'], 8, b_by, b_ms)}; {r['stream_ms']:.5f} ms a call "
+            f"back to back on the stream, host gaps included) "
+            f"(int4 {r['int4_ms']:.5f} ms: {rate(r['int4_ms'], 4, b4_by, b4_ms)}, bound "
+            f"{b4_ms:.5f} ms), plain {r['plain_ms']:.5f} ms, library "
             f"{r['library_ms']:.5f} ms (bf16 matmul of the dequantized weight), bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})"
         )
@@ -433,6 +493,9 @@ def check_flash_attention(gen, n_layers: int) -> dict:
     )
 
     q, k, v = main
+    a, b = (flash_attention(q, k, v, causal=True) for _ in range(2))
+    check(torch.equal(bits16(a), bits16(b)), "flash_attention [1,32,4096,64]: two launches differ")
+    del a, b
     B, H, S, D = q.shape
     ops = 4 * B * H * D * (S * (S + 1) // 2)  # QK^T and PV over the causal pairs only
     b_ms, b_by = bound(4 * q.numel() * 2, ops, BF16_TC_FLOPS)
@@ -449,7 +512,9 @@ def check_flash_attention(gen, n_layers: int) -> dict:
         bound_by=b_by,
     )
     print(
-        f"flash_attention time of one 4096-token prefill ({n_layers} launches): "
+        f"flash_attention [1,32,4096,64] bf16 causal: two launches bit-identical; "
+        f"{ops / row['ms'] / 1e9:.1f} TFLOP/s, {b_ms / row['ms']:.4f} of the bound; time of one "
+        f"4096-token prefill ({n_layers} launches): "
         f"{n_layers * row['ms']:.4f} ms, library {n_layers * row['library_ms']:.4f} ms, "
         f"bound {n_layers * b_ms:.4f} ms"
     )

@@ -3,8 +3,10 @@
 Port of ``repro/kernels/flash_attention/flash_attention.py``; the CUDA
 source is ``csrc/flash_attention.cu`` (one block per (batch, head, 64-query
 tile), the K/V loop inside the block, running max / sum / accumulator in
-registers).  Causal, sliding-window and soft-cap masks; ragged Sq / Sk;
-grouped-query attention by reading kv head ``h // (Hq // Hk)`` directly.
+registers; bf16 on the tensor cores with P split into bf16 hi + lo for the
+P V product, f32 on the CUDA cores).  Causal, sliding-window and soft-cap
+masks; ragged Sq / Sk; grouped-query attention by reading kv head
+``h // (Hq // Hk)`` directly.
 
 For CPU tensors the wrapper runs :func:`~.ref.flash_attention_ref` (with the
 kv heads repeated); for CUDA tensors it launches the kernel or raises.
@@ -61,7 +63,7 @@ def flash_attention(
         raise ValueError(f"flash_attention: the kernel takes 1 <= D <= {_MAX_D}, got {D}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
-    if max(t.numel() for t in (q, k, v)) >= 2**31 or B * Hq > 65535:
+    if max(t.numel() for t in (q, k, v)) >= 2**31 or max(B * Hq, -(-Sq // 64)) > 65535:
         raise ValueError("flash_attention: tensors exceed the kernel's 32-bit indexing or grid")
     out = torch.empty_like(q)  # keeps q's strides, so [B, S, H, D] views stay that layout
     launch = build.entry("flash_attention", "flash_attention_launch", 4, 21, 2)

@@ -1,10 +1,14 @@
 """Activation x int8/int4-weight matmul: the ``quant_matmul`` kernel.
 
 Port of ``repro/kernels/quant_matmul/quant_matmul.py``; the CUDA source is
-``csrc/quant_matmul.cu`` (64 x 64 output tiles, the K loop inside the block
-with an f32 accumulator, the per-column scale in the epilogue).  The kernel
-masks ragged M, N and K itself, so unlike the JAX wrapper there is no
-shape-dependent fallback; int4 needs only an even N.
+``csrc/quant_matmul.cu``.  bf16 activations run on the tensor cores in one
+of two configurations that :func:`plan` picks from the shape alone: *skinny*
+(M <= 64, decode: ``mma.sync`` on 16 x 64 tiles, K split over blocks, the
+partial sums added in a fixed order) and *wide* (M > 64, prefill: ``wgmma``
+on 128 x 128 tiles, the whole K loop in the block, so a row's result does
+not depend on M).  f32 activations keep the first version's CUDA-core
+kernel.  The kernel masks ragged M, N and K itself, so unlike the JAX
+wrapper there is no shape-dependent fallback; int4 needs only an even N.
 
 For CPU tensors the wrapper runs :func:`~.ref.quant_matmul_ref`; for CUDA
 tensors it launches the kernel or raises.
@@ -12,14 +16,75 @@ tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
-__all__ = ["quant_matmul"]
+__all__ = ["QMPlan", "plan", "quant_matmul"]
 
 _DTYPES = (torch.bfloat16, torch.float32)
+
+# The tiles of csrc/quant_matmul.cu, and the card's SM count (H100 SXM)
+SKINNY_MAX_M = 64
+SKINNY_BM, SKINNY_BN, SKINNY_BK = 16, 64, 64
+WIDE_BM, WIDE_BN = 128, 128
+SIMT_BM, SIMT_BN = 64, 64
+N_SMS = 132
+KINDS = {"simt": 0, "skinny": 1, "wide": 2}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class QMPlan:
+    """How one call runs: ``kind`` ("simt", "skinny" or "wide"), the blocks
+    along K (``splits``), the CUDA grid, and the f32 workspace elements
+    (``splits * M * N`` when K is split, else 0)."""
+
+    kind: str
+    splits: int
+    grid: tuple[int, int, int]
+    workspace: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def plan(M: int, K: int, N: int, x_bf16: bool = True) -> QMPlan:
+    """The configuration for an [M, K] x [K, N] call; a function of the shape
+    (and of x's dtype) only.  Skinny calls split K into the fewest power-of-two
+    parts (then as few equal chunks of 64-deep stages) that give at least two
+    blocks per SM; the split depends on K and N, never on M."""
+    if not x_bf16:
+        return QMPlan("simt", 1, (_cdiv(N, SIMT_BN), _cdiv(M, SIMT_BM), 1), 0)
+    if M > SKINNY_MAX_M:
+        return QMPlan("wide", 1, (_cdiv(N, WIDE_BN), _cdiv(M, WIDE_BM), 1), 0)
+    col_blocks, n_stages = _cdiv(N, SKINNY_BN), _cdiv(K, SKINNY_BK)
+    splits = 1
+    while col_blocks * splits < 2 * N_SMS and splits < n_stages:
+        splits *= 2
+    if splits > 1:
+        splits = _cdiv(n_stages, _cdiv(n_stages, splits))  # no empty split
+    grid = (col_blocks, splits, _cdiv(M, SKINNY_BM))
+    return QMPlan("skinny", splits, grid, splits * M * N if splits > 1 else 0)
+
+
+# split-K arrival counters, one per skinny output tile; zero between calls
+# (the last block of a tile resets its counter)
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return c
 
 
 def quant_matmul(
@@ -56,15 +121,23 @@ def quant_matmul(
         raise ValueError(f"quant_matmul: needs int8 q and f32 scale, got {q.dtype}, {scale.dtype}")
     if not (x.is_contiguous() and q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("quant_matmul: operands must be contiguous")
-    if (M + 63) // 64 > 65535:
+    p = plan(M, K, N, x.dtype == torch.bfloat16)
+    if max(p.grid[1:]) > 65535:
         raise ValueError(f"quant_matmul: M={M} exceeds the kernel's grid")
     out = torch.empty(M, N, dtype=out_dtype, device=x.device)
-    launch = build.entry("quant_matmul", "quant_matmul_launch", 4, 6)
+    if p.splits > 1:
+        partial = torch.empty(p.workspace, dtype=torch.float32, device=x.device)
+        counters = _counters(x.device, p.grid[0] * p.grid[2])
+        extra = (partial.data_ptr(), counters.data_ptr())
+    else:
+        extra = (None, None)
+    launch = build.entry("quant_matmul", "quant_matmul_launch", 6, 8)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = launch(
-            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, N, bits,
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), stream,
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), *extra, M, K, N, bits,
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), KINDS[p.kind],
+            p.splits, stream,
         )
         build.check(code, "quant_matmul")
     quant_matmul.launches += 1

@@ -168,6 +168,18 @@ QM_CARD_CASES = [
     (4, 7, 33, 70, torch.float32),
     (8, 8, 2048, 5632, torch.bfloat16),
     (4, 8, 5632, 2048, torch.bfloat16),
+    # split-K edges: K not a multiple of the 64-deep stage or of the split
+    # chunk (the last split shorter), a split one stage deep, M at the skinny
+    # limit; then unaligned rows (K % 8, N % 16 int8, N % 32 int4) in bf16
+    # through the predicated scalar loads, in both regimes
+    (8, 8, 1000, 2048, torch.bfloat16),
+    (8, 3, 4104, 320, torch.bfloat16),
+    (4, 64, 130, 4096, torch.bfloat16),
+    (8, 7, 33, 70, torch.bfloat16),
+    (4, 7, 33, 70, torch.bfloat16),
+    (6, 9, 1030, 998, torch.bfloat16),
+    (8, 100, 77, 50, torch.bfloat16),
+    (4, 130, 1030, 998, torch.bfloat16),
 ]
 
 
@@ -199,6 +211,70 @@ def test_quant_matmul_kernel_matches_plain(cuda, bits, M, K, N, dtype):
     torch.testing.assert_close(out32.cpu(), want32, rtol=1e-5, atol=1e-5)
 
 
+def _qm_case(bits, M, K, N, seed, dtype=torch.bfloat16):
+    from repro_torch.core.precision import quantize_weight
+
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.02).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dtype)
+    return x, quantize_weight(w, bits)
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
+
+
+@pytest.mark.parametrize(
+    "bits,M,K,N", [(8, 8, 2048, 5632), (4, 8, 5632, 2048), (8, 300, 2048, 2048), (4, 300, 1024, 640)]
+)
+def test_quant_matmul_identical_across_launches(cuda, bits, M, K, N):
+    from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul
+
+    x, qt = _qm_case(bits, M, K, N, seed=N)
+    args = (x.to(cuda), qt.q.to(cuda), qt.scale.to(cuda))
+    first = quant_matmul(*args, bits=bits)
+    again = [quant_matmul(*args, bits=bits) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(first), _bits(a)) for a in again)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_rows_independent_at_decode(cuda, bits):
+    """Row 3 of a decode call keeps its bits when the other rows change and
+    when it is the only row (the split of K depends on K and N alone)."""
+    from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul
+
+    M, K, N = 8, 2048, 5632
+    x, qt = _qm_case(bits, M, K, N, seed=bits)
+    x, q, s = x.to(cuda), qt.q.to(cuda), qt.scale.to(cuda)
+    base = quant_matmul(x, q, s, bits=bits)
+    other = x.clone()
+    other[torch.arange(M, device=cuda) != 3] = torch.randn(M - 1, K, device=cuda).to(x.dtype)
+    changed = quant_matmul(other, q, s, bits=bits)
+    alone = quant_matmul(x[3:4].contiguous(), q, s, bits=bits)
+    torch.cuda.synchronize()
+    assert not torch.equal(_bits(base[0]), _bits(changed[0]))
+    assert torch.equal(_bits(base[3]), _bits(changed[3]))
+    assert torch.equal(_bits(base[3]), _bits(alone[0]))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_rows_do_not_depend_on_m_in_the_wide_regime(cuda, bits):
+    """A 4096-token prefill's first 256 rows equal a 256-token prefill's bit
+    for bit (chip_smoke phase 7 needs it of the layer-0 K/V cache)."""
+    from repro_torch.kernels.quant_matmul.quant_matmul import plan, quant_matmul
+
+    K, N = 2048, 2048
+    x, qt = _qm_case(bits, 4096, K, N, seed=bits + 1)
+    x, q, s = x.to(cuda), qt.q.to(cuda), qt.scale.to(cuda)
+    full = quant_matmul(x, q, s, bits=bits)
+    for M in (256, 65 + 128):
+        assert plan(M, K, N).kind == "wide"
+        part = quant_matmul(x[:M].contiguous(), q, s, bits=bits)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(part), _bits(full[:M]))
+
+
 def _fa_tol(dtype):
     # the kernel keeps scores, probabilities and the accumulator in f32 like
     # its plain version: bf16 outputs differ by at most one rounding of the
@@ -219,6 +295,13 @@ FA_CARD_CASES = [
     ((2, 4, 4, 300, 300, 64), dict(causal=True)),  # ragged Sq = Sk
     ((1, 3, 3, 77, 130, 32), dict(causal=False, window=20)),  # ragged, D < 64
     ((1, 8, 2, 200, 200, 96), dict(causal=True)),  # GQA, D between the kernel's two widths
+    # Sq != Sk both ways (queries past Sk see every key), D = 32 / 96 / 128
+    ((1, 4, 4, 100, 600, 64), dict(causal=True)),
+    ((1, 4, 2, 600, 100, 64), dict(causal=True)),
+    ((2, 2, 2, 300, 517, 64), dict(causal=False, window=128)),
+    ((1, 2, 2, 333, 333, 32), dict(causal=True)),
+    ((1, 2, 1, 257, 257, 96), dict(causal=True, softcap=20.0)),
+    ((1, 2, 2, 520, 520, 128), dict(causal=True)),
 ]
 
 
@@ -237,6 +320,21 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, kwargs, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1 and got.dtype == dtype
     torch.testing.assert_close(got.cpu().float(), want.float(), **_fa_tol(dtype))
+
+
+def test_flash_attention_identical_across_launches(cuda):
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+
+    rng = np.random.default_rng(21)
+    mk = lambda h: torch.from_numpy(rng.standard_normal((1, h, 1024, 64)).astype(np.float32)).to(
+        device=cuda, dtype=torch.bfloat16
+    )
+    q, k, v = mk(8), mk(2), mk(2)
+    for kw in (dict(causal=True), dict(causal=True, window=100, softcap=30.0)):
+        first = flash_attention(q, k, v, **kw)
+        again = [flash_attention(q, k, v, **kw) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(_bits(first), _bits(a)) for a in again)
 
 
 def test_flash_attend_gqa_model_layout_matches_attend(cuda):
