@@ -9,7 +9,12 @@ result line):
 1. the card (``nvidia-smi`` name and power limit) and the nvcc build of the
    five CUDA kernels from ``src/repro_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card at the main
-   path's shapes -- the three SNN kernels bit for bit, ``quant_matmul``
+   path's shapes -- the three SNN kernels bit for bit (``spike_matmul`` at
+   its four main-path shapes, on a mixed raster, a graded serving tick and
+   the 2^27 wraparound, and under the CUDA cores' int32 floor at
+   [25600,256]x[256,128], which only its tensor-core route can reach;
+   ``sparse_accum`` on binary, graded, over-budget and unsorted lists, timed
+   at E = 2048 and 25600 beside the event encoder), ``quant_matmul``
    (int8 and int4) to the bf16 tolerance of ``tests/test_kernels.py``,
    ``flash_attention`` to one bf16 ulp (and in f32 to 1e-4), with planted
    faults shown to fail that tolerance, the two tensor-core kernels shown to
@@ -22,7 +27,8 @@ result line):
    ``reference``, ``fused`` and ``event`` (pallas strategy) backends: every
    record field identical, and identical to the CPU on a slice;
 4. ``eval_int`` on ``mnist_like(n=4096, T=25)`` at batch 4096 through
-   ``fused`` and ``event``: equal accuracy and event statistics;
+   ``fused`` and ``event``: equal accuracy and event statistics, then each
+   batch's wall and device-busy time under torch.profiler;
 5. ``SNNServeEngine`` (64 lanes, pallas event backend) on 256 ragged
    requests -- sparse, dense and graded -- each bit-exact with a serial
    ``run_int(reference)`` of its own raster;
@@ -40,12 +46,15 @@ result line):
 8. the card against the CPU at full width and 2 layers: one ``decode_step``
    of 2 slots and one ``prefill`` of 4096 tokens (the CPU runs the plain
    versions);
-9. a ``kernels`` JSON line (launches on phases 3-7, times, bounds);
+9. a ``kernels`` JSON line (launches on phases 3-7, times, bounds); phases
+   3-5 also print the SNN kernels' launches by size;
 10. the result line.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -182,16 +191,43 @@ def fits_int8(*ts) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def share(bound_ms: float, ms: float) -> str:
+    return f"{bound_ms / ms:.4f}"
+
+
+# spike_matmul's (M, K, N) on the main path: the reference backend's
+# per-step product (B = 1024), the fused window of phases 3-4 (T = 25 x B =
+# 1024 and 4096) for each layer (256 -> 128, 128 -> 10)
+SPIKE_SHAPES = [(1024, 256, 128), (25600, 256, 128), (102400, 256, 128), (25600, 128, 10)]
+# the int32 CUDA cores' floor for [25600,256]x[256,128]: 2 M K N / 33.5 TOP/s
+SPIKE_INT32_FLOOR_MS = 2 * 25600 * 256 * 128 / INT32_OPS_S * 1e3
+
+
+def mixed_raster(gen, M: int, K: int) -> torch.Tensor:
+    """Binary spikes (rate 0.12) with a graded value of 128..3999 in 8 of
+    the 16-row strips, which sends those strips' chunk to byte planes."""
+    s = (torch.rand(M, K, device=DEVICE, generator=gen) < 0.12).to(torch.int32)
+    strips = torch.randperm(M // 16, device=DEVICE, generator=gen)[:8]
+    for i, strip in enumerate(strips.tolist()):
+        s[16 * strip + i % 16, (37 * i) % K] = 128 + 483 * i
+    return s
+
+
 def check_spike_matmul(gen, w_main) -> dict:
+    """Bit for bit against plain at every main-path shape (binary x w6, one
+    int8 tensor-core pass), on a mixed raster and a graded serving tick (byte
+    planes), a ragged graded case with wide weights and the 2^27 wraparound
+    (CUDA cores); each main-path shape timed beside ``torch._int_mm`` and its
+    bound."""
     dev = DEVICE
-    err = 0
-    spikes = (torch.rand(25 * 1024, 256, device=dev, generator=gen) < 0.12).to(torch.int32)
-    cases = [
-        (spikes, w_main[0]),
-        (
-            (torch.rand(25 * 1024, 128, device=dev, generator=gen) < 0.1).to(torch.int32),
-            w_main[1],
-        ),
+    w_of = {w.shape: w for w in w_main}
+    main = {
+        (M, K, N): (torch.rand(M, K, device=dev, generator=gen) < 0.12).to(torch.int32)
+        for M, K, N in SPIKE_SHAPES
+    }
+    mixed = mixed_raster(gen, 25600, 256)
+    cases = [(s, w_of[(K, N)]) for (M, K, N), s in main.items()] + [
+        (mixed, w_of[(256, 128)]),
         (
             torch.randint(0, 4, (77, 33), device=dev, generator=gen, dtype=torch.int32),
             torch.randint(-500, 500, (33, 19), device=dev, generator=gen, dtype=torch.int32),
@@ -201,29 +237,67 @@ def check_spike_matmul(gen, w_main) -> dict:
             torch.full((16, 8), 2**27, dtype=torch.int32, device=dev),
         ),
     ]
+    err = 0
     for s, w in cases:
         got, want = spike_matmul(s, w), spike_matmul_plain(s, w)
         torch.cuda.synchronize()
         err = max(err, max_abs_err(got, want))
         check(torch.equal(got, want), f"spike_matmul {tuple(s.shape)}x{tuple(w.shape)} != plain")
-    check(int(spike_matmul(*cases[3])[0, 0]) == -(2**31), "spike_matmul wraparound")
-    s, w = cases[0]
-    M, K = s.shape
-    N = w.shape[1]
-    s8, w8 = s.to(torch.int8), w.to(torch.int8)
-    check(torch.equal(torch._int_mm(s8, w8), spike_matmul(s, w)), "library _int_mm != kernel")
-    rate = INT8_TC_OPS_S if fits_int8(s, w) else INT32_OPS_S
-    b_ms, b_by = bound(4 * (M * K + K * N + M * N), 2 * M * K * N, rate)
+    check(int(spike_matmul(*cases[-1])[0, 0]) == -(2**31), "spike_matmul wraparound")
+    check(not fits_int8(mixed), "the mixed raster holds values above int8")
+    rows = {}
+    for (M, K, N), s in main.items():
+        w = w_of[(K, N)]
+        check(fits_int8(s, w), f"[{M},{K}]x[{K},{N}]: binary x w6 fits int8")
+        s8, w8 = s.to(torch.int8), w.to(torch.int8)
+        lib = None
+        if N % 8 == 0:  # torch._int_mm takes N % 8 == 0 only
+            check(torch.equal(torch._int_mm(s8, w8), spike_matmul(s, w)), "_int_mm != kernel")
+            lib = time_ms(lambda: torch._int_mm(s8, w8))
+        b_ms, b_by = bound(4 * (M * K + K * N + M * N), 2 * M * K * N, INT8_TC_OPS_S)
+        r = rows[(M, K, N)] = dict(
+            ms=time_ms(lambda: spike_matmul(s, w)), library_ms=lib, bound_ms=b_ms, bound_by=b_by
+        )
+        print(
+            f"kernel spike_matmul [{M},{K}]x[{K},{N}] binary x w6: {r['ms']:.5f} ms, "
+            f"{4 * (M * K + K * N + M * N) / r['ms'] / 1e6:.1f} GB/s, "
+            f"{share(b_ms, r['ms'])} of the bound {b_ms:.5f} ms ({b_by}); library "
+            + (f"{lib:.5f} ms (torch._int_mm, int8)" if lib is not None else "none (N % 8 != 0)")
+        )
+    w = w_of[(256, 128)]
+    mixed_ms = time_ms(lambda: spike_matmul(mixed, w))
+    print(
+        f"kernel spike_matmul [25600,256]x[256,128] mixed raster (8 strips with graded values in "
+        f"byte planes, the rest in one int8 pass): bit-identical to plain, {mixed_ms:.5f} ms"
+    )
+    # phase 5's int32 serving ticks: 64 lanes of graded values up to 3999,
+    # every strip in byte planes
+    graded = torch.randint(0, 4000, (64, 256), device=dev, generator=gen, dtype=torch.int32)
+    graded *= (torch.rand(64, 256, device=dev, generator=gen) < 0.35).to(torch.int32)
+    same = torch.equal(spike_matmul(graded, w), spike_matmul_plain(graded, w))
+    check(same, "spike_matmul graded tick != plain")
+    print(
+        f"kernel spike_matmul [64,256]x[256,128] graded (an int32 serving tick, byte planes): "
+        f"bit-identical to plain, {time_ms(lambda: spike_matmul(graded, w)):.5f} ms"
+    )
+    key = (25600, 256, 128)
+    r = rows[key]
+    check(
+        r["ms"] < SPIKE_INT32_FLOOR_MS,
+        f"spike_matmul {key}: {r['ms']:.5f} ms is not under the CUDA cores' int32 floor "
+        f"{SPIKE_INT32_FLOOR_MS:.5f} ms, so the tensor-core route was not taken",
+    )
+    s = main[key]
     return dict(
         name="spike_matmul",
-        shape=f"[{M},{K}]x[{K},{N}] int32",
+        shape="[25600,256]x[256,128] int32, binary x w6",
         replaces="src/repro/kernels/quant_matmul/spike_matmul.py:47",
         max_abs_err=err,
-        ms=time_ms(lambda: spike_matmul(s, w)),
+        ms=r["ms"],
         plain_ms=time_ms(lambda: spike_matmul_plain(s, w), reps=5, inner=2),
-        library_ms=time_ms(lambda: torch._int_mm(s8, w8)),
-        bound_ms=b_ms,
-        bound_by=b_by,
+        library_ms=r["library_ms"],
+        bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"],
     )
 
 
@@ -259,7 +333,21 @@ def check_lif_scan(gen) -> dict:
     )
 
 
+def phase3_events() -> tuple[torch.Tensor, int]:
+    """Layer 0's input raster of phase 3 (mnist_like, 1024 samples x T = 25,
+    flattened to [25600, 256]) and the event budget the pallas event backend
+    measures for it."""
+    ds = mnist_like(n=1024, T=25, seed=1)
+    flat = raster_tensor(ds.spikes.transpose(1, 0, 2), DEVICE).reshape(-1, ds.spikes.shape[2])
+    k_max = int((flat != 0).sum(-1).max())
+    return flat, EventBackend(strategy="pallas").static_budget(flat.shape[1], k_max=k_max)
+
+
 def check_sparse_accum(gen, w0) -> dict:
+    """Bit for bit against plain and the dense product on binary, graded,
+    over-budget and unsorted event lists at the serving shape (E = 2048);
+    timed there and at phase 3's E = 25600 beside ``embedding_bag`` and the
+    bound, with the encoder's time beside it at E = 2048."""
     E, n_in = 32 * 64, 256
     budget = BINARY_SERVE_BUDGET
     binary = (torch.rand(E, n_in, device=DEVICE, generator=gen) < 0.10).to(torch.int32)
@@ -274,25 +362,56 @@ def check_sparse_accum(gen, w0) -> dict:
         err = max(err, max_abs_err(got, want))
         check(torch.equal(got, want), f"sparse_accum {name} != plain")
     check(int((binary != 0).sum(-1).max()) <= budget, "binary rows fit the budget")
+    # the same events in each row's slots shuffled: zeros between events
+    vals, idx = fixed_capacity_events(graded, budget)
+    perm = torch.rand(E, budget, device=DEVICE, generator=gen).argsort(dim=1)
+    sv, si = vals.gather(1, perm).contiguous(), idx.gather(1, perm).contiguous()
+    got = sparse_accum(sv, si, w0)
+    check(torch.equal(got, sparse_accum_ref(sv, si, w0)), "sparse_accum unsorted != plain")
+    check(torch.equal(got, spike_matmul(graded, w0)), "sparse_accum unsorted != dense")
     vals, idx = fixed_capacity_events(binary, budget)
     check(torch.equal(sparse_accum(vals, idx, w0), spike_matmul(binary, w0)), "sparse != dense")
-    fw, fv, li = w0.to(torch.float32), vals.to(torch.float32), idx.to(torch.int64)
-    lib = lambda: torch.nn.functional.embedding_bag(li, fw, per_sample_weights=fv, mode="sum")
-    same = torch.equal(lib().to(torch.int32), sparse_accum(vals, idx, w0))
-    check(same, "embedding_bag != kernel")
+
+    flat, budget3 = phase3_events()
+    v3, i3 = fixed_capacity_events(flat, budget3)
+    check(torch.equal(sparse_accum(v3, i3, w0), spike_matmul(flat, w0)), "phase-3 events != dense")
     N = w0.shape[1]
-    nnz = int((vals != 0).sum())
-    b_ms, b_by = bound(4 * (2 * E * budget + n_in * N + E * N), 2 * nnz * N, INT32_OPS_S)
+    rows = {}
+    for (vals, idx) in ((vals, idx), (v3, i3)):
+        Ex, K = vals.shape
+        fw, fv, li = w0.to(torch.float32), vals.to(torch.float32), idx.to(torch.int64)
+        lib = lambda: torch.nn.functional.embedding_bag(li, fw, per_sample_weights=fv, mode="sum")
+        same = torch.equal(lib().to(torch.int32), sparse_accum(vals, idx, w0))
+        check(same, "embedding_bag != kernel")
+        nnz = int((vals != 0).sum())
+        b_ms, b_by = bound(4 * (2 * Ex * K + n_in * N + Ex * N), 2 * nnz * N, INT32_OPS_S)
+        r = rows[Ex] = dict(
+            shape=f"E={Ex} K={K} [{n_in},{N}] int32, {nnz} events",
+            ms=time_ms(lambda: sparse_accum(vals, idx, w0)),
+            library_ms=time_ms(lib),
+            bound_ms=b_ms,
+            bound_by=b_by,
+        )
+        print(
+            f"kernel sparse_accum {r['shape']}: {r['ms']:.5f} ms, {share(b_ms, r['ms'])} of the "
+            f"bound {b_ms:.5f} ms ({b_by}); library {r['library_ms']:.5f} ms (embedding_bag, f32)"
+        )
+    enc_ms = time_ms(lambda: fixed_capacity_events(binary, budget))
+    print(
+        f"sparse serving tick at E={E}: encoder fixed_capacity_events {enc_ms:.5f} ms + "
+        f"sparse_accum {rows[E]['ms']:.5f} ms of device time"
+    )
+    vals, idx = fixed_capacity_events(binary, budget)
     return dict(
         name="sparse_accum",
-        shape=f"E={E} K={budget} [{n_in},{N}] int32, {nnz} events",
+        shape=rows[E]["shape"],
         replaces="src/repro/kernels/sparse_accum/sparse_accum.py:54",
         max_abs_err=err,
-        ms=time_ms(lambda: sparse_accum(vals, idx, w0)),
+        ms=rows[E]["ms"],
         plain_ms=time_ms(lambda: sparse_accum_ref(vals, idx, w0), reps=5, inner=2),
-        library_ms=time_ms(lib),
-        bound_ms=b_ms,
-        bound_by=b_by,
+        library_ms=rows[E]["library_ms"],
+        bound_ms=rows[E]["bound_ms"],
+        bound_by=rows[E]["bound_by"],
     )
 
 
@@ -525,6 +644,49 @@ def check_flash_attention(gen, n_layers: int) -> dict:
 # Phases 3-5: the main path
 # ---------------------------------------------------------------------------
 
+# the sizes each SNN kernel is launched with, as its C entry point takes
+# them: spike_matmul (M, K, N), sparse_accum (E, K, n_in, N)
+TALLY_INTS = {"spike_matmul": 3, "sparse_accum": 4}
+_SIZES = {"open": False, "tally": collections.Counter()}
+
+
+@contextlib.contextmanager
+def launch_sizes():
+    """Count the SNN kernels' launches by size between :func:`reset_counts`
+    and :func:`read_counts`: the wrappers look ``build.entry`` up at every
+    call, so wrapping it sees each launch (their own counts are unchanged)."""
+    real = build.entry
+
+    def entry(name, symbol, n_pointers, n_ints, n_floats=0):
+        fn = real(name, symbol, n_pointers, n_ints, n_floats)
+        if name not in TALLY_INTS:
+            return fn
+
+        def launch(*args):
+            if _SIZES["open"]:
+                _SIZES["tally"][(name, args[n_pointers : n_pointers + TALLY_INTS[name]])] += 1
+            return fn(*args)
+
+        return launch
+
+    with mock.patch.object(build, "entry", entry):
+        yield _SIZES["tally"]
+    _SIZES["open"] = False
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0 and (re)start the size tally."""
+    kernels.reset_launch_counts()
+    _SIZES["tally"].clear()
+    _SIZES["open"] = True
+
+
+def read_counts() -> dict[str, int]:
+    """The wrappers' launch counts; closes the size tally at the same moment,
+    so both cover the same launches."""
+    _SIZES["open"] = False
+    return kernels.launch_counts()
+
 
 def assert_records_equal(a, b, what: str) -> None:
     check(torch.equal(a.spike_counts, b.spike_counts), f"{what}: spike_counts")
@@ -546,7 +708,7 @@ def phase_run_int(net, qparams, qparams_cpu) -> dict:
         ]
     }
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = read_counts()
     ref = recs["reference"]
     check(ref.spike_counts.shape == (len(ds.labels), net.n_classes), "spike_counts shape")
     for name in ("fused", "event-pallas"):
@@ -574,7 +736,7 @@ def phase_eval_int(net, qparams) -> dict:
         results[name] = (acc, stats)
         n = len(ds.labels)
         print(f"eval_int[{name}]: acc {acc:.6f}, {n / dt:.1f} samples/s on the card ({dt:.4f} s)")
-    counts = kernels.launch_counts()
+    counts = read_counts()
     (a0, s0), (a1, s1) = results.values()
     check(a0 == a1, "eval_int accuracy differs across backends")
     check(np.array_equal(s0["input_events_per_step"], s1["input_events_per_step"]), "input stats")
@@ -585,6 +747,10 @@ def phase_eval_int(net, qparams) -> dict:
         f"eval_int: fused == event-pallas; mean input events/step "
         f"{float(s0['input_events_per_step'].mean()):.4f}, layer events/step {mean_events}"
     )
+    # where a 4096-sample batch's time goes (after the counts were read)
+    for name, backend in [("fused", "fused"), ("event-pallas", EventBackend(strategy="pallas"))]:
+        run = lambda: eval_int(net, qparams, ds, batch_size=4096, backend=backend)
+        print(f"eval_int[{name}] batch split: {device_split(run, n=3)}")
     return counts
 
 
@@ -616,11 +782,11 @@ def phase_serve(net, qparams) -> dict:
     check(engine._event_budget == BINARY_SERVE_BUDGET, "serving event budget")
     engine.warmup(include_int32=True)
     reqs = serving_traffic(net.n_in)
-    kernels.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     done = engine.run(reqs)
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = read_counts()
     check(len(done) == len(reqs) and all(r.status == "completed" for r in done), "all served")
     hidden_events = sum(float(r.event_stats["layer_events_per_step"][0].sum()) for r in done)
     check(hidden_events > 0, "the hidden layer never fired while serving")
@@ -761,13 +927,13 @@ def phase_lm_decode(arch, params, bits: int, n_requests: int, max_new: int) -> d
     reqs = lm_requests(n_requests, max_new, arch.config.vocab)
     uids = [u for u in SERIAL_UIDS if u < n_requests] if bits == 8 else []
     rows, slot_of = record_logits(engine, uids)
-    kernels.reset_launch_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = read_counts()
     steps = engine.decode_steps
     check(len(done) == n_requests and all(r.done for r in done), f"int{bits}: all served")
     check(all(len(r.generated) == max_new for r in done), f"int{bits}: token counts")
@@ -867,13 +1033,13 @@ def phase_lm_prefill(arch, qparams) -> dict:
     tokens = torch.from_numpy(np.random.default_rng(12).integers(0, arch.config.vocab, (1, 4096)))
     tokens = tokens.to(DEVICE)
     prefill(qparams, {"tokens": tokens[:, :8]})  # warm-up (S < 4096: no flash launch)
-    kernels.reset_launch_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, caches = prefill(qparams, {"tokens": tokens})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = read_counts()
     L = arch.config.n_layers
     check(counts["flash_attention"] == L, f"prefill: {L} flash_attention launches")
     check(counts["quant_matmul"] == QDOTS_PER_LAYER * L, "prefill: 7 quant_matmul launches a layer")
@@ -1037,9 +1203,13 @@ def main() -> int:
     ]:
         # each phase reads the counts right after driving the main path,
         # before its own checks launch anything
-        kernels.reset_launch_counts()
-        counts = phase()
+        reset_counts()
+        with launch_sizes() as tally:
+            counts = phase()
         print(f"launches[{name}]: {counts}")
+        if tally:
+            by_shape = {f"{k}{list(v)}": n for (k, v), n in sorted(tally.items())}
+            print(f"launches by size[{name}] (the launches counted above): {json.dumps(by_shape)}")
         for k, v in counts.items():
             launches[k] += v
     for k, v in launches.items():

@@ -2,7 +2,9 @@
 
 Port of ``repro/kernels/sparse_accum/sparse_accum.py``; the CUDA source is
 ``csrc/sparse_accum.cu``.  Computes ``out[e] = sum_j vals[e, j] *
-w_q[idx[e, j]]`` in exact int32, skipping zero-valued (padding) slots.
+w_q[idx[e, j]]`` in exact int32, skipping zero-valued (padding) slots
+wherever they lie; the kernel runs a warp per event row, so E sets no grid
+limit.
 
 For a CPU tensor the wrapper runs :func:`sparse_accum_ref`; for a CUDA
 tensor it launches the kernel or raises.
@@ -38,8 +40,8 @@ def sparse_accum(vals: torch.Tensor, idx: torch.Tensor, w_q: torch.Tensor) -> to
     n_in, N = w_q.shape
     if n_in == 0 and K > 0:
         raise ValueError("sparse_accum: an empty weight table cannot take events")
-    if (E + 15) // 16 > 65535:
-        raise ValueError(f"sparse_accum: E={E} exceeds the kernel's grid")
+    if n_in * N >= 2**32:
+        raise ValueError(f"sparse_accum: a weight table of {n_in} x {N} exceeds 32-bit offsets")
     out = torch.empty(E, N, dtype=torch.int32, device=vals.device)
     launch = build.entry("sparse_accum", "sparse_accum_launch", 4, 4)
     with torch.cuda.device(vals.device):

@@ -67,6 +67,69 @@ def test_spike_matmul_kernel_matches_plain(cuda, M, K, N):
     np.testing.assert_array_equal(got.cpu().numpy(), _wrapped_dense(s_np, w_np))
 
 
+def _w6(K, N, seed):
+    return np.random.default_rng(seed).integers(-31, 32, (K, N)).astype(np.int32)
+
+
+@pytest.mark.parametrize(
+    "M,K,N", [(25 * 1024, 256, 128), (25 * 1024, 128, 10), (1000, 520, 130), (40, 30000, 8)]
+)
+def test_spike_matmul_mixed_raster_matches_plain(cuda, M, K, N):
+    """Binary strips in one int8 pass beside strips whose graded values
+    (128..3999, and one of -129) send their chunk to byte planes; K = 30000
+    is too deep for the shared-memory weights and runs on the CUDA cores."""
+    rng = np.random.default_rng(M + K)
+    s_np = _raster(M, K, seed=K, rate=0.12)
+    for strip in rng.choice(M // 16, min(5, M // 16), replace=False):
+        r, k = 16 * strip + rng.integers(0, 16), rng.integers(0, K)
+        s_np[r, k] = rng.integers(128, 4000)
+    s_np[3, K - 1] = -129
+    w_np = _w6(K, N, seed=N)
+    s, w = torch.from_numpy(s_np).to(cuda), torch.from_numpy(w_np).to(cuda)
+    got = spike_matmul(s, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, spike_matmul_plain(s, w))
+    np.testing.assert_array_equal(got.cpu().numpy(), _wrapped_dense(s_np, w_np))
+
+
+@pytest.mark.parametrize("kernel", ["spike_matmul", "sparse_accum"])
+def test_kernels_take_rows_past_the_first_versions_grid(cuda, kernel):
+    """The first versions refused M > 64 * 65535 and E > 16 * 65535; both
+    kernels now loop or launch over rows with no such limit."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    if kernel == "spike_matmul":
+        s = (torch.rand(64 * 65535 + 1, 16, device=cuda, generator=gen) < 0.2).to(torch.int32)
+        w = torch.from_numpy(_w6(16, 8, seed=1)).to(cuda)
+        got = spike_matmul(s, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, spike_matmul_plain(s, w))
+    else:
+        E = 16 * 65535 + 1
+        vals = torch.randint(0, 3, (E, 4), device=cuda, generator=gen, dtype=torch.int32)
+        idx = torch.randint(0, 256, (E, 4), device=cuda, generator=gen, dtype=torch.int32)
+        w = torch.from_numpy(_w6(256, 128, seed=2)).to(cuda)
+        got = sparse_accum(vals, idx, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sparse_accum_ref(vals, idx, w))
+
+
+@pytest.mark.parametrize("N", [128, 40, 11, 300])
+def test_sparse_accum_unsorted_lists_match_plain(cuda, N):
+    """Slots in any order, padding between the events."""
+    rng = np.random.default_rng(N)
+    raster = torch.from_numpy(_raster(2048, 256, seed=N, rate=0.1, max_val=9))
+    vals, idx = fixed_capacity_events(raster, 64)
+    perm = torch.from_numpy(np.argsort(rng.random((2048, 64)), axis=1))
+    vals, idx = vals.gather(1, perm).contiguous(), idx.gather(1, perm).contiguous()
+    assert bool(((vals[:, 0] == 0) & (vals.sum(1) > 0)).any())
+    w = torch.from_numpy(np.random.default_rng(1).integers(-500, 500, (256, N)).astype(np.int32))
+    got = sparse_accum(vals.to(cuda), idx.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), sparse_accum_ref(vals, idx, w))
+    dense = _wrapped_dense(raster.numpy(), w.numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), dense)
+
+
 @pytest.mark.parametrize("T,B,N,theta,k,u_bits,zero", LIF_CASES)
 def test_lif_scan_kernel_matches_plain(cuda, T, B, N, theta, k, u_bits, zero):
     cur = np.random.default_rng(T * N + k).integers(-300, 400, (T, B, N)).astype(np.int32)
@@ -96,6 +159,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         spike_matmul(s.t(), torch.ones(8, 2, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="int32"):
         spike_matmul(s.to(torch.int64), torch.ones(4, 2, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous int32"):
+        sparse_accum(s.t(), s.t(), torch.ones(4, 2, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="contiguous int32"):
         lif_scan(torch.ones(2, 3, 4, device=cuda), theta_q=1, decay_k=0)
 
