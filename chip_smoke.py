@@ -46,9 +46,19 @@ result line):
 8. the card against the CPU at full width and 2 layers: one ``decode_step``
    of 2 slots and one ``prefill`` of 4096 tokens (the CPU runs the plain
    versions);
-9. a ``kernels`` JSON line (launches on phases 3-7, times, bounds); phases
-   3-5 also print the SNN kernels' launches by size;
-10. the result line.
+9. the Flex-plorer DSE at full width (benchmarks/dse_bench.py's 256-128-10
+   LIF network, ATA-F hidden layer, T = 20, 1800 configurations):
+   ``explore_snn`` NSGA-II (population 64, 3 generations, perf and
+   bandwidth terms on) on the card, its population sweep through
+   ``spike_matmul`` and ``lif_scan``; every scored candidate's accuracy and
+   stats equal to serial ``eval_int(reference)``; a repeated search and a
+   search killed after generation 1 and resumed give the identical result;
+   4 candidates x 32 samples card == CPU; the candidate-axis ``lif_scan``
+   bit-identical to its plain version at [64, 20, 231, 10]; the sweep's
+   candidates/s at P = 64 and 512 with its device-busy share;
+10. a ``kernels`` JSON line (launches on phases 3-7 and 9, times, bounds);
+   phases 3-5 and 9 also print the SNN kernels' launches by size;
+11. the result line.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -72,7 +83,21 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import kernels  # noqa: E402
-from repro_torch.core.backend import EventBackend  # noqa: E402
+from repro_torch.core import backend as backend_mod  # noqa: E402
+from repro_torch.core.backend import (  # noqa: E402
+    EventBackend,
+    run_int_population,
+    stack_population,
+)
+from repro_torch.core.flexplorer import explorer as explorer_mod  # noqa: E402
+from repro_torch.core.flexplorer.cost import CostWeights  # noqa: E402
+from repro_torch.core.flexplorer.explorer import (  # noqa: E402
+    EvalSpec,
+    SearchSpec,
+    SNNSearchSpace,
+    explore_snn,
+)
+from repro_torch.core.flexplorer.strategies import NSGAConfig  # noqa: E402
 from repro_torch.core.precision import (  # noqa: E402
     PrecisionPolicy,
     QTensor,
@@ -87,7 +112,12 @@ from repro_torch.core.network import (  # noqa: E402
     quantize_params,
     run_int,
 )
-from repro_torch.core.snn_layer import LayerConfig, NeuronModel  # noqa: E402
+from repro_torch.core.snn_layer import (  # noqa: E402
+    IntLayerParams,
+    LayerConfig,
+    NeuronModel,
+    Topology,
+)
 from repro_torch.data.snn_datasets import mnist_like, raster_tensor  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention  # noqa: E402
@@ -98,6 +128,7 @@ from repro_torch.kernels.lif_scan.ref import lif_scan_ref  # noqa: E402
 from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref  # noqa: E402
 from repro_torch.kernels.quant_matmul.spike_matmul import (  # noqa: E402
+    plan,
     spike_matmul,
     spike_matmul_plain,
 )
@@ -112,7 +143,7 @@ from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.models.registry import get_arch  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.snn_engine import SNNRequest, SNNServeEngine  # noqa: E402
-from repro_torch.snn.train import eval_int  # noqa: E402
+from repro_torch.snn.train import eval_int, eval_int_population  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper, dense, 700 W).
 HBM_BYTES_S = 3.35e12
@@ -319,13 +350,26 @@ def check_lif_scan(gen) -> dict:
     T, B, N = cur.shape
     taps = bin(243).count("1")
     b_ms, b_by = bound(4 * (2 * T * B * N + B * N), T * B * N * (12 + 2 * taps), INT32_OPS_S)
-    kw = dict(theta_q=496, decay_k=243, u_bits=16, reset_to_zero=False)
+    # the kernel alone: theta and the register already on the card, as the
+    # population sweep passes them (a single window is the case P = 1)
+    regs = [torch.tensor([v], dtype=torch.int32, device=DEVICE) for v in (496, 243)]
+    kw = dict(theta_q=regs[0], decay_k=regs[1], u_bits=16, reset_to_zero=False)
+    ms = time_ms(lambda: lif_scan(cur[None], **kw))
+    # the scalar call as FusedBackend makes it (theta a device scalar, the
+    # register an int): the kernel and the fill of the register
+    kw_fused = dict(theta_q=regs[0][0], decay_k=243, u_bits=16, reset_to_zero=False)
+    print(
+        f"lif_scan [{T},{B},{N}] scalar call (theta a device scalar, register an int): "
+        f"{time_ms(lambda: lif_scan(cur, **kw_fused)):.5f} ms device, "
+        f"{stream_ms(lambda: lif_scan(cur, **kw_fused)):.5f} ms per call back to back; "
+        f"the kernel alone {ms:.5f} ms"
+    )
     return dict(
         name="lif_scan",
         shape=f"[{T},{B},{N}] int32, LIF k=243",
         replaces="src/repro/kernels/lif_scan/lif_scan.py:64",
         max_abs_err=err,
-        ms=time_ms(lambda: lif_scan(cur, **kw)),
+        ms=ms,
         plain_ms=time_ms(lambda: lif_scan_ref(cur, 496, 243, 16, False), reps=5, inner=2),
         library_ms=None,
         bound_ms=b_ms,
@@ -645,8 +689,13 @@ def check_flash_attention(gen, n_layers: int) -> dict:
 # ---------------------------------------------------------------------------
 
 # the sizes each SNN kernel is launched with, as its C entry point takes
-# them: spike_matmul (M, K, N), sparse_accum (E, K, n_in, N)
-TALLY_INTS = {"spike_matmul": 3, "sparse_accum": 4}
+# them (positions among its int arguments): spike_matmul (M, K, N, batch,
+# s_batched, w_batched), sparse_accum (E, K, n_in, N), lif_scan (P, T, B*N)
+TALLY_INTS = {
+    "spike_matmul": (0, 1, 2, 6, 7, 8),
+    "sparse_accum": (0, 1, 2, 3),
+    "lif_scan": (0, 1, 2),
+}
 _SIZES = {"open": False, "tally": collections.Counter()}
 
 
@@ -664,7 +713,8 @@ def launch_sizes():
 
         def launch(*args):
             if _SIZES["open"]:
-                _SIZES["tally"][(name, args[n_pointers : n_pointers + TALLY_INTS[name]])] += 1
+                ints = args[n_pointers:]
+                _SIZES["tally"][(name, tuple(ints[i] for i in TALLY_INTS[name]))] += 1
             return fn(*args)
 
         return launch
@@ -1104,7 +1154,7 @@ def phase_lm_card_vs_cpu(arch) -> None:
     cur = torch.zeros(2, dtype=torch.int32)
     caches = tfm.cache_init(cfg, 2, 8, DEVICE)
     lg, _ = tfm.decode_step(cfg, params_gpu, caches, tok.to(DEVICE), cur.to(DEVICE))
-    lc, _ = tfm.decode_step(cfg, params_cpu, tfm.cache_init(cfg, 2, 8), tok, cur)
+    lc, _ = tfm.decode_step(cfg, params_cpu, tfm.cache_init(cfg, 2, 8, device="cpu"), tok, cur)
     d_err, d_n = agree(lg, lc, "decode_step")
     tokens = torch.from_numpy(np.random.default_rng(13).integers(0, cfg.vocab, (1, 4096)))
     kernels.reset_launch_counts()
@@ -1119,6 +1169,255 @@ def phase_lm_card_vs_cpu(arch) -> None:
         f"|logit| ({d_n}/2 greedy tokens decided, equal); prefill S=4096 {p_err:.3e} "
         f"({p_n}/1 decided, equal)"
     )
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the Flex-plorer DSE (population sweep) at full width
+# ---------------------------------------------------------------------------
+
+DSE_T = 20
+DSE_WEIGHTS = dict(c_hw=0.4, c_acc=0.4, c_perf=0.2, c_lat=0.4, c_energy=0.4, c_bw=0.2)
+DSE_CKPT = ROOT / "build" / "dse_checkpoints"  # git-ignored, inside the checkout
+# the sweep's CUDA kernels, as torch.profiler names them
+SWEEP_KERNELS = {"spike_matmul": "spike_matmul_kernel", "lif_scan": "lif_scan_kernel"}
+
+
+class PlantedKill(Exception):
+    """Raised inside a search to stand for the process dying there."""
+
+
+def dse_setup():
+    """benchmarks/dse_bench.py's configuration: the 256-128-10 LIF network
+    with an ATA-F hidden layer, u16, T = 20, on the test split of
+    mnist_like(n=1536, T=20, seed=0); space ff_bits = rec_bits = 2..16,
+    leak_bits = 1..8 (1800 configurations).  Weights are seeded random
+    floats (training is not ported)."""
+    ds = mnist_like(n=1536, T=DSE_T, seed=0)
+    _, test = ds.split()
+    net = NetworkConfig(
+        layers=(
+            LayerConfig(n_in=256, n_out=128, neuron=NeuronModel.LIF, topology=Topology.ATA_F,
+                        w_bits=6, u_bits=16),
+            LayerConfig(n_in=128, n_out=10, neuron=NeuronModel.LIF, w_bits=6, u_bits=16),
+        ),
+        n_steps=DSE_T,
+        name="dse-bench-mnist-256-128-10",
+    )
+    params = init_float_params(torch.Generator().manual_seed(0), net)
+    bits = tuple(range(2, 17))
+    space = SNNSearchSpace(ff_bits=bits, rec_bits=bits, leak_bits=tuple(range(1, 9)))
+    return net, params, test, space
+
+
+def dse_search(net, params, test, space, checkpoint_dir=None):
+    return explore_snn(
+        net, params, test,
+        search=SearchSpec(
+            space=space, weights=CostWeights(**DSE_WEIGHTS), strategy="nsga2",
+            config=NSGAConfig(population=64, generations=3, seed=0),
+            checkpoint_dir=None if checkpoint_dir is None else str(checkpoint_dir),
+        ),
+        evaluate=EvalSpec(batch=max(64, len(test.labels))),
+    )
+
+
+def sweep_profile(net, cands, qps, test, n: int = 3) -> str:
+    """``n`` ``eval_int_population`` calls under torch.profiler: wall and
+    device busy per call, and the launches of each sweep kernel as the
+    profiler saw them beside the wrappers' counts over the same calls.
+    Fails if the profiler saw no launch of a sweep kernel."""
+    before = kernels.launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eval_int_population(
+                net, cands, qps, test, batch_size=len(test.labels), return_stats=True
+            )
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n
+    after = kernels.launch_counts()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6 / n
+    seen = {
+        name: sum(e.count for e in events if sym in e.key) for name, sym in SWEEP_KERNELS.items()
+    }
+    counted = {name: after[name] - before[name] for name in SWEEP_KERNELS}
+    for name, k in seen.items():
+        check(k > 0, f"the profiler saw no {name} launch in the sweep: {[e.key for e in events]}")
+    missed = ""
+    if seen != counted:
+        syms = SWEEP_KERNELS.values()
+        ours = [(e.key[:60], e.count) for e in events if any(y in e.key for y in syms)]
+        missed = f" (the profiler missed launches; its kernel entries: {ours})"
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    names = ", ".join(
+        f"{e.key[:40]} {e.self_device_time_total / 1e3 / n:.3f} ms ({e.count})" for e in top
+    )
+    return (
+        f"wall {wall:.4f} s a sweep under the profiler, device busy {busy:.4f} s "
+        f"({100 * busy / wall:.1f} % busy); launches by kernel over {n} sweeps: profiler "
+        f"{json.dumps(seen)}, wrappers {json.dumps(counted)}{missed}; top device items per "
+        f"sweep (launches over {n}): {names}"
+    )
+
+
+def phase_dse(dse) -> dict:
+    """``explore_snn`` (NSGA-II, population 64, 3 generations, c_perf and c_bw
+    > 0) on the card, then: every scored candidate's sweep accuracy and
+    stats against serial ``eval_int(reference)``, a repeated search, a
+    search killed after generation 1 and resumed, a slice against the CPU,
+    the candidate-axis ``lif_scan`` against its plain version, and the
+    sweep's candidates/s at P = 64 and 512.  Returns the main path's launch
+    counts."""
+    net, params, test, space = dse
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    res = dse_search(net, params, test, space)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["spike_matmul"] > 0 and counts["lif_scan"] > 0, "the sweep ran its kernels")
+    out = res.to_json()
+    cache = res.search.cache
+    check(len(cache) > 64 and res.search.front, "the search scored more than one generation")
+    print(
+        f"dse: explore_snn nsga2 (population 64, 3 generations) over {len(cache)} candidates "
+        f"of 1800 in {wall:.3f} s on the card; best {res.search.best_breakdown}; "
+        f"front {len(res.search.front)} points; report {res.report()}"
+    )
+
+    # every scored candidate: the sweep against serial eval_int(reference)
+    cfgs = list(cache)  # (ff_bits, rec_bits, leak_bits)
+    cands = [net.replace_precisions(w_bits=a, w_rec_bits=b, leak_bits=c) for a, b, c in cfgs]
+    qps = [quantize_params(c, params)[0] for c in cands]
+    batch = len(test.labels)
+    accs, stats = eval_int_population(net, cands, qps, test, batch_size=batch, return_stats=True)
+    t0 = time.perf_counter()
+    for i, (c, q) in enumerate(zip(cands, qps)):
+        acc, st = eval_int(c, q, test, batch_size=batch, return_stats=True, backend="reference")
+        check(acc == accs[i] == cache[cfgs[i]].accuracy, f"candidate {cfgs[i]}: sweep != serial")
+        check(np.array_equal(st["input_events_per_step"], stats[i]["input_events_per_step"]),
+              f"candidate {cfgs[i]}: input stats")
+        for a, b in zip(st["layer_events_per_step"], stats[i]["layer_events_per_step"]):
+            check(np.array_equal(a, b), f"candidate {cfgs[i]}: layer stats sweep != serial")
+    serial_s = time.perf_counter() - t0
+    wide = sum(1 for c in cands if c.layers[0].w_bits > 8)
+    print(
+        f"dse: all {len(cands)} scored candidates ({wide} with weights beyond int8) equal serial "
+        f"eval_int(reference) in accuracy and float32 stats ({serial_s:.3f} s serial); "
+        f"accuracies {sorted(set(np.round(accs, 6).tolist()))[:6]}..."
+    )
+
+    # the sweep's own spike_matmul launches at the search's width (its first
+    # 64 candidates: layer 0 on the shared raster, layer 1 on each
+    # candidate's spikes), each held bit for bit to the plain product
+    seen = []
+
+    def recording(spk, w):
+        got = spike_matmul(spk, w)
+        seen.append((spk, w, got))
+        return got
+
+    with mock.patch.object(backend_mod, "spike_matmul", recording):
+        eval_int_population(net, cands[:64], qps[:64], test, batch_size=batch)
+    check(len(seen) == len(net.layers), "one spike_matmul launch per layer in a sweep")
+    for spk, w, got in seen:
+        P, (M, K), N = w.shape[0], spk.shape[-2:], w.shape[-1]
+        pl = plan(M, K, N, P)
+        check(torch.equal(got, spike_matmul_plain(spk, w)), f"spike_matmul {list(spk.shape)} x "
+              f"{list(w.shape)} (the sweep's) != plain")
+        wide = int((w.abs().amax(dim=(1, 2)) > 127).sum())
+        print(
+            f"kernel spike_matmul {list(spk.shape)}x{list(w.shape)} as the sweep launches it "
+            f"({pl.kind}, bn {pl.bn}, grid {pl.grid[0]}x{pl.grid[1]}x{P}; {wide} candidates' "
+            f"weights beyond int8): bit-identical to plain"
+        )
+
+    # repeatable; killed after generation 1 and resumed
+    again = dse_search(net, params, test, space)
+    check(json.dumps(again.to_json(), sort_keys=True) == json.dumps(out, sort_keys=True),
+          "a second identical search differs")
+    shutil.rmtree(DSE_CKPT, ignore_errors=True)
+    real = explorer_mod.eval_int_population
+    calls = {"n": 0}
+
+    def dies_after_generation_1(*args, **kw):
+        calls["n"] += 1  # sweep 1: the initial population, 2: generation 1
+        if calls["n"] == 3:
+            raise PlantedKill("killed after generation 1")
+        return real(*args, **kw)
+
+    with mock.patch.object(explorer_mod, "eval_int_population", dies_after_generation_1):
+        try:
+            dse_search(net, params, test, space, checkpoint_dir=DSE_CKPT)
+            check(False, "the planted kill did not fire")
+        except PlantedKill:
+            pass
+    resumed = dse_search(net, params, test, space, checkpoint_dir=DSE_CKPT)
+    shutil.rmtree(DSE_CKPT, ignore_errors=True)
+    check(resumed.search.front == res.search.front, "resumed front != uninterrupted front")
+    check(json.dumps(resumed.to_json(), sort_keys=True) == json.dumps(out, sort_keys=True),
+          "resumed search != uninterrupted search")
+    print("dse: a second search gives an identical to_json(); killed after generation 1 "
+          f"(sweep {calls['n']}) and resumed from its checkpoints: identical front and to_json()")
+
+    # a slice on the card against the CPU: 4 candidates x 32 samples
+    x = raster_tensor(test.spikes[:32].transpose(1, 0, 2), DEVICE)
+    sl = slice(0, 4)
+    stacked, b_regs, a_regs = stack_population(cands[sl], qps[sl])
+    c_gpu, e_gpu = run_int_population(net, stacked, b_regs, a_regs, x, return_events=True)
+    qps_cpu = [[IntLayerParams(*(t.cpu() for t in p)) for p in q] for q in qps[sl]]
+    stacked, b_regs, a_regs = stack_population(cands[sl], qps_cpu)
+    c_cpu, e_cpu = run_int_population(net, stacked, b_regs, a_regs, x.cpu(), return_events=True)
+    check(torch.equal(c_gpu.cpu(), c_cpu) and torch.equal(e_gpu.cpu(), e_cpu), "sweep card != CPU")
+    print(f"dse: 4 candidates x 32 samples: counts and emitted totals card == CPU "
+          f"(emitted {int(e_cpu.sum())})")
+
+    # candidate-axis lif_scan at the phase's shape, 64 candidates
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    stacked, b_regs, _ = stack_population(cands[:64], qps[:64])
+    theta, regs = stacked[1].theta_q, b_regs[:, 1].contiguous()
+    P, T, B, N = 64, DSE_T, batch, net.layers[1].n_out
+    cur = torch.randint(-300, 400, (P, T, B, N), device=DEVICE, generator=gen, dtype=torch.int32)
+    s1, u1 = lif_scan(cur, theta_q=theta, decay_k=regs, u_bits=16, reset_to_zero=False)
+    s2, u2 = lif_scan_ref(cur, theta, regs, 16, False)
+    torch.cuda.synchronize()
+    check(torch.equal(s1, s2) and torch.equal(u1, u2), "candidate-axis lif_scan != plain")
+    taps = max(bin(int(k) & 255).count("1") for k in regs.tolist())
+    b_ms, b_by = bound(4 * (2 * P * T * B * N + P * B * N + 2 * P), P * T * B * N * (12 + 2 * taps),
+                       INT32_OPS_S)
+    kw = dict(theta_q=theta, decay_k=regs, u_bits=16, reset_to_zero=False)
+    ms = time_ms(lambda: lif_scan(cur, **kw))
+    plain_ms = time_ms(lambda: lif_scan_ref(cur, theta, regs, 16, False), reps=3, inner=2)
+    print(
+        f"kernel lif_scan [{P},{T},{B},{N}] int32, theta and register per candidate: "
+        f"bit-identical to plain; {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}), {share(b_ms, ms)} of the bound"
+    )
+
+    # the sweep's throughput at P = 64 and 512
+    rng = np.random.default_rng(0)
+    all_cfgs = list(itertools.product(space.ff_bits, space.rec_bits, space.leak_bits))
+    for P in (64, 512):
+        picks = [all_cfgs[i] for i in rng.choice(len(all_cfgs), P, replace=False)]
+        cs = [net.replace_precisions(w_bits=a, w_rec_bits=b, leak_bits=c) for a, b, c in picks]
+        qs = [quantize_params(c, params)[0] for c in cs]
+        eval_int_population(net, cs, qs, test, batch_size=batch)  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eval_int_population(net, cs, qs, test, batch_size=batch, return_stats=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        best = min(times)
+        print(
+            f"dse sweep P={P}: {P / best:.1f} candidates/s ({best:.4f} s per sweep of "
+            f"{batch} samples x T={DSE_T}, best of 3: {[round(t, 4) for t in times]})"
+        )
+        print(f"dse sweep P={P} split: {sweep_profile(net, cs, qs, test)}")
+    print(f"dse: phase 9 took {time.perf_counter() - t_phase:.3f} s")
+    return counts
 
 
 def main() -> int:
@@ -1212,11 +1511,21 @@ def main() -> int:
             print(f"launches by size[{name}] (the launches counted above): {json.dumps(by_shape)}")
         for k, v in counts.items():
             launches[k] += v
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was never launched on the main path")
     del lm_params, lm_int8
     torch.cuda.empty_cache()
     phase_lm_card_vs_cpu(arch)
+
+    dse = dse_setup()
+    reset_counts()
+    with launch_sizes() as tally:
+        counts = phase_dse(dse)
+    print(f"launches[dse]: {counts}")
+    by_shape = {f"{k}{list(v)}": n for (k, v), n in sorted(tally.items())}
+    print(f"launches by size[dse] (the launches counted above): {json.dumps(by_shape)}")
+    for k, v in counts.items():
+        launches[k] += v
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was never launched on the main path")
 
     line = {
         "kernels": [

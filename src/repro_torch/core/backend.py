@@ -31,8 +31,18 @@ TF32.
 The serving seams -- ``batched_lane_init`` / ``batched_lane_window`` /
 ``batched_lane_tick``, ``lane_state_take`` / ``lane_state_put`` and
 ``run_int_batched`` -- advance pools of independent sample lanes; each lane
-is bit-exact with a serial single-sample ``run_int``.  The population sweep
-(``stack_population`` / ``run_int_population``) waits for the DSE slice.
+is bit-exact with a serial single-sample ``run_int``.
+
+The population sweep of the Flex-plorer DSE (``stack_population`` /
+``run_int_population``) scores P precision candidates -- one static network
+structure, different quantized weights, thresholds and CG decay registers --
+at once.  JAX vmaps a step-major program over the candidates; here every
+tensor carries an explicit candidate axis and the traversal is layer-major,
+as in ``fused``: each layer's feed-forward currents for the whole window are
+one ``spike_matmul`` launch over all candidates, a feed-forward IF/LIF
+layer's phase B is one ``lif_scan`` launch with per-candidate theta and
+decay registers read on the device, and every other layer runs the step
+loop with the candidate axis carried through.
 """
 
 from __future__ import annotations
@@ -50,14 +60,17 @@ from repro_torch.core.snn_layer import (
     LayerState,
     ResetMode,
     fused_eligible,
+    _scan_currents,
+    _traced_decays,
     int_layer_init,
     int_layer_step,
+    int_layer_step_dynamic,
     int_layer_window,
     int_layer_window_carry,
     int_layer_window_from_currents,
 )
 from repro_torch.kernels.lif_scan.lif_scan import lif_scan
-from repro_torch.kernels.quant_matmul.spike_matmul import spike_integrate
+from repro_torch.kernels.quant_matmul.spike_matmul import spike_integrate, spike_matmul
 from repro_torch.kernels.sparse_accum.ops import fixed_capacity_events, sparse_accum_currents
 from repro_torch.kernels.sparse_accum.sparse_accum import sparse_accum
 
@@ -76,6 +89,9 @@ __all__ = [
     "lane_state_take",
     "lane_state_put",
     "run_int_batched",
+    "check_population_structure",
+    "stack_population",
+    "run_int_population",
 ]
 
 
@@ -185,7 +201,7 @@ class FusedBackend(InferenceBackend):
 
     Each feed-forward IF/LIF core runs ``spike_integrate`` then ``lif_scan``;
     on the card those launch the ``spike_matmul`` and ``lif_scan`` CUDA
-    kernels (theta is a runtime kernel argument, read once per layer), on
+    kernels (theta is read by the kernel on the device, with no host sync), on
     the CPU their plain versions.  Other cores run the step loop.
     """
 
@@ -505,6 +521,169 @@ def available_backends() -> list[str]:
 register_backend("reference", ReferenceBackend)
 register_backend("fused", FusedBackend)
 register_backend("event", EventBackend)
+
+
+# ---------------------------------------------------------------------------
+# Population-batched integer simulation (the Flex-plorer DSE hot path)
+# ---------------------------------------------------------------------------
+
+
+# Layer fields a population sweep may vary per candidate: they only reach the
+# sweep through quantized values / decay registers.  Everything else is
+# static (shared by the whole sweep) and must match the base net.
+_POPULATION_KNOBS = ("w_bits", "w_rec_bits", "leak_bits", "beta", "alpha")
+
+
+def check_population_structure(base, nets) -> None:
+    """Raise unless every candidate shares ``base``'s static structure."""
+    base_sig = [
+        {f.name: getattr(lc, f.name) for f in dataclasses.fields(lc) if f.name not in _POPULATION_KNOBS}
+        for lc in base.layers
+    ]
+    for net in nets:
+        if len(net.layers) != len(base.layers):
+            raise ValueError(
+                f"population candidate {net.name!r} has {len(net.layers)} layers, base has {len(base.layers)}"
+            )
+        for i, lc in enumerate(net.layers):
+            for name, want in base_sig[i].items():
+                got = getattr(lc, name)
+                if got != want:
+                    raise ValueError(
+                        f"population candidate {net.name!r} layer {i} differs from the "
+                        f"base net in static field {name!r} ({got!r} != {want!r}); only "
+                        f"{_POPULATION_KNOBS} may vary across a population sweep"
+                    )
+
+
+def stack_population(nets, qparams_list):
+    """Stack per-candidate quantized parameters for one population sweep.
+
+    ``nets`` are per-candidate :class:`NetworkConfig`s sharing one static
+    structure; ``qparams_list`` the matching ``quantize_params`` outputs.
+    Returns ``(stacked_qparams, beta_regs, alpha_regs)``: each stacked leaf
+    gains a leading candidate axis, and the decay registers are int32 ``[P,
+    n_layers]`` packed DecayRate values on the parameters' device.
+    """
+    n_layers = len(nets[0].layers)
+    device = qparams_list[0][0].w_ff.device
+    stacked = [
+        IntLayerParams(
+            w_ff=torch.stack([qp[l].w_ff for qp in qparams_list]),
+            w_rec=torch.stack([qp[l].w_rec for qp in qparams_list]),
+            theta_q=torch.stack([qp[l].theta_q for qp in qparams_list]),
+        )
+        for l in range(n_layers)
+    ]
+    beta_regs = torch.tensor(
+        [[cfg.beta_code().decay_rate_register for cfg in net.layers] for net in nets],
+        dtype=torch.int32,
+    ).to(device)
+    alpha_regs = torch.tensor(
+        [[cfg.alpha_code().decay_rate_register for cfg in net.layers] for net in nets],
+        dtype=torch.int32,
+    ).to(device)
+    return stacked, beta_regs, alpha_regs
+
+
+def _per_candidate(p: IntLayerParams) -> IntLayerParams:
+    """A stacked layer's parameters shaped to broadcast against state [P,
+    batch, n_out]: theta and an ATA-F self-weight as [P, 1, 1]."""
+    col = lambda t: t.reshape(-1, 1, 1)
+    w_rec = col(p.w_rec) if p.w_rec.dim() == 1 else p.w_rec
+    return IntLayerParams(w_ff=p.w_ff, w_rec=w_rec, theta_q=col(p.theta_q))
+
+
+def _run_int_dynamic(net, stacked_qparams, beta_regs, alpha_regs, spikes_in):
+    """Step-major run of P candidates with traced decay registers: JAX's
+    ``_run_int_dynamic`` (one candidate, vmapped there) with the candidate
+    axis explicit, through :func:`int_layer_step_dynamic`.  The plain
+    version that :func:`run_int_population` computes layer-major.  Returns
+    ``(spike_counts [P, batch, n_classes], emitted [P, T, n_layers, batch])``.
+    """
+    P, B = beta_regs.shape[0], spikes_in.shape[1]
+    params = [_per_candidate(p) for p in stacked_qparams]
+    z = lambda cfg: torch.zeros(P, B, cfg.n_out, dtype=torch.int32, device=beta_regs.device)
+    states = [LayerState(z(cfg), z(cfg), z(cfg)) for cfg in net.layers]
+    regs = lambda r, i: r[:, i].reshape(P, 1, 1)
+    out_spikes, emitted = [], []
+    for s_t in spikes_in.to(torch.int32):
+        x, step_emitted = s_t, []
+        for i, (cfg, p) in enumerate(zip(net.layers, params)):
+            states[i], x = int_layer_step_dynamic(
+                cfg, p, states[i], x, regs(beta_regs, i), regs(alpha_regs, i)
+            )
+            step_emitted.append(_count(x))  # [P, batch]
+        out_spikes.append(x)
+        emitted.append(torch.stack(step_emitted, dim=1))  # [P, n_layers, batch]
+    counts = _count(torch.stack(out_spikes, dim=1), dim=1)
+    return counts, torch.stack(emitted, dim=1)
+
+
+def _population_currents(x, w_ff):
+    """Feed-forward currents [P, T, batch, n_out] of every candidate: ``x`` is
+    the shared raster [T, batch, n_in] (layer 0) or the candidates' own
+    [P, T, batch, n_in]; one ``spike_matmul`` launch either way."""
+    T, B, K = x.shape[-3:]
+    P = w_ff.shape[0]
+    s = x.reshape(*x.shape[:-3], T * B, K).contiguous()
+    return spike_matmul(s, w_ff.contiguous()).reshape(P, T, B, -1)
+
+
+def _population_window(cfg, p: IntLayerParams, currents, beta_reg, alpha_reg):
+    """Spikes [P, T, batch, n_out] of one layer of every candidate from its
+    currents: ``lif_scan`` (one launch) for a feed-forward IF/LIF core, else
+    the step loop over the window with the candidate axis carried through
+    (per-step ATA-T recurrence products through ``spike_matmul``)."""
+    if fused_eligible(cfg):
+        spikes, _ = lif_scan(
+            currents,
+            theta_q=p.theta_q,
+            decay_k=beta_reg,
+            u_bits=cfg.u_bits,
+            reset_to_zero=cfg.reset == ResetMode.ZERO,
+        )
+        return spikes
+    P, T, B, N = currents.shape
+    col = lambda t: t.reshape(P, 1, 1)  # broadcast a per-candidate scalar over [P, B, N]
+    z = lambda: torch.zeros(P, B, N, dtype=torch.int32, device=currents.device)
+    state = LayerState(u=z(), i_syn=z(), prev_spk=z())
+    decays = _traced_decays(col(beta_reg), col(alpha_reg))
+    _, spikes = _scan_currents(cfg, _per_candidate(p), state, currents.transpose(0, 1), decays)
+    return spikes.transpose(0, 1).contiguous()  # [T, P, B, N] -> [P, T, B, N]
+
+
+def run_int_population(
+    net, stacked_qparams, beta_regs, alpha_regs, spikes_in, return_events: bool = False
+):
+    """Score P precision candidates in one sweep.
+
+    ``spikes_in`` int [T, batch, n_in] is shared by all candidates (the DSE
+    evaluates every candidate on the same held-out batch).  Returns int32
+    spike counts [P, batch, n_classes]; with ``return_events``, also the
+    per-candidate emitted event totals [P, T, n_layers, batch] (each
+    candidate quantizes differently, so its event traffic -- and therefore
+    its modeled latency/energy -- differs too).  Bit-identical to the
+    step-major :func:`_run_int_dynamic` (JAX's vmapped program): integer
+    addition is associative and ``_integrate_acc`` saturates once per step,
+    after the sum, so currents computed for the whole window first give the
+    same state.
+
+    Launches per data batch on the card: one ``spike_matmul`` per layer, one
+    ``lif_scan`` per feed-forward IF/LIF layer, and T more ``spike_matmul``
+    per ATA-T layer (its recurrence needs the previous step's spikes) --
+    none of it per candidate.
+    """
+    x = torch.as_tensor(spikes_in).to(device=beta_regs.device, dtype=torch.int32)
+    emitted = []
+    for li, (cfg, p) in enumerate(zip(net.layers, stacked_qparams)):
+        currents = _population_currents(x, p.w_ff)
+        x = _population_window(cfg, p, currents, beta_regs[:, li], alpha_regs[:, li])
+        emitted.append(_count(x))  # [P, T, batch]
+    counts = _count(x, dim=1)  # [P, batch, n_classes]
+    if return_events:
+        return counts, torch.stack(emitted, dim=2)  # [P, T, n_layers, batch]
+    return counts
 
 
 # ---------------------------------------------------------------------------

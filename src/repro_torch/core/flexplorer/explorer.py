@@ -1,0 +1,539 @@
+"""Flex-plorer end-to-end DSE entry point (port of ``repro/core/flexplorer/explorer.py``).
+
+SNN mode (paper-faithful): given a *trained* network, search over
+(feed-forward weight bits, recurrent weight bits, leak precision); each
+candidate is quantized and scored by the bit-exact hardware simulator
+(``run_int``) on a held-out set, plus the analytical LUT/FF/BRAM model.
+
+The entry point is ``explore_snn(net, float_params, eval_ds, search=...,
+evaluate=..., refine=...)`` with three spec dataclasses:
+
+* :class:`SearchSpec` -- *what to search and how*: the knob space, cost
+  weights, target device, the pluggable strategy (``"anneal"`` -- the
+  paper's simulated annealer, serial or population-parallel -- or
+  ``"nsga2"`` -- multi-objective Pareto search; see
+  ``repro_torch.core.flexplorer.strategies``), and search-state
+  checkpointing so a killed search resumes mid-schedule.
+* :class:`EvalSpec` -- *how candidates are scored*: simulator backend,
+  eval batch size, perf-cost targets (``mesh`` must be None here).
+* :class:`RefineSpec` -- the second, QAT train-in-the-loop phase; the port
+  has no QAT yet, so ``top_k`` must stay 0.
+
+Population-capable strategies score each round's uncached candidates
+through one population sweep (``eval_int_population``: on the card every
+layer's currents through ``spike_matmul`` and the feed-forward membrane
+scans through ``lif_scan``, all candidates per launch).  The search runs in
+one process on the device of ``float_params``; the JAX version's
+multi-device and multi-host fan-out waits for a later slice.
+
+The legacy 15-kwarg signature (``space=``, ``anneal_cfg=``, ``eval_batch=``,
+``refine_top_k=``, ...) still works through a deprecation shim that warns
+once per process and maps onto the specs; see ``docs/EXPLORER.md`` for the
+migration table.
+
+Everything else follows the JAX version line for line, so a seeded search
+here gives the same trace, front and ``to_json()`` as the JAX package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Sequence
+
+import numpy as np
+
+from repro_torch.core import backend as backend_lib
+from repro_torch.core import hw_model
+from repro_torch.core.flexplorer import cost as cost_lib
+from repro_torch.core.flexplorer import strategies as strategies_lib
+from repro_torch.core.network import NetworkConfig, quantize_params
+from repro_torch.data.snn_datasets import SpikeDataset
+from repro_torch.snn.train import eval_int, eval_int_population
+
+__all__ = [
+    "SNNSearchSpace",
+    "SearchSpec",
+    "EvalSpec",
+    "RefineSpec",
+    "RefinedCandidate",
+    "ExplorationResult",
+    "pareto_front",
+    "explore_snn",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class SNNSearchSpace:
+    ff_bits: Sequence[int] = (4, 6, 8)
+    rec_bits: Sequence[int] = (4, 6, 8)
+    leak_bits: Sequence[int] = (3, 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchSpec:
+    """What to search and how: space, objective, device, strategy, resume.
+
+    ``strategy`` names a registered search strategy (``"anneal"`` /
+    ``"nsga2"``); ``config`` is its schedule (:class:`~repro_torch.core.
+    flexplorer.strategies.AnnealConfig` / :class:`~repro_torch.core.flexplorer.
+    strategies.NSGAConfig`, None = defaults).  ``population`` switches the
+    annealer to population-parallel mode (> 1) and doubles as the default
+    NSGA-II population when no ``config`` is given.
+
+    ``checkpoint_dir`` makes the search resumable: the complete search
+    state (cache, trace, strategy RNG/schedule) snapshots to a
+    ``repro_torch.checkpoint.Checkpointer`` there every ``checkpoint_every``
+    rounds, and a fresh ``explore_snn`` call over the same directory
+    resumes mid-schedule (``resume=False`` ignores an existing snapshot).
+    ``max_evaluations`` caps the number of scored candidates (the
+    equal-budget lever for comparing strategies).
+    """
+
+    space: SNNSearchSpace = SNNSearchSpace()
+    weights: cost_lib.CostWeights = cost_lib.CostWeights()
+    device: cost_lib.DeviceCapacity = cost_lib.XC7Z020
+    strategy: str = "anneal"
+    config: object | None = None
+    population: int = 0
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 1
+    resume: bool = True
+    max_evaluations: int | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalSpec:
+    """How candidates are scored: backend, batch, mesh, perf targets.
+    ``mesh`` other than None (multi-device evaluation) is not ported yet."""
+
+    backend: object = "reference"
+    batch: int = 512
+    mesh: object = None
+    perf_targets: cost_lib.PerfTargets = cost_lib.PerfTargets()
+
+
+@dataclasses.dataclass(frozen=True)
+class RefineSpec:
+    """The optional QAT train-in-the-loop phase over the search finalists.
+    ``top_k`` > 0 needs QAT, which is not ported yet."""
+
+    top_k: int = 0
+    train_ds: SpikeDataset | None = None
+    epochs: int = 2
+    batch: int = 128
+    lr: float = 5e-4
+
+
+def pareto_front(points: Sequence[dict]) -> list[dict]:
+    """Non-dominated subset of ``{"hw_cost", "accuracy", ...}`` points.
+
+    A point dominates another when its hardware cost is <= and its accuracy
+    >= with at least one strict -- the two axes the paper's Fig.-11 trade-off
+    plot spans.  Returned sorted by ascending hardware cost.
+    """
+    front: list[dict] = []
+    for p in sorted(points, key=lambda d: (d["hw_cost"], -d["accuracy"])):
+        if not front or p["accuracy"] > front[-1]["accuracy"]:
+            front.append(p)
+    return front
+
+
+@dataclasses.dataclass
+class RefinedCandidate:
+    """One search finalist after QAT fine-tuning at its own precision.
+
+    ``accuracy`` is the bit-exact quantized accuracy of the refined
+    parameters (``base_accuracy`` the unrefined, post-training-quant score
+    the search saw -- ``accuracy >= base_accuracy`` by construction, see
+    ``qat.refine_candidates``); ``qparams`` deploy through the unchanged
+    ``eval_int`` / serving paths.  Kept for the result schema: the port
+    makes none until QAT is ported (``refine.top_k`` must be 0).
+    """
+
+    cfg: tuple
+    breakdown: dict
+    net: NetworkConfig
+    qparams: list
+    params: list
+    accuracy: float
+    base_accuracy: float
+    hw_cost: float
+    total_cost: float
+    perf_cost: float = 0.0
+
+    def point(self) -> dict:
+        return {
+            "cfg": self.breakdown,
+            "hw_cost": self.hw_cost,
+            "accuracy": self.accuracy,
+            "base_accuracy": self.base_accuracy,
+            "refined": True,
+        }
+
+
+@dataclasses.dataclass
+class ExplorationResult:
+    best_net: NetworkConfig
+    best_qparams: list
+    search: strategies_lib.SearchResult
+    weights: cost_lib.CostWeights
+    # second-phase QAT refinement outcomes (empty unless refine.top_k > 0);
+    # best_net/best_qparams stay the *unrefined* search incumbent so the
+    # paper-faithful single-phase contract is unchanged -- consumers opt in
+    # to the refined front explicitly.
+    refined: list[RefinedCandidate] = dataclasses.field(default_factory=list)
+
+    # ``anneal`` was the historical name of the search-result field; keep it
+    # as an alias (both directions, so artifacts pickled before the rename
+    # still expose ``.search``).
+    @property
+    def anneal(self) -> strategies_lib.SearchResult:
+        return self.__dict__.get("search") or self.__dict__["anneal"]
+
+    def __getattr__(self, name):
+        if name == "search" and "anneal" in self.__dict__:
+            return self.__dict__["anneal"]
+        raise AttributeError(name)
+
+    def _explored_points(self) -> list[dict]:
+        return [
+            {"cfg": t["cfg"], "hw_cost": t["hw"], "accuracy": t["accuracy"], "refined": False}
+            for t in self.search.trace
+        ]
+
+    def explored_front(self) -> list[dict]:
+        """Pareto front of every candidate the search scored (PTQ only)."""
+        return pareto_front(self._explored_points())
+
+    def refined_front(self) -> list[dict]:
+        """Pareto front over explored *and* refined points (both phases)."""
+        return pareto_front(self._explored_points() + [r.point() for r in self.refined])
+
+    def report(self) -> dict:
+        res = hw_model.network_resources(self.best_net)
+        out = {
+            "chosen": self.search.best_breakdown,
+            "lut": res.lut,
+            "ff": res.ff,
+            "bram": res.bram,
+            "logic_cells": res.logic_cells,
+            "evaluations": self.search.evaluations,
+            "strategy": self.search.strategy,
+        }
+        if self.refined:
+            out["refined"] = [
+                {
+                    "cfg": r.breakdown,
+                    "accuracy": r.accuracy,
+                    "base_accuracy": r.base_accuracy,
+                    "total_cost": r.total_cost,
+                }
+                for r in self.refined
+            ]
+        return out
+
+    def to_json(self) -> dict:
+        """Uniform serialisation, identical schema for every strategy."""
+        out = self.search.to_json()
+        out["weights"] = dataclasses.asdict(self.weights)
+        out["explored_front"] = self.explored_front()
+        out["refined_front"] = self.refined_front() if self.refined else None
+        out["refined"] = [
+            r.point() | {"total_cost": r.total_cost, "perf_cost": r.perf_cost}
+            for r in self.refined
+        ]
+        return out
+
+
+# --------------------------------------------------------------------------
+# Legacy kwargs -> spec fields (deprecation shim)
+# --------------------------------------------------------------------------
+
+_LEGACY_KWARGS = {
+    "space": ("search", "space"),
+    "weights": ("search", "weights"),
+    "device": ("search", "device"),
+    "anneal_cfg": ("search", "config"),
+    "population": ("search", "population"),
+    "eval_batch": ("evaluate", "batch"),
+    "backend": ("evaluate", "backend"),
+    "mesh": ("evaluate", "mesh"),
+    "perf_targets": ("evaluate", "perf_targets"),
+    "refine_top_k": ("refine", "top_k"),
+    "refine_train_ds": ("refine", "train_ds"),
+    "refine_epochs": ("refine", "epochs"),
+    "refine_batch": ("refine", "batch"),
+    "refine_lr": ("refine", "lr"),
+}
+
+_LEGACY_WARNED = False
+
+
+def _apply_legacy_kwargs(search, evaluate, refine, legacy: dict):
+    global _LEGACY_WARNED
+    unknown = set(legacy) - set(_LEGACY_KWARGS)
+    if unknown:
+        raise TypeError(f"explore_snn() got unexpected keyword arguments {sorted(unknown)}")
+    if not _LEGACY_WARNED:
+        mapped = ", ".join(
+            f"{k}= -> {grp}.{field}" for k, (grp, field) in sorted(_LEGACY_KWARGS.items()) if k in legacy
+        )
+        warnings.warn(
+            "explore_snn: flat keyword arguments are deprecated; pass "
+            "SearchSpec/EvalSpec/RefineSpec instead (" + mapped + "; see "
+            "docs/EXPLORER.md for the migration table)",
+            DeprecationWarning,
+            stacklevel=3,
+        )
+        _LEGACY_WARNED = True
+    provided = {"search": search, "evaluate": evaluate, "refine": refine}
+    groups = {"search": search or SearchSpec(), "evaluate": evaluate or EvalSpec(), "refine": refine or RefineSpec()}
+    for key, value in legacy.items():
+        grp, field = _LEGACY_KWARGS[key]
+        if provided[grp] is not None:
+            raise TypeError(
+                f"explore_snn() got both {grp}= and legacy {key}=; move {key} "
+                f"into the {type(provided[grp]).__name__}"
+            )
+        groups[grp] = dataclasses.replace(groups[grp], **{field: value})
+    return groups["search"], groups["evaluate"], groups["refine"]
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def explore_snn(
+    net: NetworkConfig,
+    float_params: list,
+    eval_ds: SpikeDataset,
+    search: SearchSpec | None = None,
+    evaluate: EvalSpec | None = None,
+    refine: RefineSpec | None = None,
+    **legacy,
+) -> ExplorationResult:
+    """Search precision knobs for a trained SNN (the paper's Explorer stage).
+
+    ``search.strategy`` picks the search algorithm: ``"anneal"`` is the
+    paper's simulated annealer (serial, or population-parallel when
+    ``search.population > 1``); ``"nsga2"`` is multi-objective NSGA-II over
+    accuracy x hardware cost (x latency x energy x bandwidth congestion
+    when ``weights.c_perf > 0``), whose result carries the full Pareto
+    front in ``result.search.front``.  Population-capable strategies score
+    each round through one dynamic-register population sweep (still
+    bit-exact) and therefore *override* ``evaluate.backend`` -- a warning
+    is issued if a backend differing from the default reference engine is
+    requested alongside one.
+
+    Candidates are scored on the device of ``float_params`` (the card, or
+    the CPU where the caller built them there).
+
+    When ``search.weights.c_perf > 0`` the objective gains an event-aware
+    perf term: each candidate's simulated event traffic (measured during
+    the same accuracy evaluation -- no extra simulation) drives the
+    calibrated latency/energy model, normalised against
+    ``evaluate.perf_targets``, plus -- when ``weights.c_bw > 0`` -- the
+    memory-bandwidth congestion penalty against
+    ``search.device.mem_bw_bytes_s`` (see ``hw_model.bandwidth_profile``).
+
+    ``search.checkpoint_dir`` makes the search resumable across process
+    kills; see :class:`SearchSpec`.
+
+    Not ported yet, and refused with ``NotImplementedError``:
+    ``evaluate.mesh`` other than None (multi-device evaluation) and
+    ``refine.top_k > 0`` (the QAT refinement phase).
+
+    Legacy flat kwargs (``space=``, ``anneal_cfg=``, ``population=``,
+    ``eval_batch=``, ``refine_top_k=``, ...) are accepted through a shim
+    that warns once per process; see ``docs/EXPLORER.md``.
+    """
+    if legacy:
+        search, evaluate, refine = _apply_legacy_kwargs(search, evaluate, refine, legacy)
+    search = search or SearchSpec()
+    evaluate = evaluate or EvalSpec()
+    refine = refine or RefineSpec()
+    weights, device, perf_targets = search.weights, search.device, evaluate.perf_targets
+    backend, eval_batch = evaluate.backend, evaluate.batch
+
+    if evaluate.mesh is not None:
+        raise NotImplementedError(
+            "explore_snn: evaluate.mesh (multi-device evaluation) is not ported yet; "
+            "pass mesh=None"
+        )
+    if refine.top_k > 0:
+        raise NotImplementedError(
+            "explore_snn: refine.top_k > 0 (QAT refinement of the finalists) is not "
+            "ported yet; pass top_k=0"
+        )
+
+    any_recurrent = any(lc.is_recurrent for lc in net.layers)
+    knobs = {"ff_bits": list(search.space.ff_bits)}
+    if any_recurrent:
+        knobs["rec_bits"] = list(search.space.rec_bits)
+    knobs["leak_bits"] = list(search.space.leak_bits)
+
+    # -- strategy + evaluation-path selection -------------------------------
+    serial_mode = search.strategy == "anneal" and search.population <= 1
+    # one process, one device: the sweep width is the population itself
+    sweep_width = search.population if search.population > 1 else 0
+    strategy = strategies_lib.make_strategy(
+        search.strategy,
+        knobs,
+        config=search.config,
+        population=search.population,
+        fill_width=sweep_width or None,
+    )
+    fixed_width = sweep_width if isinstance(strategy, strategies_lib.PopulationAnnealStrategy) else 0
+
+    is_default_backend = (
+        backend == "reference"
+        or backend_lib.get_backend(backend) == backend_lib.ReferenceBackend()
+    )
+    if not serial_mode and not is_default_backend:
+        warnings.warn(
+            "explore_snn: population-mode strategies score candidates "
+            "through their own population sweep (reference semantics); backend="
+            f"{getattr(backend, 'name', backend)!r} is ignored",
+            stacklevel=2,
+        )
+
+    use_perf = weights.c_perf > 0
+
+    def cfg_to_net(cfg: tuple) -> NetworkConfig:
+        kv = dict(zip(knobs.keys(), cfg))
+        return net.replace_precisions(
+            w_bits=kv["ff_bits"],
+            w_rec_bits=kv.get("rec_bits", kv["ff_bits"]),
+            leak_bits=kv["leak_bits"],
+        )
+
+    def hw_cost_fn(cfg: tuple) -> float:
+        res = hw_model.network_resources(cfg_to_net(cfg))
+        return cost_lib.hw_cost(res, weights, device)
+
+    # cfg -> event-traffic stats dict, filled by whichever accuracy evaluator
+    # ran the candidate (the perf cost reuses that simulation's traffic).
+    stats_stash: dict = {}
+
+    qp_cache: dict = {}
+
+    def quantized(cfg: tuple):
+        # Quantization is pure in (cfg, float_params); memoise so padding
+        # duplicates and re-proposed candidates cost nothing.
+        if cfg not in qp_cache:
+            cand = cfg_to_net(cfg)
+            qp_cache[cfg] = (cand, quantize_params(cand, float_params)[0])
+        return qp_cache[cfg]
+
+    def serial_acc_fn(cfg: tuple) -> float:
+        cand, qparams = quantized(cfg)
+        if use_perf:
+            acc, stats = eval_int(
+                cand, qparams, eval_ds, batch_size=eval_batch, return_stats=True, backend=backend
+            )
+            stats_stash[cfg] = stats
+            return acc
+        return eval_int(cand, qparams, eval_ds, batch_size=eval_batch, backend=backend)
+
+    def sweep_acc_fn(cfg_batch: list) -> np.ndarray:
+        # Pad to a fixed width (the annealer's sweep width) or to the next
+        # power-of-two bucket of the batch (NSGA-II's generation batches
+        # vary), as the JAX version does to reuse its compiled program: the
+        # padding lanes score duplicates of the last candidate, so the
+        # scores -- and the search -- are the same in both packages.
+        width = fixed_width or _next_pow2(len(cfg_batch))
+        padded = list(cfg_batch) + [cfg_batch[-1]] * (width - len(cfg_batch))
+        nets, qps = zip(*(quantized(c) for c in padded))
+        if use_perf:
+            accs, stats = eval_int_population(
+                net, list(nets), list(qps), eval_ds, batch_size=eval_batch, return_stats=True
+            )
+            for c, s in zip(padded, stats):
+                stats_stash[c] = s
+        else:
+            accs = eval_int_population(net, list(nets), list(qps), eval_ds, batch_size=eval_batch)
+        return np.asarray(accs)[: len(cfg_batch)]
+
+    batch_acc_fn = (
+        (lambda batch: [float(serial_acc_fn(c)) for c in batch]) if serial_mode else sweep_acc_fn
+    )
+
+    def acc_cost_fn(accuracy: float) -> float:
+        return cost_lib.acc_cost(accuracy, weights)
+
+    # cfg -> (DesignPoint, bw congestion): one modeled operating point per
+    # candidate, shared by the perf cost, the metrics, and the objectives.
+    dp_cache: dict = {}
+
+    def design_for(cfg: tuple):
+        if cfg not in dp_cache:
+            traffic = hw_model.EventTraffic.from_stats(stats_stash[cfg])
+            dp = hw_model.design_point(cfg_to_net(cfg), traffic)
+            congestion = max(0.0, dp.bw_demand_bytes_s / device.mem_bw_bytes_s - 1.0)
+            dp_cache[cfg] = (dp, congestion)
+        return dp_cache[cfg]
+
+    def perf_cost_fn(cfg: tuple) -> float:
+        dp, congestion = design_for(cfg)
+        return cost_lib.perf_cost(
+            dp.latency_s, dp.energy_per_image_j, weights, perf_targets,
+            bw_congestion=congestion,
+        )
+
+    def perf_metrics_fn(cfg: tuple) -> dict:
+        dp, congestion = design_for(cfg)
+        return {
+            "latency_s": dp.latency_s,
+            "energy_j": dp.energy_per_image_j,
+            "bw_demand_bytes_s": dp.bw_demand_bytes_s,
+            "bw_congestion": congestion,
+        }
+
+    def perf_objectives_fn(cfg: tuple, rec) -> list[float]:
+        # the four-axis trade-off: accuracy x hardware x latency x energy
+        # (plus congestion when the bandwidth weight is on), all minimised
+        m = rec.metrics
+        objs = [
+            1.0 - rec.accuracy,
+            rec.hw_cost,
+            m["latency_s"] / perf_targets.latency_s,
+            m["energy_j"] / perf_targets.energy_j,
+        ]
+        if weights.c_bw:
+            objs.append(m["bw_congestion"])
+        return objs
+
+    checkpointer = None
+    if search.checkpoint_dir is not None:
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+
+        checkpointer = Checkpointer(search.checkpoint_dir)
+
+    result = strategies_lib.run_search(
+        strategy,
+        knobs,
+        hw_cost_fn,
+        batch_acc_fn=batch_acc_fn,
+        acc_cost_fn=acc_cost_fn,
+        extra_cost_fn=perf_cost_fn if use_perf else None,
+        metrics_fn=perf_metrics_fn if use_perf else None,
+        objectives_fn=perf_objectives_fn if use_perf else None,
+        checkpointer=checkpointer,
+        snapshot_every=search.checkpoint_every,
+        max_evaluations=search.max_evaluations,
+        resume=search.resume,
+    )
+    # every scored candidate passed through quantized(); the best's entry is
+    # guaranteed cached, so closing out costs no requantization
+    best_net, best_qparams = quantized(result.best)
+
+    return ExplorationResult(
+        best_net=best_net,
+        best_qparams=best_qparams,
+        search=result,
+        weights=weights,
+    )

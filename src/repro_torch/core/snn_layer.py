@@ -17,6 +17,12 @@ One Flexi-NeurA core implements one layer; a time step runs in two phases
 Every exact int32 product here goes through the ``spike_matmul`` wrapper:
 the CUDA kernel for tensors on the card, int32 ``torch.matmul`` on the CPU.
 The float (training) step waits for the training slice of the port.
+
+A population of precision candidates (the DSE sweep) runs through the same
+functions with a leading candidate axis on every tensor: state [P, batch,
+n_out], ``w_ff`` [P, n_in, n_out], an ATA-T ``w_rec`` [P, n_out, n_out], and
+``theta_q``, an ATA-F ``w_rec`` and the decay registers as [P, 1, 1], so
+they broadcast against the state (:func:`int_layer_step_dynamic`).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ __all__ = [
     "LayerState",
     "int_layer_init",
     "int_layer_step",
+    "int_layer_step_dynamic",
     "int_phase_a",
     "int_phase_b",
     "int_layer_window",
@@ -215,6 +222,34 @@ def int_layer_step(
     return int_phase_b(cfg, params, u, i_syn, *_decays(cfg))
 
 
+def _traced_decays(beta_register, alpha_register):
+    return (
+        lambda x: coeff_gen.apply_decay_traced(x, beta_register),
+        lambda x: coeff_gen.apply_decay_traced(x, alpha_register),
+    )
+
+
+def int_layer_step_dynamic(
+    cfg: LayerConfig,
+    params: IntLayerParams,
+    state: LayerState,
+    s_in,
+    beta_register,
+    alpha_register,
+) -> tuple[LayerState, torch.Tensor]:
+    """Bit-exact step with the DecayRate registers as int32 tensors (the
+    population DSE path).
+
+    Identical numerics to :func:`int_layer_step`, but every CG tap is gated
+    arithmetically by the packed 9-bit ``DecayCode.decay_rate_register``, so
+    candidates whose ``leak_bits`` differ run in one call: with a candidate
+    axis the registers are [P, 1, 1] (see the module docstring), and
+    ``s_in`` is [batch, n_in] (shared) or [P, batch, n_in].
+    """
+    u, i_syn = int_phase_a(cfg, params, state, s_in)
+    return int_phase_b(cfg, params, u, i_syn, *_traced_decays(beta_register, alpha_register))
+
+
 def fused_eligible(cfg: LayerConfig) -> bool:
     """True when a layer's window can run through the fused kernel path
     (``spike_integrate`` + ``lif_scan``): feed-forward IF/LIF cores.
@@ -255,7 +290,14 @@ def int_layer_window_carry(
     the state after that element's last live step.  Spikes emitted on dead
     steps are garbage-but-harmless; callers mask recorded outputs.
     """
-    decay_u, decay_i = _decays(cfg)
+    return _scan_currents(cfg, params, state, ff_currents, _decays(cfg), live)
+
+
+def _scan_currents(cfg, params, state, ff_currents, decays, live=None):
+    """The step loop of :func:`int_layer_window_carry` with the CG
+    applications ``decays`` = (decay_u, decay_i) given: static codes, or the
+    traced registers of a population."""
+    decay_u, decay_i = decays
     spikes = []
     for t, c_t in enumerate(ff_currents.to(torch.int32)):
         u, i_syn = _integrate_acc(cfg, params, state, c_t)
@@ -267,7 +309,9 @@ def int_layer_window_carry(
             )
         state = new_state
         spikes.append(spk)
-    return state, _stack_steps(spikes, ff_currents.shape[1], cfg.n_out, ff_currents.device)
+    if not spikes:
+        return state, torch.zeros(ff_currents.shape, dtype=torch.int32, device=ff_currents.device)
+    return state, torch.stack(spikes)
 
 
 def int_layer_window_from_currents(

@@ -19,9 +19,19 @@
 // and writes spikes[t, b, n..n+31] as contiguous 128-byte lines, and the T
 // loop walks them with stride B * N.
 //
-// theta, the decay code k (0..256), u_bits and the reset mode are runtime
+// theta, the decay register, u_bits and the reset mode are runtime
 // arguments (static in Pallas), so a threshold held in a tensor needs no
 // fallback to the plain path.
+//
+// A candidate axis (the population sweep of the design-space exploration):
+// P windows [P, T, B, N] in one launch, blockIdx.y the candidate, each with
+// its own theta and 9-bit decay register read from device arrays (theta_p,
+// k_p) -- quantization scales theta by a factor that depends on the
+// candidate's weight width, and the leak taps on its leak_bits, so both
+// differ per candidate; reading them on the device needs no host sync.  A
+// register of 256 or more is the bypass (bit 8), as apply_decay_traced
+// reads it.  u_bits and the reset mode are static across a population.  A
+// single window is the case P = 1.
 //
 // Arithmetic: u + I[t] and u - theta wrap mod 2**32 *before* the saturation
 // in the JAX reference; signed overflow is undefined in C++, so both are
@@ -50,10 +60,17 @@ __device__ __forceinline__ int32_t clamp(int32_t x, int32_t lo, int32_t hi) {
 
 __global__ void __launch_bounds__(kThreads)
 lif_scan_kernel(const int32_t* __restrict__ cur, int32_t* __restrict__ spikes,
-                int32_t* __restrict__ u_final, int T, int BN, int theta, int decay_k,
+                int32_t* __restrict__ u_final, int T, int BN,
+                const int32_t* __restrict__ theta_p, const int32_t* __restrict__ k_p,
                 int qmin, int qmax, int reset_to_zero) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= BN) return;
+  const size_t c = blockIdx.y;  // the candidate
+  const int32_t theta = theta_p[c];
+  const int32_t decay_k = k_p[c];
+  cur += c * T * BN;
+  spikes += c * T * BN;
+  u_final += c * BN;
   int32_t u = 0;
   for (int t = 0; t < T; ++t) {
     const size_t off = static_cast<size_t>(t) * BN + p;
@@ -77,14 +94,19 @@ lif_scan_kernel(const int32_t* __restrict__ cur, int32_t* __restrict__ spikes,
 
 }  // namespace
 
-extern "C" int lif_scan_launch(const void* cur, void* spikes, void* u_final, int T, int BN,
-                               int theta, int decay_k, int qmin, int qmax, int reset_to_zero,
-                               void* stream) {
-  if (BN > 0) {
-    const int blocks = (BN + kThreads - 1) / kThreads;
-    lif_scan_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+// P candidates' windows [P, T, B, N] (BN = B * N) in one launch: theta and
+// the decay register of candidate c are theta_p[c] and k_p[c] (int32 [P] on
+// the device).
+extern "C" int lif_scan_launch(const void* cur, void* spikes, void* u_final, const void* theta_p,
+                               const void* k_p, int P, int T, int BN, int qmin, int qmax,
+                               int reset_to_zero, void* stream) {
+  if (P > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (BN > 0 && P > 0) {
+    const dim3 grid((BN + kThreads - 1) / kThreads, P);
+    lif_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(cur), static_cast<int32_t*>(spikes),
-        static_cast<int32_t*>(u_final), T, BN, theta, decay_k, qmin, qmax, reset_to_zero);
+        static_cast<int32_t*>(u_final), T, BN, static_cast<const int32_t*>(theta_p),
+        static_cast<const int32_t*>(k_p), qmin, qmax, reset_to_zero);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -62,6 +62,18 @@
 // cluster barriers as it saved); the streaming after it stays below the
 // card's byte rate.
 //
+// A candidate axis (the population sweep of the design-space exploration):
+// grid.z runs `batch` independent products out[z] = s[z] @ w[z] in one
+// launch, each block offsetting its three pointers by z before anything
+// else; a shared operand (the sweep's layer-0 raster, read by every
+// candidate) has stride 0.  The strides are whole matrices, so every
+// alignment the host checked on the base pointers holds for each z.  The
+// offsets live in their own instantiation (kBatched): held in registers
+// they made the 128-column kernel spill, and a single product (batch 1)
+// keeps the kernel without them.  The batched kernel exists only for
+// bn = 16 and 128, the blocks the planner gives a candidate axis (16 for
+// N <= 16, such as a 10-class output layer; 128 otherwise).
+//
 // Ragged M and K are zero-filled, N pads its last n8 tile with zero columns
 // and the stores are masked.  The kernel is instantiated for bn = 8, 16, 32,
 // 64 and 128, so every tile loop has a compile-time trip count.  When the
@@ -309,17 +321,23 @@ __device__ __forceinline__ void run_tiles(const uint32_t (&a)[kSteps][4], const 
 
 // kTiles n8 tiles a block (bn = 8 * kTiles columns), so every tile and
 // step loop has a compile-time trip count and the mma chains interleave.
-template <int kTiles>
+template <int kTiles, bool kBatched>
 __global__ void __launch_bounds__(kThreads, 1)
 spike_matmul_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ w,
                     int32_t* __restrict__ out, int M, int K, int N, bool use_tc, bool s_vec,
-                    bool w_vec, bool pair) {
+                    bool w_vec, bool pair, bool s_batched, bool w_batched) {
   constexpr int kBN = 8 * kTiles;
   // tiles whose fragments are live at once: half the block's in one pass, a
   // quarter in the byte planes, whose raw values stay live besides
   constexpr int kPart = kTiles > 1 ? kTiles / 2 : 1;
   constexpr int kPlanePart = kTiles > 3 ? kTiles / 4 : 1;
   extern __shared__ __align__(16) uint8_t ws[];
+  if constexpr (kBatched) {
+    const size_t z = blockIdx.z;  // the candidate
+    if (s_batched) s += z * M * K;
+    if (w_batched) w += z * K * N;
+    out += z * M * N;
+  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int rb = row_bytes(K);
@@ -409,10 +427,10 @@ spike_matmul_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ w
   }
 }
 
-template <int kTiles>
+template <int kTiles, bool kBatched>
 int launch(const void* s, const void* w, void* out, int M, int K, int N, int blocks, bool use_tc,
-           cudaStream_t stream) {
-  auto fn = spike_matmul_kernel<kTiles>;
+           int batch, bool s_batched, bool w_batched, cudaStream_t stream) {
+  auto fn = spike_matmul_kernel<kTiles, kBatched>;
   constexpr int kBN = 8 * kTiles;
   const int smem = use_tc ? kBN * row_bytes(K) + kChunk * staged_row_bytes(kBN) : 0;
   const cudaError_t err =
@@ -424,11 +442,11 @@ int launch(const void* s, const void* w, void* out, int M, int K, int N, int blo
   const bool s_vec = K % 4 == 0 && aligned(s, 16);
   const bool w_vec = N % 4 == 0 && aligned(w, 16);
   const bool pair = N % 2 == 0 && aligned(out, 8);
-  const dim3 grid(blocks, (N + kBN - 1) / kBN);
+  const dim3 grid(blocks, (N + kBN - 1) / kBN, batch);
   fn<<<grid, kThreads, smem, stream>>>(static_cast<const int32_t*>(s),
                                        static_cast<const int32_t*>(w),
                                        static_cast<int32_t*>(out), M, K, N, use_tc, s_vec, w_vec,
-                                       pair);
+                                       pair, s_batched, w_batched);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -438,17 +456,29 @@ int launch(const void* s, const void* w, void* out, int M, int K, int N, int blo
 // `use_tc` come from the host planner; with use_tc a block takes
 // bn * row_bytes(K) bytes of shared memory for its int8 weights and
 // 256 * staged_row_bytes(bn) for the int32 pieces on their way in.
+// `batch` products run in one launch (grid.z); s and w advance by a whole
+// matrix per product where `s_batched` / `w_batched` is set, else every
+// product reads the same one.  With batch > 1, bn must be 16 or 128.
 extern "C" int spike_matmul_launch(const void* s, const void* w, void* out, int M, int K, int N,
-                                   int bn, int blocks, int use_tc, void* stream) {
-  if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-  if (blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                   int bn, int blocks, int use_tc, int batch, int s_batched,
+                                   int w_batched, void* stream) {
+  if (M <= 0 || N <= 0 || batch == 0) return static_cast<int>(cudaGetLastError());
+  if (blocks <= 0 || batch < 0 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
+  const bool tc = use_tc != 0, sb = s_batched != 0, wb = w_batched != 0;
+  if (batch > 1) {
+    switch (bn) {
+      case 16: return launch<2, true>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
+      case 128: return launch<16, true>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (bn) {
-    case 8: return launch<1>(s, w, out, M, K, N, blocks, use_tc != 0, st);
-    case 16: return launch<2>(s, w, out, M, K, N, blocks, use_tc != 0, st);
-    case 32: return launch<4>(s, w, out, M, K, N, blocks, use_tc != 0, st);
-    case 64: return launch<8>(s, w, out, M, K, N, blocks, use_tc != 0, st);
-    case 128: return launch<16>(s, w, out, M, K, N, blocks, use_tc != 0, st);
+    case 8: return launch<1, false>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
+    case 16: return launch<2, false>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
+    case 32: return launch<4, false>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
+    case 64: return launch<8, false>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
+    case 128: return launch<16, false>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

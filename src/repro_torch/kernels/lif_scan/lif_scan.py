@@ -3,7 +3,10 @@
 Port of ``repro/kernels/lif_scan/lif_scan.py``; the CUDA source is
 ``csrc/lif_scan.cu`` (one thread per neuron, membrane in a register across
 the T loop).  theta, the decay code, ``u_bits`` and the reset mode are
-runtime arguments of the kernel.
+runtime arguments of the kernel, which reads theta and the decay register on
+the device: with a candidate axis (currents [P, T, B, N], the population
+sweep) they are int32 [P] tensors, one per candidate, and a single window
+[T, B, N] launches as the case P = 1.
 
 For a CPU tensor the wrapper runs :func:`lif_scan_ref`; for a CUDA tensor it
 launches the kernel or raises.
@@ -23,46 +26,95 @@ _INT32_MIN, _INT32_MAX = int_min(32), int_max(32)
 
 
 def lif_scan(
-    currents: torch.Tensor,  # int32 [T, B, N]
+    currents: torch.Tensor,  # int32 [T, B, N], or [P, T, B, N] with a candidate axis
     *,
     theta_q,
-    decay_k: int,
+    decay_k,
     u_bits: int = 16,
     reset_to_zero: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused LIF window scan. Returns (spikes int32 [T, B, N], final_u int32 [B, N]).
 
-    ``theta_q`` may be an int or an int32 scalar tensor; on the card a tensor
-    is read once on the host (one sync per call).
+    ``theta_q`` may be an int or an int32 scalar tensor, ``decay_k`` an int
+    in [0, 256]; on the card both reach the kernel as one-element device
+    tensors, so a tensor theta is never read on the host.  With a candidate
+    axis (currents [P, T, B, N]) ``theta_q`` and ``decay_k`` are int32 [P]
+    tensors beside the currents (``decay_k`` the packed 9-bit DecayRate
+    register: 256 and above is the bypass), and the results gain the
+    leading P.
     """
+    if currents.dim() == 4:
+        return _lif_scan_population(currents, theta_q, decay_k, u_bits, reset_to_zero)
     if currents.dim() != 3:
         raise ValueError(f"lif_scan: currents must be [T, B, N], got {tuple(currents.shape)}")
     if not 0 <= decay_k <= 256:
         raise ValueError(f"lif_scan: decay_k must be in [0, 256], got {decay_k}")
-    if not 2 <= u_bits <= 31:
-        raise ValueError(f"lif_scan: u_bits must be in [2, 31], got {u_bits}")
+    _check_u_bits(u_bits)
     if currents.device.type == "cpu":
         return lif_scan_ref(currents, theta_q, decay_k, u_bits, reset_to_zero)
+    _check_card(currents)
+    dev = currents.device
+    if isinstance(theta_q, torch.Tensor):
+        if theta_q.numel() != 1 or theta_q.dtype != torch.int32:
+            raise ValueError("lif_scan: a tensor theta_q must be one int32 value")
+        theta = theta_q.reshape(1).to(dev)
+    else:
+        if not _INT32_MIN <= theta_q <= _INT32_MAX:
+            raise ValueError(f"lif_scan: theta_q={theta_q} is outside int32")
+        theta = torch.full((1,), theta_q, dtype=torch.int32, device=dev)
+    k = torch.full((1,), decay_k, dtype=torch.int32, device=dev)
+    spikes, u_final = _launch(currents[None], theta, k, u_bits, reset_to_zero)
+    return spikes[0], u_final[0]
+
+
+lif_scan.launches = 0
+
+
+def _check_u_bits(u_bits: int) -> None:
+    if not 2 <= u_bits <= 31:
+        raise ValueError(f"lif_scan: u_bits must be in [2, 31], got {u_bits}")
+
+
+def _check_card(currents: torch.Tensor) -> None:
     if currents.device.type != "cuda":
         raise ValueError(f"lif_scan: no kernel for device {currents.device}")
     if currents.dtype != torch.int32 or not currents.is_contiguous():
         raise ValueError("lif_scan: currents must be contiguous int32")
-    theta = int(theta_q)
-    if not _INT32_MIN <= theta <= _INT32_MAX:
-        raise ValueError(f"lif_scan: theta_q={theta} is outside int32")
-    T, B, N = currents.shape
-    spikes = torch.empty(T, B, N, dtype=torch.int32, device=currents.device)
-    u_final = torch.empty(B, N, dtype=torch.int32, device=currents.device)
-    launch = build.entry("lif_scan", "lif_scan_launch", 3, 7)
+
+
+def _lif_scan_population(currents, theta_q, decay_k, u_bits, reset_to_zero):
+    """The candidate-axis form of :func:`lif_scan`: P windows, one launch."""
+    P = currents.shape[0]
+    regs = []
+    for name, t in (("theta_q", theta_q), ("decay_k", decay_k)):
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != (P,) or t.dtype != torch.int32:
+            raise ValueError(f"lif_scan: with currents [P, T, B, N] {name} must be int32 [{P}]")
+        if t.device != currents.device:
+            raise ValueError(f"lif_scan: {name} on {t.device}, currents on {currents.device}")
+        regs.append(t.contiguous())
+    _check_u_bits(u_bits)
+    if currents.device.type == "cpu":
+        return lif_scan_ref(currents, theta_q, decay_k, u_bits, reset_to_zero)
+    _check_card(currents)
+    return _launch(currents, *regs, u_bits, reset_to_zero)
+
+
+def _launch(currents, theta, k, u_bits, reset_to_zero):
+    """One kernel launch over [P, T, B, N] currents on the card, theta and
+    the register int32 [P] on the same card."""
+    P, T, B, N = currents.shape
+    if P > 65535:
+        raise ValueError(f"lif_scan: {P} candidates exceed the kernel's grid (65535)")
+    spikes = torch.empty(P, T, B, N, dtype=torch.int32, device=currents.device)
+    u_final = torch.empty(P, B, N, dtype=torch.int32, device=currents.device)
+    launch = build.entry("lif_scan", "lif_scan_launch", 5, 6)
     with torch.cuda.device(currents.device):
         stream = torch.cuda.current_stream(currents.device).cuda_stream
         code = launch(
-            currents.data_ptr(), spikes.data_ptr(), u_final.data_ptr(), T, B * N, theta,
-            decay_k, int_min(u_bits), int_max(u_bits), int(reset_to_zero), stream,
+            currents.data_ptr(), spikes.data_ptr(), u_final.data_ptr(), theta.data_ptr(),
+            k.data_ptr(), P, T, B * N, int_min(u_bits), int_max(u_bits), int(reset_to_zero),
+            stream,
         )
         build.check(code, "lif_scan")
     lif_scan.launches += 1
     return spikes, u_final
-
-
-lif_scan.launches = 0

@@ -7,6 +7,9 @@ to the IF/LIF datapath: per step t,
     spk <- U >= theta
     U   <- spk ? reset(U) : CG_decay(U)   (decay = gated sum of right shifts)
 
+With a candidate axis (the population sweep) the window is [P, T, B, N] and
+theta and the 9-bit decay register are int32 [P], one per candidate; the
+leak then gates every tap arithmetically, as ``apply_decay_traced`` does.
 The ``lif_scan`` CUDA kernel must match it bit for bit.
 """
 
@@ -26,30 +29,43 @@ def decay_shift_add(u: torch.Tensor, k: int) -> torch.Tensor:
     return acc
 
 
+def _gated_shift_add(u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """:func:`decay_shift_add` with ``k`` a tensor broadcast against ``u``."""
+    acc = torch.zeros_like(u)
+    for shift in range(1, 9):
+        acc = acc + ((k >> (8 - shift)) & 1) * (u >> shift)
+    return acc
+
+
 def lif_scan_ref(
-    currents: torch.Tensor,  # int32 [T, B, N] -- weighted input current per step
-    theta_q,  # int or int32 scalar tensor
-    decay_k: int,  # 0..255, or 256 for bypass (IF)
+    currents: torch.Tensor,  # int32 [T, B, N], or [P, T, B, N] with a candidate axis
+    theta_q,  # int or int32 scalar tensor; int32 [P] with a candidate axis
+    decay_k,  # 0..255, or 256 for bypass (IF); the int32 [P] registers with a candidate axis
     u_bits: int = 16,
     reset_to_zero: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (spikes int32 [T, B, N], final_u int32 [B, N])."""
-    T, B, N = currents.shape
-    u = torch.zeros(B, N, dtype=torch.int32, device=currents.device)
+    """Returns (spikes int32 [..., T, B, N], final_u int32 [..., B, N])."""
+    *lead, T, B, N = currents.shape
+    dev = currents.device
+    if lead:
+        theta_q = torch.as_tensor(theta_q, dtype=torch.int32, device=dev).reshape(-1, 1, 1)
+        k = torch.as_tensor(decay_k, dtype=torch.int32, device=dev).reshape(-1, 1, 1)
+        leak = lambda u: torch.where(k >= 256, u, saturate(_gated_shift_add(u, k), u_bits))
+    elif decay_k >= 256:
+        leak = lambda u: u
+    else:
+        leak = lambda u: saturate(decay_shift_add(u, decay_k), u_bits)
+    u = torch.zeros(*lead, B, N, dtype=torch.int32, device=dev)
     spikes = []
     for t in range(T):
-        u = saturate(u + currents[t].to(torch.int32), u_bits)
+        u = saturate(u + currents[..., t, :, :].to(torch.int32), u_bits)
         spk = (u >= theta_q).to(torch.int32)
         if reset_to_zero:
             u_reset = torch.zeros_like(u)
         else:
             u_reset = saturate(u - theta_q, u_bits)
-        if decay_k >= 256:
-            u_leak = u
-        else:
-            u_leak = saturate(decay_shift_add(u, decay_k), u_bits)
-        u = torch.where(spk == 1, u_reset, u_leak)
+        u = torch.where(spk == 1, u_reset, leak(u))
         spikes.append(spk)
     if not spikes:
-        return torch.zeros(0, B, N, dtype=torch.int32, device=currents.device), u
-    return torch.stack(spikes), u
+        return torch.zeros(*lead, 0, B, N, dtype=torch.int32, device=dev), u
+    return torch.stack(spikes, dim=len(lead)), u

@@ -14,6 +14,12 @@ cores.  The routes are decided on the device; :func:`plan` picks the
 block's columns, the number of persistent blocks and the shared memory from
 the shape alone.
 
+A leading candidate axis on either operand ([P, M, K] @ [K, N], [M, K] @
+[P, K, N] or [P, M, K] @ [P, K, N] -> [P, M, N]) runs the P products in one
+launch: the population sweep of the design-space exploration scores P
+precision candidates at once, on one shared raster (layer 0) or on each
+candidate's own spikes (later layers).
+
 For a CPU tensor the wrapper runs :func:`spike_matmul_plain` (int32
 ``torch.matmul``, which wraps mod 2**32 like the JAX product); for a CUDA
 tensor it launches the kernel or raises.
@@ -37,6 +43,7 @@ MAX_BN = 128  # output columns per block
 ROW_PAD = 16  # bytes after each int8 weight column in shared memory
 SMEM_CAP = 227 * 1024  # shared memory a block may take (one block an SM)
 N_SMS = 132
+BATCHED_BN = (16, MAX_BN)  # the columns of the candidate-axis kernel's blocks
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -68,29 +75,37 @@ def block_smem(K: int, bn: int) -> int:
     return bn * weight_row_bytes(K) + CHUNK * (4 * bn + ROW_PAD)
 
 
-def plan(M: int, K: int, N: int) -> SMPlan:
-    """The configuration for an [M, K] x [K, N] call; a function of the shape
-    only.  A block covers N rounded up to a power of two, at most 128
-    columns, halved while its shared memory (:func:`block_smem`) exceeds the
-    budget; where even 8 columns do not fit, the call runs on the CUDA cores.
-    One block an SM, each taking a contiguous range of 16-row strips, so M
-    sets no grid limit."""
-    bn = 8
-    while bn < min(N, MAX_BN):
-        bn *= 2
-    while bn > 8 and block_smem(K, bn) > SMEM_CAP:
-        bn //= 2
+def plan(M: int, K: int, N: int, batch: int = 1) -> SMPlan:
+    """The configuration for ``batch`` [M, K] x [K, N] products in one call; a
+    function of the shape only.  A block covers N rounded up to a power of
+    two, at most 128 columns, halved while its shared memory
+    (:func:`block_smem`) exceeds the budget; where even 8 columns do not fit,
+    the call runs on the CUDA cores.  One block an SM, each taking a
+    contiguous range of 16-row strips, so M sets no grid limit; the products
+    of a batch share the SMs (grid.z is the candidate).  A batch of more
+    than one product has its own kernel, built for 16 and 128 columns only:
+    16 for N <= 16, else 128, never narrowed (the CUDA cores take what does
+    not fit)."""
+    if batch > 1:
+        bn = BATCHED_BN[0] if N <= BATCHED_BN[0] else MAX_BN
+    else:
+        bn = 8
+        while bn < min(N, MAX_BN):
+            bn *= 2
+        while bn > 8 and block_smem(K, bn) > SMEM_CAP:
+            bn //= 2
     kind = "tensor" if block_smem(K, bn) <= SMEM_CAP else "simt"
     if kind == "simt":
         bn = MAX_BN
     col_tiles = max(1, _cdiv(N, bn))
-    blocks = max(1, min(_cdiv(M, STRIP), _cdiv(N_SMS, col_tiles)))
+    blocks = max(1, min(_cdiv(M, STRIP), _cdiv(N_SMS, col_tiles * max(1, batch))))
     smem = block_smem(K, bn) if kind == "tensor" else 0
     return SMPlan(kind, bn, (blocks, col_tiles), smem)
 
 
 def spike_matmul_plain(s: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch ``s @ w_q`` in int32 with mod-2**32 wraparound.
+    """Plain PyTorch ``s @ w_q`` in int32 with mod-2**32 wraparound (either
+    operand may carry a leading candidate axis, broadcast like ``matmul``).
 
     CPU: int32 ``torch.matmul``.  CUDA has no integer GEMM, so there the
     same sum is taken as K rank-1 updates in int32 (used only to check the
@@ -98,16 +113,32 @@ def spike_matmul_plain(s: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """
     if s.device.type != "cuda":
         return torch.matmul(s.to(torch.int32), w_q.to(torch.int32))
-    out = torch.zeros(s.shape[0], w_q.shape[1], dtype=torch.int32, device=s.device)
-    for k in range(s.shape[1]):
-        out += s[:, k, None] * w_q[k]
+    shape = torch.broadcast_shapes(s.shape[:-2], w_q.shape[:-2]) + (s.shape[-2], w_q.shape[-1])
+    out = torch.zeros(shape, dtype=torch.int32, device=s.device)
+    for k in range(s.shape[-1]):
+        out += s[..., :, k, None] * w_q[..., k, None, :]
     return out
 
 
-def spike_matmul(s: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
-    """Exact int32 ``s @ w_q``: s int32 [M, K], w_q int32 [K, N] -> int32 [M, N]."""
-    if s.dim() != 2 or w_q.dim() != 2 or s.shape[1] != w_q.shape[0]:
+def _operands(s: torch.Tensor, w_q: torch.Tensor) -> tuple[int | None, int, int, int]:
+    """(P, M, K, N) of an [M, K] or [P, M, K] times [K, N] or [P, K, N]
+    call (P None: no candidate axis); raises where the shapes do not chain."""
+    if s.dim() not in (2, 3) or w_q.dim() not in (2, 3) or s.shape[-1] != w_q.shape[-2]:
         raise ValueError(f"spike_matmul: shapes {tuple(s.shape)} @ {tuple(w_q.shape)} do not chain")
+    ps = {t.shape[0] for t in (s, w_q) if t.dim() == 3}
+    if len(ps) > 1:
+        raise ValueError(f"spike_matmul: candidate axes {tuple(s.shape)} and {tuple(w_q.shape)} differ")
+    return (ps.pop() if ps else None), s.shape[-2], s.shape[-1], w_q.shape[-1]
+
+
+def spike_matmul(s: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``s @ w_q``: s int32 [M, K], w_q int32 [K, N] -> int32 [M, N].
+
+    Either operand may carry a leading candidate axis of P (the other one is
+    then shared by every candidate): the result is [P, M, N], all P products
+    in one launch.
+    """
+    P, M, K, N = _operands(s, w_q)
     if s.device != w_q.device:
         raise ValueError(f"spike_matmul: operands on {s.device} and {w_q.device}")
     if s.device.type == "cpu":
@@ -118,18 +149,19 @@ def spike_matmul(s: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"spike_matmul: needs int32 operands, got {s.dtype} and {w_q.dtype}")
     if not (s.is_contiguous() and w_q.is_contiguous()):
         raise ValueError("spike_matmul: operands must be contiguous")
-    M, K = s.shape
-    N = w_q.shape[1]
-    p = plan(M, K, N)
+    batch = 1 if P is None else P
+    p = plan(M, K, N, batch)
     if p.grid[1] > 65535:
         raise ValueError(f"spike_matmul: N={N} exceeds the kernel's grid")
-    out = torch.empty(M, N, dtype=torch.int32, device=s.device)
-    launch = build.entry("spike_matmul", "spike_matmul_launch", 3, 6)
+    if batch > 65535:
+        raise ValueError(f"spike_matmul: {batch} candidates exceed the kernel's grid (65535)")
+    out = torch.empty(*(() if P is None else (P,)), M, N, dtype=torch.int32, device=s.device)
+    launch = build.entry("spike_matmul", "spike_matmul_launch", 3, 9)
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream(s.device).cuda_stream
         code = launch(
             s.data_ptr(), w_q.data_ptr(), out.data_ptr(), M, K, N, p.bn, p.grid[0],
-            int(p.kind == "tensor"), stream,
+            int(p.kind == "tensor"), batch, int(s.dim() == 3), int(w_q.dim() == 3), stream,
         )
         build.check(code, "spike_matmul")
     spike_matmul.launches += 1

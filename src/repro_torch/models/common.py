@@ -15,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.precision import QTensor, tree_map
 
 __all__ = [
@@ -86,11 +87,12 @@ def _tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device="cuda"):
     """Carry a parameter tree of numpy arrays (e.g. a JAX tree after
-    ``np.asarray``) onto ``device``.  Quantized leaves -- any object with
+    ``np.asarray``) onto ``device`` (``cuda`` unless the caller asks for the
+    CPU).  Quantized leaves -- any object with
     ``q``, ``scale``, ``bits`` and ``shape`` -- become :class:`QTensor`."""
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def carry(tree):
         if isinstance(tree, dict):

@@ -23,6 +23,7 @@ from typing import Any
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.precision import QTensor, qdot, tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import AttnMask, KVCache
@@ -351,7 +352,9 @@ def cache_template(cfg: ModelConfig, batch: int, max_len: int):
     }
 
 
-def cache_init(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
+def cache_init(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Zeroed KV caches on ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     return {
         pos: {name: torch.zeros(shape, dtype=dt, device=device) for name, (shape, dt) in c.items()}
         for pos, c in cache_template(cfg, batch, max_len).items()

@@ -140,6 +140,25 @@ def test_lif_scan_kernel_matches_plain(cuda, T, B, N, theta, k, u_bits, zero):
     assert torch.equal(s1.cpu(), s2) and torch.equal(u1.cpu(), u2)
 
 
+def test_lif_scan_scalar_call_reads_theta_on_the_card(cuda):
+    """A single window is the kernel's candidate form with P = 1: theta as a
+    device scalar (as FusedBackend passes it) gives what an int gives, and
+    the launch is one."""
+    cur = np.random.default_rng(2).integers(-300, 400, (9, 8, 40)).astype(np.int32)
+    cur = torch.from_numpy(cur)
+    theta = torch.tensor(350, dtype=torch.int32, device=cuda)
+    n0 = lif_scan.launches
+    s1, u1 = lif_scan(cur.to(cuda), theta_q=theta, decay_k=243)
+    s2, u2 = lif_scan(cur.to(cuda), theta_q=350, decay_k=243)
+    torch.cuda.synchronize()
+    assert lif_scan.launches == n0 + 2
+    s3, u3 = lif_scan_ref(cur, 350, 243)
+    assert torch.equal(s1.cpu(), s3) and torch.equal(u1.cpu(), u3)
+    assert torch.equal(s2.cpu(), s3) and torch.equal(u2.cpu(), u3)
+    with pytest.raises(ValueError, match="one int32 value"):
+        lif_scan(cur.to(cuda), theta_q=theta.to(torch.int64), decay_k=243)
+
+
 @pytest.mark.parametrize("max_val,rate", [(1, 0.1), (37, 0.1), (1, 0.4)])
 def test_sparse_accum_kernel_matches_plain(cuda, max_val, rate):
     raster = torch.from_numpy(_raster(2048, 256, rate=rate, max_val=max_val)).to(cuda)
@@ -472,7 +491,7 @@ def test_decode_and_prefill_on_the_card_match_the_cpu(cuda):
     lg, _ = tt.decode_step(cfg, qp_gpu, tt.cache_init(cfg, 2, 8, cuda), tok.to(cuda), cur.to(cuda))
     torch.cuda.synchronize()
     assert kernels.launch_counts()["quant_matmul"] == 7 * cfg.n_layers
-    lc, _ = tt.decode_step(cfg, qp, tt.cache_init(cfg, 2, 8), tok, cur)
+    lc, _ = tt.decode_step(cfg, qp, tt.cache_init(cfg, 2, 8, device="cpu"), tok, cur)
     torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4 * float(lc.abs().max()))
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, 4096)))
     kernels.reset_launch_counts()
@@ -498,3 +517,87 @@ def test_lm_serve_engine_on_the_card_matches_the_cpu(cuda):
     gpu, cpu = serve(cuda), serve("cpu")
     assert gpu == cpu
     assert gpu[0] == gpu[3]
+
+
+# ---------------------------------------------------------------------------
+# The population sweep (candidate axis)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("P,T,B,N", [(7, 5, 8, 128), (64, 20, 231, 128), (3, 4, 2, 10)])
+@pytest.mark.parametrize("zero", [False, True], ids=["subtract", "zero"])
+def test_lif_scan_candidate_axis_matches_plain(cuda, P, T, B, N, zero):
+    rng = np.random.default_rng(P + T)
+    cur = torch.from_numpy(rng.integers(-400, 600, (P, T, B, N)).astype(np.int32)).to(cuda)
+    theta = torch.from_numpy(rng.integers(1, 2000, P).astype(np.int32)).to(cuda)
+    regs = rng.choice([0, 128, 192, 224, 243, 255, 256, 256 + 5], P).astype(np.int32)
+    k = torch.from_numpy(regs).to(cuda)
+    n0 = lif_scan.launches
+    spk, u = lif_scan(cur, theta_q=theta, decay_k=k, u_bits=16, reset_to_zero=zero)
+    torch.cuda.synchronize()
+    assert lif_scan.launches == n0 + 1
+    spk_ref, u_ref = lif_scan_ref(cur, theta, k, 16, zero)
+    assert torch.equal(spk, spk_ref) and torch.equal(u, u_ref)
+    s_cpu, u_cpu = lif_scan_ref(cur.cpu(), theta.cpu(), k.cpu(), 16, zero)
+    assert torch.equal(spk.cpu(), s_cpu) and torch.equal(u.cpu(), u_cpu)
+
+
+def test_lif_scan_candidate_axis_refuses_registers_off_the_card(cuda):
+    cur = torch.zeros(2, 3, 1, 4, dtype=torch.int32, device=cuda)
+    regs = torch.tensor([5, 6], dtype=torch.int32)
+    with pytest.raises(ValueError, match="theta_q on cpu"):
+        lif_scan(cur, theta_q=regs, decay_k=regs.to(cuda))
+
+
+@pytest.mark.parametrize("shared", ["s", "w", "none"])
+def test_spike_matmul_candidate_axis_matches_plain(cuda, shared):
+    """P products in one launch, int8 and 16-bit candidates side by side (the
+    tensor cores and the CUDA cores in the same launch)."""
+    rng = np.random.default_rng(9)
+    P, M, K, N = 6, 20 * 23, 256, 128
+    s = (rng.random((P, M, K)) < 0.2).astype(np.int32)
+    lims = [2, 32, 128, 2**15, 7, 2**15]
+    w = np.stack([rng.integers(-lim, lim, (K, N)) for lim in lims]).astype(np.int32)
+    s_t = torch.from_numpy(s[0] if shared == "s" else s).to(cuda)
+    w_t = torch.from_numpy(w[0] if shared == "w" else w).to(cuda)
+    n0 = spike_matmul.launches
+    got = spike_matmul(s_t, w_t)
+    torch.cuda.synchronize()
+    assert spike_matmul.launches == n0 + 1 and got.shape == (P, M, N)
+    assert torch.equal(got, spike_matmul_plain(s_t, w_t))
+    for c in range(P):
+        want = _wrapped_dense(s[0] if shared == "s" else s[c], w[0] if shared == "w" else w[c])
+        np.testing.assert_array_equal(got[c].cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("topology,neuron", [("ata_f", "lif"), ("ata_t", "if"), ("ff", "synaptic")])
+def test_population_sweep_on_the_card_matches_serial_and_cpu(cuda, topology, neuron):
+    from repro_torch.data import snn_datasets as tds
+    from repro_torch.snn import train as ttrain
+
+    net = _net(topology, neuron)
+    params = tnet.init_float_params(torch.Generator().manual_seed(3), net, device="cpu")
+    cands = [net.replace_precisions(w_bits=w, w_rec_bits=r, leak_bits=l)
+             for w, r, l in [(2, 3, 1), (6, 16, 3), (8, 8, 8), (16, 2, 5), (12, 6, 2)]]
+    q_cpu = [tnet.quantize_params(c, params)[0] for c in cands]
+    q_gpu = [[tsl.IntLayerParams(*(a.to(cuda) for a in p)) for p in q] for q in q_cpu]
+    ds = tds.mnist_like(n=48, T=10, seed=4)
+    ds.spikes = ds.spikes[:, :, :64]
+    n0 = (spike_matmul.launches, lif_scan.launches)
+    acc_g, st_g = ttrain.eval_int_population(net, cands, q_gpu, ds, batch_size=20, return_stats=True)
+    assert spike_matmul.launches > n0[0]
+    assert (lif_scan.launches > n0[1]) == any(tsl.fused_eligible(c) for c in net.layers)
+    acc_c, st_c = ttrain.eval_int_population(net, cands, q_cpu, ds, batch_size=20, return_stats=True)
+    stacked, b_regs, a_regs = tbe.stack_population(cands, q_gpu)
+    x = torch.from_numpy(ds.spikes[:20].transpose(1, 0, 2).astype(np.int32)).to(cuda)
+    got = tbe.run_int_population(net, stacked, b_regs, a_regs, x, return_events=True)
+    want = tbe._run_int_dynamic(net, stacked, b_regs, a_regs, x)  # step-major, on the card
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    np.testing.assert_array_equal(acc_g, acc_c)
+    for c, (cand, q) in enumerate(zip(cands, q_gpu)):
+        acc, st = ttrain.eval_int(cand, q, ds, batch_size=20, return_stats=True)
+        assert acc == acc_g[c]
+        for a, b, d in zip(st["layer_events_per_step"], st_g[c]["layer_events_per_step"],
+                           st_c[c]["layer_events_per_step"]):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(b, d)

@@ -106,7 +106,7 @@ def _models(name, compute, quant_bits=None, **overrides):
     jcfg = dataclasses.replace(jarch.reduced_config, compute_dtype=getattr(jnp, compute), **overrides)
     tcfg = dataclasses.replace(tarch.reduced_config, compute_dtype=getattr(torch, compute), **overrides)
     jparams = jarch.init_params(jax.random.PRNGKey(0), jcfg)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     if quant_bits:
         jparams = jp.quantize_tree(jparams, jp.PrecisionPolicy(rules=((RULES, quant_bits),)))
         tparams = tp.quantize_tree(tparams, tp.PrecisionPolicy(rules=((RULES, quant_bits),)))
@@ -147,7 +147,7 @@ def test_decode_steps_match_jax(jax_quant_kernel, name, compute, bits, overrides
     jcfg, tcfg, jparams, tparams = _models(name, compute, bits, **overrides)
     B, L = 2, 12
     jc = jt.cache_init(jcfg, B, L)
-    tc = tt.cache_init(tcfg, B, L)
+    tc = tt.cache_init(tcfg, B, L, device="cpu")
     cur = np.array([0, 5], np.int32)
     rng = np.random.default_rng(1)
     for _ in range(3):
@@ -254,3 +254,22 @@ def test_launch_serve_runs_on_cpu_and_refuses_a_missing_card(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             t_launch.main(["--arch", "stablelm-1.6b", "--requests", "1"])
+
+
+@pytest.mark.parametrize("fn", ["params_from_numpy", "cache_init"])
+def test_lm_carriers_default_to_the_card(fn):
+    """``params_from_numpy`` and ``cache_init`` default to ``cuda`` like every
+    entry point: without a card the default raises instead of landing on
+    the CPU."""
+    cfg = get_arch("stablelm-1.6b").config
+    call = {
+        "params_from_numpy": lambda **kw: params_from_numpy({"w": {"k": np.ones((2, 2), np.float32)}}, **kw),
+        "cache_init": lambda **kw: tt.cache_init(cfg, 1, 4, **kw),
+    }[fn]
+    leaves = lambda tree: [t for c in tree.values() for t in c.values()]
+    assert all(t.device.type == "cpu" for t in leaves(call(device="cpu")))
+    if torch.cuda.is_available():
+        assert all(t.device.type == "cuda" for t in leaves(call()))
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

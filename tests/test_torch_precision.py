@@ -70,7 +70,7 @@ def test_quantize_tree_of_stacked_params_bit_equal(arch_name, bits):
     policy_j = jp.PrecisionPolicy(rules=((QUANT_RULES[0], bits),))
     policy_t = tp.PrecisionPolicy(rules=((QUANT_RULES[0], bits),))
     want = jax.tree.map(np.asarray, jp.quantize_tree(jparams, policy_j))
-    got = tp.quantize_tree(params_from_numpy(jax.tree.map(np.asarray, jparams)), policy_t)
+    got = tp.quantize_tree(params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu"), policy_t)
 
     n_quantized = 0
 

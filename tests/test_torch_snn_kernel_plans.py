@@ -34,6 +34,8 @@ from repro_torch.kernels.quant_matmul.spike_matmul import (
     STRIP,
     block_smem,
     plan,
+    spike_matmul,
+    spike_matmul_plain,
     weight_row_bytes,
 )
 from repro_torch.kernels.sparse_accum.ops import fixed_capacity_events
@@ -237,6 +239,61 @@ def test_plan_at_the_main_path_shapes():
         assert p.bn == (128 if N == 128 else 16)
         assert p.smem == block_smem(K, p.bn) == p.bn * (CHUNK + 16) + CHUNK * (4 * p.bn + 16)
         assert weight_row_bytes(K) == CHUNK + 16
+
+
+@pytest.mark.parametrize("batch", [1, 2, 64, 512, 2048, 65535])
+@pytest.mark.parametrize(
+    "M,K,N", [(20 * 231, 256, 128), (20 * 231, 128, 10), (231, 128, 128), (1, 16, 8), (231, 64, 40)]
+)
+def test_plan_with_a_candidate_axis(M, K, N, batch):
+    """The population sweep's shapes (T = 20, 231 samples, the 256-128-10
+    layers and an ATA-T recurrence): the candidates share the SMs, so the
+    persistent blocks along M shrink as the batch grows, never below one.
+    More than one candidate takes the candidate-axis kernel, built for 16
+    and 128 columns only."""
+    p, alone = plan(M, K, N, batch), plan(M, K, N)
+    blocks, col_tiles = p.grid
+    if batch == 1:
+        assert p == alone
+    else:
+        assert p.kind == "tensor" and p.bn == (16 if N <= 16 else 128)
+        assert p.smem == block_smem(K, p.bn) and col_tiles == -(-N // p.bn)
+    assert 1 <= blocks <= -(-M // STRIP)
+    assert blocks == max(1, min(-(-M // STRIP), -(-N_SMS // (col_tiles * batch))))
+    if batch * col_tiles >= N_SMS:
+        assert blocks == 1
+
+
+def test_candidate_axis_products_match_each_candidate():
+    """[M, K] @ [P, K, N], [P, M, K] @ [K, N] and [P, M, K] @ [P, K, N] equal
+    the per-candidate products, wrapping like the JAX kernel; axes that
+    differ are refused."""
+    rng = np.random.default_rng(5)
+    P, M, K, N = 3, 37, 20, 11
+    s = torch.from_numpy(rng.integers(0, 3, (P, M, K)).astype(np.int32))
+    w = torch.from_numpy(rng.integers(-(2**27), 2**27, (P, K, N)).astype(np.int32))
+    for a, b in ((s[0], w), (s, w[1]), (s, w)):
+        got = spike_matmul(a, b)
+        assert got.shape == (P, M, N) and got.dtype == torch.int32
+        for c in range(P):
+            a_c, b_c = (a[c] if a.dim() == 3 else a), (b[c] if b.dim() == 3 else b)
+            want = jnp.matmul(jnp.asarray(a_c.numpy()), jnp.asarray(b_c.numpy()))  # int32, wraps
+            np.testing.assert_array_equal(got[c].numpy(), np.asarray(want))
+            assert torch.equal(got[c], spike_matmul_plain(a_c, b_c))
+    with pytest.raises(ValueError, match="candidate axes"):
+        spike_matmul(s, w[:2])
+    with pytest.raises(ValueError, match="do not chain"):
+        spike_matmul(s, w.transpose(1, 2))
+
+
+@pytest.mark.parametrize("N,bn", [(10, 16), (128, 128)])
+def test_candidate_axis_plan_never_narrows_the_block(N, bn):
+    """The candidate-axis kernel has no narrower block: where its block's
+    weights do not fit shared memory, the call goes to the CUDA cores."""
+    assert plan(1024, 2048, N, 4).bn == bn
+    assert plan(1024, 2048, N, 4).kind == ("tensor" if bn == 16 else "simt")
+    deep = plan(1024, 2**17, N, 4)
+    assert deep.kind == "simt" and deep.smem == 0 and deep.bn == MAX_BN
 
 
 def test_plan_narrows_the_block_for_deep_k_then_leaves_the_tensor_cores():
