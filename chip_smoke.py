@@ -47,18 +47,34 @@ result line):
    of 2 slots and one ``prefill`` of 4096 tokens (the CPU runs the plain
    versions);
 9. the Flex-plorer DSE at full width (benchmarks/dse_bench.py's 256-128-10
-   LIF network, ATA-F hidden layer, T = 20, 1800 configurations):
-   ``explore_snn`` NSGA-II (population 64, 3 generations, perf and
-   bandwidth terms on) on the card, its population sweep through
-   ``spike_matmul`` and ``lif_scan``; every scored candidate's accuracy and
-   stats equal to serial ``eval_int(reference)``; a repeated search and a
-   search killed after generation 1 and resumed give the identical result;
-   4 candidates x 32 samples card == CPU; the candidate-axis ``lif_scan``
-   bit-identical to its plain version at [64, 20, 231, 10]; the sweep's
-   candidates/s at P = 64 and 512 with its device-busy share;
-10. a ``kernels`` JSON line (launches on phases 3-7 and 9, times, bounds);
-   phases 3-5 and 9 also print the SNN kernels' launches by size;
-11. the result line.
+   LIF network, ATA-F hidden layer, T = 20, 1800 configurations), trained
+   on the card as dse_bench trains it (``train_snn``, 6 epochs): a search on
+   seeded random weights for comparison, then ``explore_snn`` NSGA-II
+   (population 64, 3 generations, perf and bandwidth terms on) on the
+   trained weights, its population sweep through ``spike_matmul`` and
+   ``lif_scan``; every scored candidate's accuracy and stats equal to
+   serial ``eval_int(reference)``; a repeated search and a search killed
+   after generation 1 and resumed give the identical result; 4 candidates x
+   32 samples card == CPU; the candidate-axis ``lif_scan`` bit-identical to
+   its plain version at [64, 20, 231, 10]; the sweep's candidates/s at P =
+   64 and 512 with its device-busy share, the profiler's launches by kernel
+   equal to the wrappers' counts; then the search with its QAT refine phase
+   (``RefineSpec(top_k=4)``): every refined candidate's PTQ and refined
+   accuracy equal to serial ``eval_int(reference)``, best >= base, and the
+   candidate-axis train step's ``spike_matmul`` launches = T x layers at K
+   = 4 and K = 1, each bit-identical to plain;
+10. training at full width (examples/quickstart.py: 256-128-10 LIF w6/u8,
+   T = 25, 8 epochs): ``train_snn`` on the card, the trained net deployed
+   through ``quantize_params`` -> ``eval_int`` on ``reference``, ``fused``
+   and ``event`` (identical accuracies, above a floor), one train step on
+   the card against the CPU, and a QAT epoch (``PrecisionConfig(w_bits=3)``)
+   whose ``eval_qat`` equals ``eval_int`` of its deployment and whose every
+   step launches ``spike_matmul`` T x layers times, each launch bit-identical
+   to plain; train-, QAT- and refine-step times with their device-busy share;
+11. a ``kernels`` JSON line (launches on phases 3-7, 9 and 10, times,
+   bounds); phases 3-5, 9 and 10 also print the SNN kernels' launches by
+   size;
+12. the result line.
 """
 
 from __future__ import annotations
@@ -93,6 +109,7 @@ from repro_torch.core.flexplorer import explorer as explorer_mod  # noqa: E402
 from repro_torch.core.flexplorer.cost import CostWeights  # noqa: E402
 from repro_torch.core.flexplorer.explorer import (  # noqa: E402
     EvalSpec,
+    RefineSpec,
     SearchSpec,
     SNNSearchSpace,
     explore_snn,
@@ -112,13 +129,15 @@ from repro_torch.core.network import (  # noqa: E402
     quantize_params,
     run_int,
 )
+from repro_torch.core import snn_layer as snn_layer_mod  # noqa: E402
 from repro_torch.core.snn_layer import (  # noqa: E402
+    FloatLayerParams,
     IntLayerParams,
     LayerConfig,
     NeuronModel,
     Topology,
 )
-from repro_torch.data.snn_datasets import mnist_like, raster_tensor  # noqa: E402
+from repro_torch.data.snn_datasets import SpikeDataset, mnist_like, raster_tensor  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attend  # noqa: E402
@@ -143,7 +162,17 @@ from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.models.registry import get_arch  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.snn_engine import SNNRequest, SNNServeEngine  # noqa: E402
-from repro_torch.snn.train import eval_int, eval_int_population  # noqa: E402
+from repro_torch.snn.qat import (  # noqa: E402
+    PrecisionConfig,
+    candidate_grid,
+    eval_qat,
+    refine_step,
+    run_qat,
+)
+from repro_torch.snn.surrogate import fast_sigmoid  # noqa: E402
+from repro_torch.snn.train import eval_int, eval_int_population, train_snn  # noqa: E402
+from repro_torch.train import optimizer as opt_mod  # noqa: E402
+from repro_torch.train.optimizer import adamw, linear_warmup_cosine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper, dense, 700 W).
 HBM_BYTES_S = 3.35e12
@@ -1186,14 +1215,47 @@ class PlantedKill(Exception):
     """Raised inside a search to stand for the process dying there."""
 
 
+@contextlib.contextmanager
+def recorded_spike_matmul(module):
+    """Every ``spike_matmul`` call made through ``module`` while the block
+    runs, with its operands and result (each is counted as usual)."""
+    seen = []
+
+    def recording(spk, w):
+        got = spike_matmul(spk, w)
+        seen.append((spk, w, got))
+        return got
+
+    with mock.patch.object(module, "spike_matmul", recording):
+        yield seen
+
+
+def check_recorded(seen, what: str) -> None:
+    for spk, w, got in seen:
+        check(torch.equal(got, spike_matmul_plain(spk, w)),
+              f"{what}: spike_matmul {list(spk.shape)} x {list(w.shape)} != plain")
+
+
+def front_summary(res) -> str:
+    accs = [t["accuracy"] for t in res.search.trace]
+    explored = res.explored_front()
+    return (
+        f"front {len(res.search.front)} points, explored (hw, accuracy) front {len(explored)} "
+        f"points {[round(p['accuracy'], 4) for p in explored]}, accuracy span "
+        f"{min(accs):.6f}..{max(accs):.6f} over {len(res.search.cache)} candidates"
+    )
+
+
 def dse_setup():
     """benchmarks/dse_bench.py's configuration: the 256-128-10 LIF network
-    with an ATA-F hidden layer, u16, T = 20, on the test split of
-    mnist_like(n=1536, T=20, seed=0); space ff_bits = rec_bits = 2..16,
-    leak_bits = 1..8 (1800 configurations).  Weights are seeded random
-    floats (training is not ported)."""
+    with an ATA-F hidden layer, u16, T = 20, trained on the train split of
+    mnist_like(n=1536, T=20, seed=0) as dse_bench trains it (6 epochs, batch
+    128, lr 2e-3; here from torch.Generator().manual_seed(0)) and searched on
+    its test split; space ff_bits = rec_bits = 2..16, leak_bits = 1..8 (1800
+    configurations).  The same search on the untrained (seeded random)
+    weights runs first, for comparison."""
     ds = mnist_like(n=1536, T=DSE_T, seed=0)
-    _, test = ds.split()
+    train, test = ds.split()
     net = NetworkConfig(
         layers=(
             LayerConfig(n_in=256, n_out=128, neuron=NeuronModel.LIF, topology=Topology.ATA_F,
@@ -1203,13 +1265,23 @@ def dse_setup():
         n_steps=DSE_T,
         name="dse-bench-mnist-256-128-10",
     )
-    params = init_float_params(torch.Generator().manual_seed(0), net)
     bits = tuple(range(2, 17))
     space = SNNSearchSpace(ff_bits=bits, rec_bits=bits, leak_bits=tuple(range(1, 9)))
-    return net, params, test, space
+    random = init_float_params(torch.Generator().manual_seed(0), net)
+    t0 = time.perf_counter()
+    res = train_snn(net, train, epochs=6, batch_size=128, lr=2e-3, init_params=random)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    h = res.history[-1]
+    print(
+        f"dse: trained {net.name} on the card (6 epochs, {len(train.labels)} samples, T={DSE_T}) "
+        f"in {wall:.3f} s: loss {h['loss']:.6f}, train_acc {h['train_acc']:.6f}"
+    )
+    print(f"dse: random weights: {front_summary(dse_search(net, random, test, space))}")
+    return net, res.params, train, test, space
 
 
-def dse_search(net, params, test, space, checkpoint_dir=None):
+def dse_search(net, params, test, space, checkpoint_dir=None, refine=None):
     return explore_snn(
         net, params, test,
         search=SearchSpec(
@@ -1218,46 +1290,70 @@ def dse_search(net, params, test, space, checkpoint_dir=None):
             checkpoint_dir=None if checkpoint_dir is None else str(checkpoint_dir),
         ),
         evaluate=EvalSpec(batch=max(64, len(test.labels))),
+        refine=refine,
     )
 
 
-def sweep_profile(net, cands, qps, test, n: int = 3) -> str:
-    """``n`` ``eval_int_population`` calls under torch.profiler: wall and
-    device busy per call, and the launches of each sweep kernel as the
-    profiler saw them beside the wrappers' counts over the same calls.
-    Fails if the profiler saw no launch of a sweep kernel."""
-    before = kernels.launch_counts()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            eval_int_population(
-                net, cands, qps, test, batch_size=len(test.labels), return_stats=True
-            )
+def sweep_profile(net, cands, qps, test, n: int = 3, cold_tries: int = 10) -> str:
+    """``n`` ``eval_int_population`` calls under torch.profiler, after one
+    warm-up sweep inside the profiler's window (its schedule's warm-up step:
+    the tracer is running but the sweep is not recorded): wall and device
+    busy per call, and the launches of each sweep kernel as the profiler saw
+    them, which must equal the wrappers' counts over the same calls.
+    First, ``cold_tries`` fresh profilers, each around a single sweep with
+    no warm-up (how the sweep was once profiled), are held to the wrappers'
+    counts and their misses printed, unchecked."""
+    sweep = lambda: eval_int_population(
+        net, cands, qps, test, batch_size=len(test.labels), return_stats=True
+    )
+    cuda = [torch.profiler.ProfilerActivity.CUDA]
+
+    def seen_by(prof) -> tuple[list, dict]:
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return events, {
+            name: sum(e.count for e in events if sym in e.key)
+            for name, sym in SWEEP_KERNELS.items()
+        }
+
+    cold = []  # (profiler, wrappers) of each fresh profiler around one sweep
+    for _ in range(cold_tries):
+        before = kernels.launch_counts()
+        with torch.profiler.profile(activities=cuda) as fresh:
+            sweep()
+            torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        cold.append((seen_by(fresh)[1], {k: after[k] - before[k] for k in SWEEP_KERNELS}))
+    missed = [c for c in cold if c[0] != c[1]]
+
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=n, repeat=1)
+    with torch.profiler.profile(activities=cuda, schedule=schedule) as prof:
+        sweep()  # the warm-up step
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n
-    after = kernels.launch_counts()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        prof.step()
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        for i in range(n):
+            sweep()
+            if i == n - 1:
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / n
+            prof.step()
+        after = kernels.launch_counts()
+    events, seen = seen_by(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e6 / n
-    seen = {
-        name: sum(e.count for e in events if sym in e.key) for name, sym in SWEEP_KERNELS.items()
-    }
     counted = {name: after[name] - before[name] for name in SWEEP_KERNELS}
-    for name, k in seen.items():
-        check(k > 0, f"the profiler saw no {name} launch in the sweep: {[e.key for e in events]}")
-    missed = ""
-    if seen != counted:
-        syms = SWEEP_KERNELS.values()
-        ours = [(e.key[:60], e.count) for e in events if any(y in e.key for y in syms)]
-        missed = f" (the profiler missed launches; its kernel entries: {ours})"
+    check(seen == counted, f"the profiler's sweep launches {seen} != the wrappers' {counted}")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
     names = ", ".join(
         f"{e.key[:40]} {e.self_device_time_total / 1e3 / n:.3f} ms ({e.count})" for e in top
     )
     return (
         f"wall {wall:.4f} s a sweep under the profiler, device busy {busy:.4f} s "
-        f"({100 * busy / wall:.1f} % busy); launches by kernel over {n} sweeps: profiler "
-        f"{json.dumps(seen)}, wrappers {json.dumps(counted)}{missed}; top device items per "
-        f"sweep (launches over {n}): {names}"
+        f"({100 * busy / wall:.1f} % busy); launches by kernel over {n} sweeps after a warm-up "
+        f"sweep: profiler {json.dumps(seen)} == wrappers {json.dumps(counted)}; {len(missed)} of "
+        f"{cold_tries} fresh profilers around one sweep missed launches "
+        f"{[json.dumps(m[0]) for m in missed[:3]]} of {json.dumps(cold[0][1])}; top device "
+        f"items per sweep (launches over {n}): {names}"
     )
 
 
@@ -1269,7 +1365,7 @@ def phase_dse(dse) -> dict:
     the candidate-axis ``lif_scan`` against its plain version, and the
     sweep's candidates/s at P = 64 and 512.  Returns the main path's launch
     counts."""
-    net, params, test, space = dse
+    net, params, _, test, space = dse
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     res = dse_search(net, params, test, space)
@@ -1285,6 +1381,7 @@ def phase_dse(dse) -> dict:
         f"of 1800 in {wall:.3f} s on the card; best {res.search.best_breakdown}; "
         f"front {len(res.search.front)} points; report {res.report()}"
     )
+    print(f"dse: trained weights: {front_summary(res)}")
 
     # every scored candidate: the sweep against serial eval_int(reference)
     cfgs = list(cache)  # (ff_bits, rec_bits, leak_bits)
@@ -1311,14 +1408,7 @@ def phase_dse(dse) -> dict:
     # the sweep's own spike_matmul launches at the search's width (its first
     # 64 candidates: layer 0 on the shared raster, layer 1 on each
     # candidate's spikes), each held bit for bit to the plain product
-    seen = []
-
-    def recording(spk, w):
-        got = spike_matmul(spk, w)
-        seen.append((spk, w, got))
-        return got
-
-    with mock.patch.object(backend_mod, "spike_matmul", recording):
+    with recorded_spike_matmul(backend_mod) as seen:
         eval_int_population(net, cands[:64], qps[:64], test, batch_size=batch)
     check(len(seen) == len(net.layers), "one spike_matmul launch per layer in a sweep")
     for spk, w, got in seen:
@@ -1420,6 +1510,254 @@ def phase_dse(dse) -> dict:
     return counts
 
 
+def refine_step_fn(net, params, cands, x, y):
+    """One candidate-axis QAT train step of ``cands`` from ``params`` on the
+    batch (x, y), as ``refine_candidates`` takes it (a fresh optimizer state
+    each call, so every call takes the same step)."""
+    K = len(cands)
+    grid = candidate_grid(cands, DEVICE)
+    stacked = [torch.stack([t] * K) for p in params for t in p]
+    opt = adamw(linear_warmup_cosine(5e-4, 11, 11))
+    state = opt.init(stacked)
+    fn = fast_sigmoid(25.0)
+    return lambda: refine_step(net, opt, stacked, state, grid, x, y, fn, 1e-4)
+
+
+def first_batch(ds: SpikeDataset, n: int = 128) -> tuple[SpikeDataset, torch.Tensor, torch.Tensor]:
+    """The first ``n`` samples as a dataset of one batch, and as float32
+    spikes [T, n, C] and labels on the card."""
+    one = SpikeDataset(ds.spikes[:n], ds.labels[:n], ds.n_classes, ds.name + ":first")
+    x = raster_tensor(one.spikes.transpose(1, 0, 2), DEVICE).to(torch.float32)
+    return one, x, torch.from_numpy(one.labels.astype(np.int64)).to(DEVICE)
+
+
+def best_wall_ms(fn, n: int = 3) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return min(times)
+
+
+def phase_dse_refine(dse) -> dict:
+    """The search again with its QAT refine phase (``RefineSpec(top_k=4)``,
+    1 epoch on the train split): each refined candidate's PTQ and refined
+    accuracy against serial ``eval_int(reference)``, best >= base; then the
+    candidate-axis train step at K = 4 and K = 1, its ``spike_matmul``
+    launches (T x layers whatever K is, each bit-identical to plain) and
+    its time.  Returns the main path's launch counts."""
+    net, params, train, test, space = dse
+    t0 = time.perf_counter()
+    res = dse_search(net, params, test, space, refine=RefineSpec(top_k=4, train_ds=train, epochs=1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(len(res.refined) == 4, "four refined finalists")
+    batch = len(test.labels)
+    for r in res.refined:
+        ptq = quantize_params(r.net, params)[0]
+        base = eval_int(r.net, ptq, test, batch_size=batch, backend="reference")
+        check(base == r.base_accuracy == res.search.cache[r.cfg].accuracy,
+              f"refined {r.cfg}: base accuracy != serial eval_int of its PTQ parameters")
+        refined = eval_int(r.net, r.qparams, test, batch_size=batch, backend="reference")
+        check(refined == r.accuracy, f"refined {r.cfg}: accuracy != serial eval_int")
+        check(r.accuracy >= r.base_accuracy, f"refined {r.cfg}: best < base")
+    print(
+        f"dse refine: explore_snn + RefineSpec(top_k=4, epochs=1) in {wall:.3f} s on the card; "
+        "each refined finalist's base and refined accuracy == serial eval_int(reference): "
+        + ", ".join(f"{r.breakdown} {r.base_accuracy:.6f} -> {r.accuracy:.6f}" for r in res.refined)
+        + f"; refined front {len(res.refined_front())} points"
+    )
+    _, x, y = first_batch(train)
+    per_step = DSE_T * len(net.layers)
+    for K in (4, 1):
+        step = refine_step_fn(net, params, [r.net for r in res.refined][:K], x, y)
+        with recorded_spike_matmul(snn_layer_mod) as seen:
+            step()
+        check(len(seen) == per_step, f"refine step K={K}: {len(seen)} spike_matmul launches, "
+              f"not T x layers = {per_step}")
+        check_recorded(seen, f"refine step K={K}")
+        shapes = sorted({f"{list(a.shape)}x{list(b.shape)}" for a, b, _ in seen})
+        print(
+            f"dse refine step K={K} (batch 128, T={DSE_T}): {len(seen)} spike_matmul launches "
+            f"({shapes}), each bit-identical to plain; {best_wall_ms(step):.3f} ms a step"
+        )
+        if K == 4:
+            print(f"dse refine step K=4 split: {device_split(step, n=3)}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: training at full width (examples/quickstart.py)
+# ---------------------------------------------------------------------------
+
+# The deployed accuracy must clear this floor (chance is 0.1): the port's
+# CPU run of the same configuration (scripts/torch_train_cpu.py) deploys at
+# 0.9903.
+QS_ACC_FLOOR = 0.90
+QS_EPOCHS = 8
+CARD_VS_CPU_TOL = 1e-5  # tests/test_torch_cuda.py: loss relative, parameters / max |w|
+
+
+def quickstart_setup():
+    """examples/quickstart.py's configuration: 256-128-10 LIF, w6/u8, beta
+    0.95, T = 25, on mnist_like(n=2048, T=25, seed=0) split 85/15."""
+    train, test = mnist_like(n=2048, T=25, seed=0).split()
+    net = NetworkConfig(
+        layers=(
+            LayerConfig(n_in=256, n_out=128, w_bits=6, u_bits=8, beta=0.95),
+            LayerConfig(n_in=128, n_out=10, w_bits=6, u_bits=8, beta=0.95),
+        ),
+        n_steps=25,
+        name="quickstart-mnist",
+    )
+    return net, train, test
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (0 for an empty tensor)."""
+    if not want.numel():
+        return 0.0
+    return float((got.cpu() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def step_card_vs_cpu(step, params0) -> str:
+    """One ``train_snn`` step (``step(params, device)``) on the card and on
+    the CPU from the same parameters, held stage by stage to
+    CARD_VS_CPU_TOL: the loss (relative), each gradient leaf (of its max
+    |grad|, read where ``train_snn`` clips them), and the AdamW update of
+    both devices from the CPU's clipped gradients (of each leaf's max |w|).
+
+    The composed step's parameters are printed, not held to that limit:
+    AdamW's first update g / (|g| + eps) turns a gradient difference dg at
+    an element with |g| near eps = 1e-8 into an update difference of up to
+    dg / eps, so float summation noise in such an element's gradient, far
+    below the gradient limit, moves that parameter by a visible share of
+    the learning rate."""
+    seen = []  # (gradients, clipped gradients) of the card's step, then the CPU's
+    real = opt_mod.clip_by_global_norm
+
+    def spy(grads, max_norm, batch_dims=0):
+        out = real(grads, max_norm, batch_dims)
+        seen.append(([g.cpu() for g in grads], [g.cpu() for g in out[0]]))
+        return out
+
+    cpu0 = [FloatLayerParams(*(t.cpu() for t in p)) for p in params0]
+    with mock.patch.object(opt_mod, "clip_by_global_norm", spy):
+        card, cpu = step(params0, DEVICE), step(cpu0, "cpu")
+    lc, lg = cpu.history[0]["loss"], card.history[0]["loss"]
+    check(abs(lg - lc) <= CARD_VS_CPU_TOL * abs(lc), f"train step loss card {lg} vs CPU {lc}")
+    (g_card, _), (g_cpu, clipped) = seen
+    g_err = max(rel_err(a, b) for a, b in zip(g_card, g_cpu))
+    check(g_err <= CARD_VS_CPU_TOL, f"train step gradients card vs CPU: {g_err:.3e} of max |grad|")
+    # the update alone, from the same gradients on both devices (train_snn's
+    # schedule for a one-step run: warm-up over that step)
+    leaves = [t for p in cpu0 for t in p]
+    updated = {}
+    for dev in ("cpu", DEVICE):
+        opt = adamw(linear_warmup_cosine(2e-3, 1, 1))
+        ps = [t.to(dev) for t in leaves]
+        upd, _ = opt.update([g.to(dev) for g in clipped], opt.init(ps), ps)
+        updated[dev] = [p + u for p, u in zip(ps, upd)]
+    u_err = max(rel_err(a, b) for a, b in zip(updated[DEVICE], updated["cpu"]))
+    check(u_err <= CARD_VS_CPU_TOL, f"AdamW update card vs CPU: {u_err:.3e} of max |w|")
+    worst, beyond_g = 0.0, []
+    flat = lambda params: [t for p in params for t in p]
+    for g, c, grad in zip(flat(card.params), flat(cpu.params), g_cpu):
+        if c.numel():
+            worst = max(worst, rel_err(g, c))
+            beyond = (g.cpu() - c).abs() > CARD_VS_CPU_TOL * c.abs().max()
+            beyond_g += grad[beyond].abs().tolist()
+    return (
+        f"loss {lg:.8f} vs {lc:.8f}; gradients within {g_err:.3e} of max |grad|, the AdamW "
+        f"update from the same gradients within {u_err:.3e} of max |w| (limit {CARD_VS_CPU_TOL}); "
+        f"the composed step's parameters within {worst:.3e} of max |w|, {len(beyond_g)} elements "
+        f"beyond the limit, their |grad| {[f'{x:.2e}' for x in sorted(beyond_g)[-8:]]} (eps 1e-8)"
+    )
+
+
+def phase_train(qs) -> dict:
+    """``train_snn`` at full width on the card (8 epochs, batch 128, lr
+    2e-3), the trained net deployed through ``quantize_params`` ->
+    ``eval_int`` on three backends, then a QAT epoch at w_bits = 3; after
+    the counts are read: eval_qat == eval_int of the QAT deployment, a QAT
+    forward's launches against plain, one train step card against CPU, and
+    the train and QAT steps' time and device-busy share.  Returns the main
+    path's launch counts."""
+    net, train, test = qs
+    t_phase = time.perf_counter()
+    params0 = init_float_params(torch.Generator().manual_seed(0), net)
+    t0 = time.perf_counter()
+    res = train_snn(net, train, epochs=QS_EPOCHS, batch_size=128, lr=2e-3, init_params=params0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    qparams, _ = quantize_params(net, res.params)
+    accs = {b: eval_int(net, qparams, test, backend=b) for b in ("reference", "fused", "event")}
+    qat = PrecisionConfig(w_bits=3)
+    n0 = spike_matmul.launches
+    t0 = time.perf_counter()
+    qres = train_snn(net, train, epochs=1, lr=5e-4, qat=qat, init_params=res.params)
+    torch.cuda.synchronize()
+    qat_wall = time.perf_counter() - t0
+    qat_launches = spike_matmul.launches - n0
+    counts = read_counts()
+
+    steps = -(-len(train.labels) // 128)
+    for h in res.history:
+        print(
+            f"train: epoch {h['epoch']}: loss {h['loss']:.6f}, train_acc {h['train_acc']:.6f}, "
+            f"{h['seconds']:.3f} s ({1e3 * h['seconds'] / steps:.2f} ms a step)"
+        )
+    print(
+        f"train: {net.name} (LIF 256-128-10 w6/u8, T={net.n_steps}) {QS_EPOCHS} epochs x "
+        f"{steps} steps on the card in {wall:.3f} s: "
+        f"{QS_EPOCHS * len(train.labels) / wall:.1f} samples/s, "
+        f"{1e3 * wall / (QS_EPOCHS * steps):.2f} ms a step"
+    )
+    check(len(set(accs.values())) == 1, f"deployed accuracy differs across backends: {accs}")
+    acc = accs["reference"]
+    check(acc >= QS_ACC_FLOOR, f"deployed accuracy {acc} below the floor {QS_ACC_FLOOR}")
+    print(f"train: deployed (quantize_params -> eval_int) accuracy {acc:.6f} on reference, fused "
+          f"and event (floor {QS_ACC_FLOOR})")
+
+    per_step = net.n_steps * len(net.layers)
+    check(qat_launches == steps * per_step,
+          f"QAT epoch: {qat_launches} spike_matmul launches, not {steps} steps x {per_step}")
+    qq, _ = quantize_params(qres.qat_net, qres.params)
+    acc_int, acc_qat = eval_int(qres.qat_net, qq, test), eval_qat(qres.qat_net, qres.params, test)
+    check(acc_qat == acc_int, f"eval_qat {acc_qat} != eval_int of the deployment {acc_int}")
+    one, x, y = first_batch(train)
+    with recorded_spike_matmul(snn_layer_mod) as seen, torch.no_grad():
+        run_qat(qres.qat_net, qres.params, x, fast_sigmoid(25.0))
+    check(len(seen) == per_step, "a QAT forward launches spike_matmul T x layers times")
+    check_recorded(seen, "QAT forward")
+    print(
+        f"train: QAT epoch (w_bits 3, {steps} steps) in {qat_wall:.3f} s "
+        f"({1e3 * qat_wall / steps:.2f} ms a step), loss {qres.history[0]['loss']:.6f}; "
+        f"{qat_launches} spike_matmul launches = {steps} steps x T x layers; eval_qat == "
+        f"eval_int of the w3 deployment == {acc_int:.6f}; a QAT forward's launches "
+        f"{sorted({f'{list(a.shape)}x{list(b.shape)}' for a, b, _ in seen})} bit-identical to plain"
+    )
+
+    # one train step from the same parameters on the same batch: card vs CPU
+    def step(params, device, **kw):
+        return train_snn(
+            net, one, epochs=1, batch_size=128, init_params=params, device=device, **kw
+        )
+
+    print(f"train: one step card vs CPU: {step_card_vs_cpu(step, params0)}")
+    fstep = lambda: step(params0, DEVICE)
+    print(f"train step split (train_snn on one batch of 128): {device_split(fstep, n=3)}")
+    qstep = lambda: step(res.params, DEVICE, lr=5e-4, qat=qat)
+    print(f"QAT step split (train_snn on one batch of 128): {device_split(qstep, n=3)}")
+    print(f"train: phase 10 took {time.perf_counter() - t_phase:.3f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA card", file=sys.stderr)
@@ -1432,6 +1770,7 @@ def main() -> int:
         timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    t_start = time.perf_counter()
     # the certified f32 lowering and the LM's f32 logits head need full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -1515,15 +1854,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_lm_card_vs_cpu(arch)
 
+    t0 = time.perf_counter()
     dse = dse_setup()
-    reset_counts()
-    with launch_sizes() as tally:
-        counts = phase_dse(dse)
-    print(f"launches[dse]: {counts}")
-    by_shape = {f"{k}{list(v)}": n for (k, v), n in sorted(tally.items())}
-    print(f"launches by size[dse] (the launches counted above): {json.dumps(by_shape)}")
-    for k, v in counts.items():
-        launches[k] += v
+    qs = quickstart_setup()
+    for name, phase in [
+        ("dse", lambda: phase_dse(dse)),
+        ("dse_refine", lambda: phase_dse_refine(dse)),
+        ("train", lambda: phase_train(qs)),
+    ]:
+        reset_counts()
+        with launch_sizes() as tally:
+            counts = phase()
+        print(f"launches[{name}]: {counts}")
+        by_shape = {f"{k}{list(v)}": n for (k, v), n in sorted(tally.items())}
+        print(f"launches by size[{name}] (the launches counted above): {json.dumps(by_shape)}")
+        for k, v in counts.items():
+            launches[k] += v
+    print(f"phases 9-10 took {time.perf_counter() - t0:.3f} s; the script so far "
+          f"{time.perf_counter() - t_start:.3f} s")
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was never launched on the main path")
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,3 +20,20 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run float32 products at full float32 precision inside the block.
+
+    TF32 keeps 10 mantissa bits, so a float path under it would not agree
+    with the CPU or the JAX package; training and float evaluation run
+    inside this block whatever the caller set, and the caller's setting
+    comes back after it.
+    """
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

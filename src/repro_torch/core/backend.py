@@ -5,7 +5,9 @@ Port of ``repro/core/backend.py``.  Three backends, each bit-identical to
 
 ``reference``
     Step-major simulation: a loop over time steps, each step walking every
-    core via ``int_layer_step``.  The numerics contract.
+    core via ``int_layer_step``.  The numerics contract.  Its ``run_float``
+    is the differentiable simulation BPTT trains through (``fused`` and
+    ``event`` delegate to it, as in JAX).
 
 ``fused``
     Layer-major traversal: each feed-forward IF/LIF core's whole window runs
@@ -62,6 +64,8 @@ from repro_torch.core.snn_layer import (
     fused_eligible,
     _scan_currents,
     _traced_decays,
+    float_layer_init,
+    float_layer_step,
     int_layer_init,
     int_layer_step,
     int_layer_step_dynamic,
@@ -140,18 +144,23 @@ class SimRecord:
         }
 
 
-def _run_step_major(net, params, spikes_in) -> SimRecord:
-    """Step-major simulation: loop over time, walk the cores inside."""
+def _run_step_major(
+    net, params, spikes_in, init_fn=int_layer_init, step_fn=int_layer_step
+) -> SimRecord:
+    """Step-major simulation: loop over time, walk the cores inside.  The
+    integer datapath by default; ``float_layer_init`` and a float step give
+    the differentiable simulation (float32 spike totals)."""
     batch = spikes_in.shape[1]
-    states = [int_layer_init(cfg, batch, device=spikes_in.device) for cfg in net.layers]
+    states = [init_fn(cfg, batch, device=spikes_in.device) for cfg in net.layers]
+    total = (lambda x, dim=-1: x.sum(dim=dim)) if spikes_in.is_floating_point() else _count
     out_spikes, emitted = [], [[] for _ in net.layers]
     for s_t in spikes_in:
         x = s_t
         for li, (cfg, p) in enumerate(zip(net.layers, params)):
-            states[li], x = int_layer_step(cfg, p, states[li], x)
-            emitted[li].append(_count(x))
+            states[li], x = step_fn(cfg, p, states[li], x)
+            emitted[li].append(total(x))
         out_spikes.append(x)
-    counts = _count(torch.stack(out_spikes), dim=0)
+    counts = total(torch.stack(out_spikes), dim=0)
     return SimRecord(
         spike_counts=counts,
         layer_spikes=[torch.stack(e) for e in emitted],
@@ -172,7 +181,7 @@ class InferenceBackend:
         raise NotImplementedError
 
     def run_float(self, net, params, spikes_in, spike_fn) -> SimRecord:
-        raise NotImplementedError("float simulation waits for the training slice of the port")
+        raise NotImplementedError
 
     def jit_surrogate(self, net, spikes_in) -> "InferenceBackend | None":
         """A fixed-capacity stand-in carrying this backend's numerics, or None."""
@@ -194,6 +203,14 @@ class ReferenceBackend(InferenceBackend):
 
     def run_int(self, net, qparams, spikes_in) -> SimRecord:
         return _run_step_major(net, list(qparams), spikes_in.to(torch.int32))
+
+    def run_float(self, net, params, spikes_in, spike_fn) -> SimRecord:
+        def step(cfg, p, st, x):
+            return float_layer_step(cfg, p, st, x, spike_fn)
+
+        return _run_step_major(
+            net, list(params), spikes_in.to(torch.float32), float_layer_init, step
+        )
 
 
 class FusedBackend(InferenceBackend):
@@ -232,6 +249,11 @@ class FusedBackend(InferenceBackend):
         return SimRecord(
             spike_counts=_count(x, dim=0), layer_spikes=emitted, input_events=input_events
         )
+
+    def run_float(self, net, params, spikes_in, spike_fn) -> SimRecord:
+        # The fused kernels are integer-only; float (training) simulation
+        # keeps the differentiable reference semantics.
+        return ReferenceBackend().run_float(net, params, spikes_in, spike_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -492,6 +514,11 @@ class EventBackend(InferenceBackend):
             layer_spikes=[torch.from_numpy(e).to(device) for e in emitted],
             input_events=torch.from_numpy(input_events).to(device),
         )
+
+    def run_float(self, net, params, spikes_in, spike_fn) -> SimRecord:
+        # Float (training) simulation keeps the differentiable reference
+        # semantics; sparsity games don't pay off under surrogate gradients.
+        return ReferenceBackend().run_float(net, params, spikes_in, spike_fn)
 
 
 _REGISTRY: dict[str, Callable[[], InferenceBackend]] = {}

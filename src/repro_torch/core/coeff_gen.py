@@ -10,8 +10,10 @@ i.e. the IF model's "no leak") as a gated sum of arithmetic right shifts:
 
 The shifts are arithmetic (sign-extending; floor semantics for negative
 operands).  ``leak_bits`` (1..8) restricts k to multiples of
-``2**(8 - leak_bits)``.  This module is the port's single source of truth for
-decay numerics; the ``lif_scan`` CUDA kernel repeats the same shift set.
+``2**(8 - leak_bits)``; in the RTL, ``SelectionUnits[3:0]`` gates the four
+two-tap data blocks, and :func:`selection_units` returns that mask.  This
+module is the port's single source of truth for decay numerics; the
+``lif_scan`` CUDA kernel repeats the same shift set.
 """
 
 from __future__ import annotations
@@ -26,8 +28,12 @@ from repro_torch.core.fixed_point import arithmetic_rshift
 __all__ = [
     "DecayCode",
     "encode_decay",
+    "decode_factor",
     "apply_decay",
     "apply_decay_traced",
+    "apply_decay_float",
+    "selection_units",
+    "max_value_error_bound",
     "quantization_grid",
 ]
 
@@ -50,6 +56,14 @@ class DecayCode:
         return 1.0 if self.bypass else self.k / 256.0
 
 
+def selection_units(leak_bits: int) -> int:
+    """SelectionUnits[3:0]: which two-tap blocks ((1,2),(3,4),(5,6),(7,8)) exist."""
+    if not 0 <= leak_bits <= 8:
+        raise ValueError(f"leak_bits must be in [0, 8], got {leak_bits}")
+    n_blocks = (leak_bits + 1) // 2
+    return (1 << n_blocks) - 1
+
+
 def encode_decay(beta: float, leak_bits: int = 8) -> DecayCode:
     """Round a float decay factor onto the CG's representable grid.
 
@@ -66,6 +80,10 @@ def encode_decay(beta: float, leak_bits: int = 8) -> DecayCode:
         # beta rounds to 1.0: representable exactly via the bypass path.
         return DecayCode(k=0, bypass=True, leak_bits=leak_bits)
     return DecayCode(k=k, bypass=False, leak_bits=leak_bits)
+
+
+def decode_factor(code: DecayCode) -> float:
+    return code.factor
 
 
 def apply_decay(x, code: DecayCode) -> torch.Tensor:
@@ -94,6 +112,21 @@ def apply_decay_traced(x, decay_register) -> torch.Tensor:
         gate = (k >> (8 - shift)) & 1
         acc = acc + gate * arithmetic_rshift(x, shift)
     return torch.where(k >= 256, x, acc)
+
+
+def apply_decay_float(x, code: DecayCode) -> torch.Tensor:
+    """Float reference of the *factor* (not of the floor-shift arithmetic)."""
+    return torch.as_tensor(x, dtype=torch.float32) * code.factor
+
+
+def max_value_error_bound(code: DecayCode) -> float:
+    """Upper bound on |apply_decay(x) - x*k/256| from floor-shift truncation.
+
+    Each selected tap truncates < 1 LSB, so the bound is the tap count.
+    """
+    if code.bypass:
+        return 0.0
+    return float(bin(code.k).count("1"))
 
 
 def quantization_grid(leak_bits: int) -> np.ndarray:

@@ -13,10 +13,16 @@ product really runs in float32, so it refuses to run when TF32 is enabled.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 __all__ = [
+    "QuantSpec",
+    "make_spec_from_absmax",
     "quantize_symmetric",
+    "dequantize",
     "int_min",
     "int_max",
     "saturate",
@@ -36,10 +42,49 @@ def int_max(bits: int) -> int:
     return (1 << (bits - 1)) - 1
 
 
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """Symmetric signed fixed-point quantization spec.
+
+    ``scale`` maps float -> integer: ``q = clip(round(x * scale))``; the same
+    scale rescales thresholds and resets, so the integer dynamics mirror the
+    float ones.
+    """
+
+    bits: int
+    scale: float
+
+    @property
+    def qmin(self) -> int:
+        return int_min(self.bits)
+
+    @property
+    def qmax(self) -> int:
+        return int_max(self.bits)
+
+    def quantize(self, x) -> torch.Tensor:
+        return quantize_symmetric(x, self.bits, self.scale)
+
+    def dequantize(self, q) -> torch.Tensor:
+        return dequantize(q, self.scale)
+
+
+def make_spec_from_absmax(x, bits: int, margin: float = 1.0) -> QuantSpec:
+    """Build a QuantSpec so that ``margin * max|x|`` maps to the integer max."""
+    a = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    absmax = float(np.max(np.abs(a))) if a.size else 1.0
+    absmax = max(absmax * margin, 1e-12)
+    return QuantSpec(bits=bits, scale=int_max(bits) / absmax)
+
+
 def quantize_symmetric(x, bits: int, scale: float) -> torch.Tensor:
     """Round-to-nearest-even symmetric quantization with clipping."""
     q = torch.round(torch.as_tensor(x, dtype=torch.float32) * scale)
     return torch.clamp(q, int_min(bits), int_max(bits)).to(torch.int32)
+
+
+def dequantize(q, scale: float) -> torch.Tensor:
+    return torch.as_tensor(q).to(torch.float32) / scale
 
 
 def saturate(x: torch.Tensor, bits: int) -> torch.Tensor:

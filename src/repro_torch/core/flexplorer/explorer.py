@@ -16,8 +16,9 @@ evaluate=..., refine=...)`` with three spec dataclasses:
   checkpointing so a killed search resumes mid-schedule.
 * :class:`EvalSpec` -- *how candidates are scored*: simulator backend,
   eval batch size, perf-cost targets (``mesh`` must be None here).
-* :class:`RefineSpec` -- the second, QAT train-in-the-loop phase; the port
-  has no QAT yet, so ``top_k`` must stay 0.
+* :class:`RefineSpec` -- the optional second QAT train-in-the-loop phase
+  over the search finalists (``snn.qat.refine_candidates``: all finalists
+  fine-tune at once on a stacked candidate axis).
 
 Population-capable strategies score each round's uncached candidates
 through one population sweep (``eval_int_population``: on the card every
@@ -49,6 +50,7 @@ from repro_torch.core.flexplorer import cost as cost_lib
 from repro_torch.core.flexplorer import strategies as strategies_lib
 from repro_torch.core.network import NetworkConfig, quantize_params
 from repro_torch.data.snn_datasets import SpikeDataset
+from repro_torch.snn import qat as qat_lib
 from repro_torch.snn.train import eval_int, eval_int_population
 
 __all__ = [
@@ -115,8 +117,7 @@ class EvalSpec:
 
 @dataclasses.dataclass(frozen=True)
 class RefineSpec:
-    """The optional QAT train-in-the-loop phase over the search finalists.
-    ``top_k`` > 0 needs QAT, which is not ported yet."""
+    """The optional QAT train-in-the-loop phase over the search finalists."""
 
     top_k: int = 0
     train_ds: SpikeDataset | None = None
@@ -147,8 +148,7 @@ class RefinedCandidate:
     parameters (``base_accuracy`` the unrefined, post-training-quant score
     the search saw -- ``accuracy >= base_accuracy`` by construction, see
     ``qat.refine_candidates``); ``qparams`` deploy through the unchanged
-    ``eval_int`` / serving paths.  Kept for the result schema: the port
-    makes none until QAT is ported (``refine.top_k`` must be 0).
+    ``eval_int`` / serving paths.
     """
 
     cfg: tuple
@@ -343,9 +343,16 @@ def explore_snn(
     ``search.checkpoint_dir`` makes the search resumable across process
     kills; see :class:`SearchSpec`.
 
+    ``refine.top_k > 0`` adds the second *train-in-the-loop* phase: the
+    top-k finalists (Pareto-front members first, then cheapest total cost)
+    are QAT-fine-tuned at their own precisions on ``refine.train_ds``
+    (required) -- one candidate-axis train step for all of them -- and
+    re-scored bit-exactly; with ``c_perf > 0`` their traffic is re-measured
+    through ``eval_int``.  Results land in ``result.refined``;
+    ``best_net``/``best_qparams`` remain the unrefined incumbent.
+
     Not ported yet, and refused with ``NotImplementedError``:
-    ``evaluate.mesh`` other than None (multi-device evaluation) and
-    ``refine.top_k > 0`` (the QAT refinement phase).
+    ``evaluate.mesh`` other than None (multi-device evaluation).
 
     Legacy flat kwargs (``space=``, ``anneal_cfg=``, ``population=``,
     ``eval_batch=``, ``refine_top_k=``, ...) are accepted through a shim
@@ -364,10 +371,12 @@ def explore_snn(
             "explore_snn: evaluate.mesh (multi-device evaluation) is not ported yet; "
             "pass mesh=None"
         )
-    if refine.top_k > 0:
-        raise NotImplementedError(
-            "explore_snn: refine.top_k > 0 (QAT refinement of the finalists) is not "
-            "ported yet; pass top_k=0"
+    if refine.top_k > 0 and refine.train_ds is None:
+        raise ValueError(
+            "explore_snn: refine.top_k > 0 needs refine.train_ds (legacy "
+            "kwarg refine_train_ds) -- the data the finalists are "
+            "QAT-fine-tuned on; typically the training split the float "
+            "parameters came from"
         )
 
     any_recurrent = any(lc.is_recurrent for lc in net.layers)
@@ -531,9 +540,83 @@ def explore_snn(
     # guaranteed cached, so closing out costs no requantization
     best_net, best_qparams = quantized(result.best)
 
+    refined: list[RefinedCandidate] = []
+    if refine.top_k > 0:
+        seed = getattr(search.config, "seed", 0) if search.config is not None else 0
+        chosen = _select_finalists(result, refine.top_k)
+        cand_nets = [quantized(c)[0] for c in chosen]
+        rr = qat_lib.refine_candidates(
+            net,
+            cand_nets,
+            float_params,
+            refine.train_ds,
+            eval_ds,
+            epochs=refine.epochs,
+            batch_size=refine.batch,
+            lr=refine.lr,
+            seed=seed,
+            eval_batch=eval_batch,
+        )
+        for k, cfg in enumerate(chosen):
+            cand = cand_nets[k]
+            refined_params = rr.params[k]
+            qp = quantize_params(cand, refined_params)[0]
+            accuracy = float(rr.best_acc[k])
+            p_cost = 0.0
+            if use_perf:
+                # the refined parameters spike differently: re-measure traffic
+                accuracy, stats = eval_int(
+                    cand, qp, eval_ds, batch_size=eval_batch, return_stats=True, backend=backend
+                )
+                traffic = hw_model.EventTraffic.from_stats(stats)
+                dp = hw_model.design_point(cand, traffic)
+                congestion = max(0.0, dp.bw_demand_bytes_s / device.mem_bw_bytes_s - 1.0)
+                p_cost = cost_lib.perf_cost(
+                    dp.latency_s, dp.energy_per_image_j, weights, perf_targets,
+                    bw_congestion=congestion,
+                )
+            hw = float(result.cache[cfg][1])
+            refined.append(
+                RefinedCandidate(
+                    cfg=cfg,
+                    breakdown=dict(zip(knobs.keys(), cfg)),
+                    net=cand,
+                    qparams=qp,
+                    params=refined_params,
+                    accuracy=float(accuracy),
+                    base_accuracy=float(rr.base_acc[k]),
+                    hw_cost=hw,
+                    total_cost=hw + float(acc_cost_fn(float(accuracy))) + p_cost,
+                    perf_cost=p_cost,
+                )
+            )
+
     return ExplorationResult(
         best_net=best_net,
         best_qparams=best_qparams,
         search=result,
         weights=weights,
+        refined=refined,
     )
+
+
+def _select_finalists(result, top_k: int) -> list[tuple]:
+    """The refinement shortlist: Pareto-front members first, then by cost.
+
+    Front members are where extra accuracy moves the achievable trade-off
+    outward (a refined front point dominates its own unrefined twin, so the
+    refined front is never worse); remaining slots go to the cheapest
+    non-front candidates.
+    """
+    points = [
+        {"cfg": cfg, "hw_cost": hw, "accuracy": accuracy, "total": total}
+        for cfg, (total, hw, _a, accuracy, _p) in result.cache.items()
+    ]
+    front = pareto_front(points)
+    front_cfgs = [p["cfg"] for p in sorted(front, key=lambda d: d["total"])]
+    rest = sorted(
+        (p for p in points if p["cfg"] not in set(front_cfgs)),
+        key=lambda d: d["total"],
+    )
+    order = front_cfgs + [p["cfg"] for p in rest]
+    return order[:top_k]

@@ -2,12 +2,12 @@
 
 Port of ``repro/core/network.py``: :func:`init_float_params` /
 :func:`quantize_params` (float weights quantized to each core's fixed-point
-widths, thresholds rescaled onto the same grid) and :func:`run_int`, the
-bit-exact deployment simulation through any registered backend.
+widths, thresholds rescaled onto the same grid), :func:`run_float`, the
+differentiable simulation BPTT trains through, and :func:`run_int`, the
+bit-exact deployment simulation, both through any registered backend.
 :func:`float_params_from_numpy` / :func:`int_params_from_numpy` carry
 parameters across from the JAX package (as numpy arrays), so both packages
-can compute on identical weights.  ``run_float`` waits for the training
-slice.
+can compute on identical weights.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ __all__ = [
     "int_params_from_numpy",
     "layer_scale",
     "quantize_params",
+    "run_float",
     "run_int",
     "SimRecord",
 ]
@@ -130,24 +131,32 @@ def int_params_from_numpy(
     ]
 
 
-def layer_scale(cfg, p: FloatLayerParams) -> torch.Tensor:
-    """The core's float->fixed-point quantization scale, a float32 scalar.
+def layer_scale(cfg, p: FloatLayerParams, w_max=None, rec_max=None) -> torch.Tensor:
+    """The core's float->fixed-point quantization scale, a float32 tensor.
 
     The tightest scale that fits both weight groups in their bit-widths and
     keeps the rescaled threshold at most half the membrane register.  Every
     operation is float32 in the same order as the JAX version, so the scale
     -- and every ``theta_q`` and spike after it -- matches bit for bit.
+
+    ``w_max`` / ``rec_max`` override the weight-grid maxima (``int_max(w_bits)``
+    / ``int_max(w_rec_bits)``) with float32 values of shape [] or [K].  With
+    a leading candidate axis on ``p`` (``w_ff`` [K, n_in, n_out], stacked
+    ``w_rec`` and ``theta``, as the population fine-tune holds them) the
+    scale is [K], each candidate's equal to the scale of its own slice.
     """
     f32 = torch.float32
     dev = p.w_ff.device
     eps = torch.tensor(1e-12, dtype=f32, device=dev)
-    w_max = torch.tensor(int_max(cfg.w_bits), dtype=f32, device=dev)
-    rec_max = torch.tensor(int_max(cfg.w_rec_bits), dtype=f32, device=dev)
-    absmax_ff = torch.max(torch.abs(p.w_ff.to(f32)))
+    w_max = torch.as_tensor(int_max(cfg.w_bits) if w_max is None else w_max, dtype=f32).to(dev)
+    rec_max = torch.as_tensor(
+        int_max(cfg.w_rec_bits) if rec_max is None else rec_max, dtype=f32
+    ).to(dev)
+    absmax_ff = torch.abs(p.w_ff.to(f32)).amax(dim=(-2, -1))
     absmax_ff = torch.where(absmax_ff == 0, eps, absmax_ff)
     scale = w_max / absmax_ff
     if cfg.topology == Topology.ATA_T and p.w_rec.numel():
-        absmax_rec = torch.max(torch.abs(p.w_rec.to(f32)))
+        absmax_rec = torch.abs(p.w_rec.to(f32)).amax(dim=(-2, -1))
         scale = torch.minimum(scale, rec_max / torch.where(absmax_rec == 0, eps, absmax_rec))
     elif cfg.topology == Topology.ATA_F:
         absmax_rec = torch.abs(p.w_rec.to(f32))
@@ -194,3 +203,14 @@ def run_int(
 ) -> SimRecord:
     """Bit-exact deployment simulation. ``spikes_in``: int [T, batch, n_in]."""
     return get_backend(backend).run_int(net, list(qparams), spikes_in)
+
+
+def run_float(
+    net: NetworkConfig,
+    params: Sequence[FloatLayerParams],
+    spikes_in,
+    spike_fn,
+    backend: str | InferenceBackend = "reference",
+) -> SimRecord:
+    """Differentiable simulation. ``spikes_in``: float {0,1} [T, batch, n_in]."""
+    return get_backend(backend).run_float(net, list(params), spikes_in, spike_fn)

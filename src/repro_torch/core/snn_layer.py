@@ -16,7 +16,9 @@ One Flexi-NeurA core implements one layer; a time step runs in two phases
 
 Every exact int32 product here goes through the ``spike_matmul`` wrapper:
 the CUDA kernel for tensors on the card, int32 ``torch.matmul`` on the CPU.
-The float (training) step waits for the training slice of the port.
+The float (training) step, :func:`float_layer_step`, keeps the same phase
+order with a surrogate spike function; its products are float32
+``torch.matmul`` (JAX computes them outside any Pallas kernel too).
 
 A population of precision candidates (the DSE sweep) runs through the same
 functions with a leading candidate axis on every tensor: state [P, batch,
@@ -48,7 +50,9 @@ __all__ = [
     "FloatLayerParams",
     "LayerState",
     "int_layer_init",
+    "float_layer_init",
     "int_layer_step",
+    "float_layer_step",
     "int_layer_step_dynamic",
     "int_phase_a",
     "int_phase_b",
@@ -157,6 +161,14 @@ def int_layer_init(cfg: LayerConfig, batch: int, device: str | torch.device = "c
     return LayerState(u=z(), i_syn=z(), prev_spk=z())
 
 
+def float_layer_init(
+    cfg: LayerConfig, batch: int, device: str | torch.device = "cuda"
+) -> LayerState:
+    dev = resolve_device(device)
+    z = lambda: torch.zeros(batch, cfg.n_out, dtype=torch.float32, device=dev)
+    return LayerState(u=z(), i_syn=z(), prev_spk=z())
+
+
 def _integrate_acc(cfg: LayerConfig, params: IntLayerParams, state: LayerState, ff_acc):
     """Phase A given the step's feed-forward accumulation ``ff_acc``.
 
@@ -248,6 +260,43 @@ def int_layer_step_dynamic(
     """
     u, i_syn = int_phase_a(cfg, params, state, s_in)
     return int_phase_b(cfg, params, u, i_syn, *_traced_decays(beta_register, alpha_register))
+
+
+def _integrate_float(cfg: LayerConfig, params: FloatLayerParams, state: LayerState, s_in):
+    acc = torch.matmul(s_in.to(torch.float32), params.w_ff)
+    if cfg.topology == Topology.ATA_T:
+        acc = acc + torch.matmul(state.prev_spk, params.w_rec)
+    elif cfg.topology == Topology.ATA_F:
+        acc = acc + state.prev_spk * params.w_rec
+    if cfg.neuron == NeuronModel.SYNAPTIC:
+        return state.u, state.i_syn + acc
+    return state.u + acc, state.i_syn
+
+
+def float_layer_step(
+    cfg: LayerConfig, params: FloatLayerParams, state: LayerState, s_in, spike_fn
+) -> tuple[LayerState, torch.Tensor]:
+    """Differentiable step with the *same phase ordering* as the hardware.
+
+    ``spike_fn(u - theta)`` must return {0,1} forward with a surrogate
+    gradient (see ``repro_torch.snn.surrogate``).  Keeping the hardware's
+    decay-or-reset ordering at train time removes the train/deploy semantic
+    gap that a vanilla SNN-Torch unrolling would leave; the reset and the
+    leak are mixed arithmetically, so the surrogate gradient flows through
+    the branch selector.
+    """
+    u, i_syn = _integrate_float(cfg, params, state, s_in)
+    u_tmp = u + i_syn if cfg.neuron == NeuronModel.SYNAPTIC else u
+
+    spk = spike_fn(u_tmp - params.theta)
+    if cfg.reset == ResetMode.ZERO:
+        u_reset = torch.zeros_like(u_tmp)
+    else:
+        u_reset = u_tmp - params.theta
+    u_new = spk * u_reset + (1.0 - spk) * (cfg.effective_beta * u_tmp)
+
+    i_new = cfg.alpha * i_syn if cfg.neuron == NeuronModel.SYNAPTIC else i_syn
+    return LayerState(u=u_new, i_syn=i_new, prev_spk=spk), spk
 
 
 def fused_eligible(cfg: LayerConfig) -> bool:

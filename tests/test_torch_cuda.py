@@ -601,3 +601,101 @@ def test_population_sweep_on_the_card_matches_serial_and_cpu(cuda, topology, neu
                            st_c[c]["layer_events_per_step"]):
             np.testing.assert_array_equal(a, b)
             np.testing.assert_array_equal(b, d)
+
+
+def _tiny_train_net():
+    return tnet.NetworkConfig(
+        layers=(tsl.LayerConfig(n_in=256, n_out=32, w_bits=6, u_bits=16),
+                tsl.LayerConfig(n_in=32, n_out=10, w_bits=6, u_bits=16)),
+        n_steps=10, name="train-tiny",
+    )
+
+
+def _to(params, device):
+    return [tsl.FloatLayerParams(*(t.to(device) for t in p)) for p in params]
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["one", "candidate-axis"])
+def test_qat_forward_on_the_card_matches_the_cpu(cuda, stacked):
+    """run_qat on the card == the CPU, bit for bit, one candidate or three on
+    a candidate axis; phase A is one spike_matmul launch per layer per step."""
+    from repro_torch.snn import qat as tqat
+    from repro_torch.snn.surrogate import fast_sigmoid
+
+    net = _tiny_train_net()
+    params = tnet.init_float_params(torch.Generator().manual_seed(0), net, device="cpu")
+    kw = {}
+    if stacked:
+        cands = [net.replace_precisions(w_bits=w, leak_bits=k) for w, k in [(2, 3), (3, 8), (9, 1)]]
+        names = ("w_maxes", "rec_maxes", "beta_regs", "alpha_regs")
+        kw = dict(zip(names, tqat.candidate_grid(cands, "cpu")))
+        params = [tsl.FloatLayerParams(*(torch.stack([t] * 3) for t in p)) for p in params]
+    x = torch.from_numpy(_raster(10 * 16, 256, seed=2, rate=0.3).reshape(10, 16, 256))
+    fn = fast_sigmoid(25.0)
+    want = tqat.run_qat(net, params, x, fn, **kw)
+    n0 = spike_matmul.launches
+    got = tqat.run_qat(net, _to(params, cuda), x.to(cuda), fn,
+                       **{k: v.to(cuda) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert spike_matmul.launches - n0 == 10 * len(net.layers)
+    assert torch.equal(got.spike_counts.cpu(), want.spike_counts)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got.layer_spikes, want.layer_spikes))
+    assert int(want.layer_spikes[0].sum()) > 0
+
+
+@pytest.mark.parametrize("qat", [False, True], ids=["float", "qat"])
+def test_one_train_step_on_the_card_matches_the_cpu(cuda, qat):
+    """train_snn on one batch (one AdamW step) from the same parameters, held
+    stage by stage: the loss within 1e-5 relative, every gradient leaf (read
+    where train_snn clips it) within 1e-5 of its max |grad|, and the AdamW
+    update from the same gradients within 1e-5 of each leaf's max |w|.  The
+    composed step's parameters are not held to 1e-5: AdamW's first update
+    g / (|g| + eps) amplifies float noise in an element whose |g| is near
+    eps = 1e-8 by up to 1 / eps (chip_smoke.py on an H100: 3.5e-5 of max
+    |w|, at elements with |g| of 1.9e-9 to 9.9e-8); they must stay within
+    one step, lr."""
+    from unittest import mock
+
+    from repro_torch.data import snn_datasets as tds
+    from repro_torch.snn import qat as tqat
+    from repro_torch.snn import train as ttrain
+    from repro_torch.train import optimizer as topt
+
+    net = _tiny_train_net()
+    ds = tds.mnist_like(n=64, T=10, seed=11)
+    params = tnet.init_float_params(torch.Generator().manual_seed(0), net, device="cpu")
+    kw = dict(epochs=1, batch_size=64, lr=2e-3,
+              qat=tqat.PrecisionConfig(w_bits=3) if qat else None)
+    seen, real = [], topt.clip_by_global_norm
+
+    def spy(grads, max_norm, batch_dims=0):
+        out = real(grads, max_norm, batch_dims)
+        seen.append(([g.cpu() for g in grads], [g.cpu() for g in out[0]]))
+        return out
+
+    with mock.patch.object(topt, "clip_by_global_norm", spy):
+        got = ttrain.train_snn(net, ds, init_params=_to(params, cuda), device=cuda, **kw)
+        want = ttrain.train_snn(net, ds, init_params=params, device="cpu", **kw)
+    lw, lg = want.history[0]["loss"], got.history[0]["loss"]
+    assert abs(lg - lw) <= 1e-5 * abs(lw)
+    (g_card, _), (g_cpu, clipped) = seen
+    for a, b in zip(g_card, g_cpu):
+        if b.numel():
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    leaves = [t for p in params for t in p]
+    updated = []
+    for dev in ("cpu", cuda):
+        opt = topt.adamw(topt.linear_warmup_cosine(2e-3, 1, 1))
+        ps = [t.to(dev) for t in leaves]
+        upd, _ = opt.update([g.to(dev) for g in clipped], opt.init(ps), ps)
+        updated.append([(p + u).cpu() for p, u in zip(ps, upd)])
+    for a, b in zip(*updated):
+        if b.numel():
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for a, b in zip(got.params, want.params):
+        for x, y in zip(a, b):
+            assert x.device.type == "cuda"
+            if y.numel():
+                assert float((x.cpu() - y).abs().max()) <= 2e-3
+    with pytest.raises(ValueError, match="init_params are on cpu"):
+        ttrain.train_snn(net, ds, init_params=params, **kw)

@@ -6,7 +6,8 @@ with the event-aware perf and bandwidth terms on (``c_perf > 0``, ``c_bw >
 0``), so each candidate's float32 traffic stats reach the objectives: serial
 anneal, population anneal and NSGA-II give the same ``to_json()``, best and
 report in both packages.  Also the port's kill-and-resume, the legacy shim,
-the refusals of what is not ported yet, and its checkpointer.
+the refusals of what is not ported yet (and of a refine phase without its
+training data), and its checkpointer.
 """
 
 import json
@@ -233,17 +234,19 @@ def test_legacy_kwargs_shim_warns_once_and_matches(tiny):
 
 
 @pytest.mark.parametrize(
-    "kw,what",
+    "kw,exc,what",
     [
-        (dict(evaluate=texp.EvalSpec(mesh=2)), "multi-device"),
-        (dict(evaluate=texp.EvalSpec(mesh="auto")), "multi-device"),
-        (dict(refine=texp.RefineSpec(top_k=2)), "QAT"),
+        (dict(evaluate=texp.EvalSpec(mesh=2)), NotImplementedError, "multi-device"),
+        (dict(evaluate=texp.EvalSpec(mesh="auto")), NotImplementedError, "multi-device"),
+        # the refine phase is ported: without its training data it raises
+        # JAX's ValueError
+        (dict(refine=texp.RefineSpec(top_k=2)), ValueError, "refine_train_ds"),
     ],
     ids=["mesh-2", "mesh-auto", "refine"],
 )
-def test_unported_phases_raise(tiny, kw, what):
+def test_unported_phases_raise(tiny, kw, exc, what):
     _, (tn, tp, tds_) = tiny
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(exc, match=what):
         texp.explore_snn(tn, tp, tds_, **kw)
 
 

@@ -97,6 +97,66 @@ def test_apply_decay_every_code(leak_bits):
         _eq(tcg.apply_decay_traced(_t(x), tcode.decay_rate_register), want)
 
 
+# tests/test_coeff_gen.py's anchors, re-pointed at the port
+
+
+def test_paper_example_k153():
+    code = tcg.encode_decay(0.59765625, leak_bits=8)
+    assert (code.k, code.bypass, code.decay_rate_register) == (153, False, 0b010011001)
+    assert tcg.decode_factor(code) == code.factor == jcg.decode_factor(jcg.encode_decay(0.59765625))
+
+
+def test_bypass_is_if_model():
+    code = tcg.encode_decay(1.0, leak_bits=8)
+    assert code.bypass
+    x = torch.arange(-5, 6, dtype=torch.int32) * 37
+    assert torch.equal(tcg.apply_decay(x, code), x)
+
+
+def test_selection_units_gating():
+    assert [tcg.selection_units(b) for b in (0, 2, 3, 8)] == [0b0000, 0b0001, 0b0011, 0b1111]
+    for leak_bits in range(0, 9):
+        assert tcg.selection_units(leak_bits) == jcg.selection_units(leak_bits)
+    for bad in (-1, 9):
+        with pytest.raises(ValueError, match="leak_bits"):
+            tcg.selection_units(bad)
+
+
+@pytest.mark.parametrize("leak_bits", [1, 3, 8])
+def test_decay_float_and_error_bound_every_code(leak_bits):
+    """``decode_factor``, ``max_value_error_bound`` and ``apply_decay_float``
+    equal JAX's for every code at the budget, and the bound holds."""
+    x = _ints(leak_bits + 20, lo=-(2**20), hi=2**20)
+    step = 1 << (8 - leak_bits)
+    for k in list(range(0, 256, step)) + [256]:
+        tcode = tcg.DecayCode(k=k % 256, bypass=k == 256, leak_bits=leak_bits)
+        jcode = jcg.DecayCode(k=k % 256, bypass=k == 256, leak_bits=leak_bits)
+        assert tcg.decode_factor(tcode) == jcg.decode_factor(jcode)
+        bound = tcg.max_value_error_bound(tcode)
+        assert bound == jcg.max_value_error_bound(jcode)
+        approx = tcg.apply_decay_float(_t(x), tcode)
+        assert approx.dtype == torch.float32
+        _eq(approx, jcg.apply_decay_float(jnp.asarray(x), jcode))
+        exact = tcg.apply_decay(_t(x), tcode).to(torch.float64)
+        assert float((exact - _t(x).to(torch.float64) * tcode.factor).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("bits,margin", [(6, 1.0), (8, 1.25), (3, 0.5), (16, 1.0)])
+def test_quant_spec_matches_jax(bits, margin):
+    x = np.random.default_rng(bits).normal(0, 0.4, 257).astype(np.float32)
+    tspec = tfp.make_spec_from_absmax(torch.from_numpy(x), bits, margin)
+    jspec = jfp.make_spec_from_absmax(x, bits, margin)
+    assert dataclasses.astuple(tspec) == dataclasses.astuple(jspec)
+    assert (tspec.qmin, tspec.qmax) == (jspec.qmin, jspec.qmax)
+    q = tspec.quantize(_t(x))
+    _eq(q, jspec.quantize(jnp.asarray(x)))
+    _eq(tspec.dequantize(q), jspec.dequantize(jnp.asarray(q.numpy())))
+    _eq(tfp.dequantize(q, 3.3333), jfp.dequantize(jnp.asarray(q.numpy()), 3.3333))
+    empty = tfp.make_spec_from_absmax(np.zeros(0, np.float32), bits)
+    assert dataclasses.astuple(empty) == dataclasses.astuple(jfp.make_spec_from_absmax(
+        np.zeros(0, np.float32), bits))
+
+
 def _float_arrays(net, seed):
     """Float parameters from a numpy seed: uniform(+-1/sqrt(fan_in)) weights."""
     rng = np.random.default_rng(seed)
@@ -260,3 +320,19 @@ def test_exact_f32_matmul_refuses_tf32():
             tfp.exact_f32_matmul(x, w)
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+@pytest.mark.parametrize("kw", QUANT_NETS[:3], ids=["ff", "ata_t", "ata_f"])
+def test_layer_scale_overrides_match_jax(kw):
+    """``w_max`` / ``rec_max`` given (as the refine phase passes them): the
+    scale equals JAX's, and the defaults equal the config's maxima."""
+    jn, tn = _pair_nets(24, 12, 5, 4, **kw)
+    arrays = _float_arrays(jn, 7)
+    jp = [jsl.FloatLayerParams(*(jnp.asarray(a) for a in layer)) for layer in arrays]
+    tp = tnet.float_params_from_numpy(tn, arrays, "cpu")
+    for jc, tc, a, b in zip(jn.layers, tn.layers, jp, tp):
+        for w_max, rec_max in [(None, None), (1.0, 127.0), (31.0, 3.0), (32767.0, None)]:
+            want = jnet.layer_scale(jc, a, w_max, rec_max)
+            got = tnet.layer_scale(tc, b, w_max, rec_max)
+            assert got.dtype == torch.float32 and got.shape == ()
+            _eq(got, want)
