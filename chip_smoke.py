@@ -71,17 +71,36 @@ result line):
    whose ``eval_qat`` equals ``eval_int`` of its deployment and whose every
    step launches ``spike_matmul`` T x layers times, each launch bit-identical
    to plain; train-, QAT- and refine-step times with their device-busy share;
-11. a ``kernels`` JSON line (launches on phases 3-7, 9 and 10, times,
-   bounds); phases 3-5, 9 and 10 also print the SNN kernels' launches by
+11. the serving front end and crash safety on the phases 3-5 net
+   (``SNNServeEngine(max_batch=64, backend=EventBackend("pallas"),
+   tick_stride=16)``): 256 streaming sessions x 64 steps in 16-step chunks,
+   fed in three groups one after the other (96 sparse, 128 dense
+   ``mnist_like``, 32 graded) so that sparse, f32_exact and int32 ticks
+   all occur, every readout equal to the prefix counts of a serial
+   ``run_int(reference)``, with steps/s, chunks/s, chunk p50/p99 and one
+   round's device-busy share; the same streams with every session evicted
+   to ``build/phase11/`` after each round (identical readouts, evictions =
+   restores + 256); phase 5's traffic without and with a ``Journal``
+   (results equal to phase 5's); a ``SupervisedEngine`` with a journal and
+   a checkpoint store serving 64 requests and 16 streams through a slow
+   tick, a tick raise, a poisoned carry and a kill, every result bit-exact
+   and the recovery counters equal to what was armed; ``SNNHttpServer``'s
+   routes on 127.0.0.1; ``launch/serve_snn.main`` in replay and
+   ``--streaming 16`` modes.  Phases 5 and 11 print dispatch against tick
+   wall from the engine's own timers;
+12. a ``kernels`` JSON line (launches on phases 3-7 and 9-11, times,
+   bounds); phases 3-5 and 9-11 also print the SNN kernels' launches by
    size;
-12. the result line.
+13. the result line.
 """
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import shutil
@@ -154,6 +173,7 @@ from repro_torch.kernels.quant_matmul.spike_matmul import (  # noqa: E402
 from repro_torch.kernels.sparse_accum.ops import fixed_capacity_events  # noqa: E402
 from repro_torch.kernels.sparse_accum.ref import sparse_accum_ref  # noqa: E402
 from repro_torch.kernels.sparse_accum.sparse_accum import sparse_accum  # noqa: E402
+from repro_torch.launch import serve_snn  # noqa: E402
 from repro_torch.launch.serve import QUANT_RULES  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -161,7 +181,16 @@ from repro_torch.models.attention import AttnMask, attend  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.models.registry import get_arch  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
-from repro_torch.serve.snn_engine import SNNRequest, SNNServeEngine  # noqa: E402
+from repro_torch.serve.faults import FaultInjector  # noqa: E402
+from repro_torch.serve.http import SNNHttpServer  # noqa: E402
+from repro_torch.serve.journal import Journal, read_records, recover  # noqa: E402
+from repro_torch.serve.snn_engine import AsyncSNNServer, SNNRequest, SNNServeEngine  # noqa: E402
+from repro_torch.serve.streaming import (  # noqa: E402
+    AsyncStreamServer,
+    StreamConfig,
+    StreamSessionManager,
+)
+from repro_torch.serve.supervisor import SupervisedEngine  # noqa: E402
 from repro_torch.snn.qat import (  # noqa: E402
     PrecisionConfig,
     candidate_grid,
@@ -854,7 +883,21 @@ def serving_traffic(n_in: int) -> list[SNNRequest]:
     return [SNNRequest(uid=i, raster=r) for i, r in enumerate(reqs)]
 
 
-def phase_serve(net, qparams) -> dict:
+def dispatch_vs_tick(engine, wall: float) -> str:
+    """The engine's own timers: host scheduling (dispatch rounds) against
+    the lane-window calls (tick wall, the device->host copy of the outputs
+    included), beside the run's wall."""
+    m = engine.metrics
+    return (
+        f"dispatch {m.dispatch_s:.4f} s, tick {m.tick_s:.4f} s over {m.n_ticks} ticks "
+        f"({1e3 * m.tick_s / max(1, m.n_ticks):.3f} ms a tick), the rest "
+        f"{wall - m.dispatch_s - m.tick_s:.4f} s of {wall:.4f} s wall"
+    )
+
+
+def phase_serve(net, qparams, results: dict) -> dict:
+    """Serve :func:`serving_traffic`; ``results`` gets each request's spike
+    counts by uid (phase 11 serves the same traffic through a journal)."""
     engine = SNNServeEngine(
         net, qparams, max_batch=64, backend=EventBackend(strategy="pallas"), device=DEVICE
     )
@@ -867,6 +910,7 @@ def phase_serve(net, qparams) -> dict:
     wall = time.perf_counter() - t0
     counts = read_counts()
     check(len(done) == len(reqs) and all(r.status == "completed" for r in done), "all served")
+    results.update((r.uid, r.spike_counts) for r in done)
     hidden_events = sum(float(r.event_stats["layer_events_per_step"][0].sum()) for r in done)
     check(hidden_events > 0, "the hidden layer never fired while serving")
     snap = engine.metrics.snapshot()
@@ -889,6 +933,7 @@ def phase_serve(net, qparams) -> dict:
         f"p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms; "
         f"{len(done) / wall:.1f} samples/s ({wall:.3f} s)"
     )
+    print(f"serve: {dispatch_vs_tick(engine, wall)}")
     return counts
 
 
@@ -1758,6 +1803,397 @@ def phase_train(qs) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the serving front end and crash safety
+# ---------------------------------------------------------------------------
+
+FRONT_DIR = ROOT / "build" / "phase11"  # checkpoints and journals (git-ignored)
+STREAM_CFG = dict(window=32, stride=16, idle_budget=None)
+STREAM_STEPS, STREAM_CHUNK = 64, 16
+CHUNK_UID0 = 1 << 40  # the session manager's chunk uids start here
+
+
+def fresh_dir(name: str) -> Path:
+    d = FRONT_DIR / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def stream_engine(net, qparams, device: str, **kw) -> SNNServeEngine:
+    """The phase's engine: 64 lanes, the in-pool sparse route, 16-step ticks."""
+    return SNNServeEngine(
+        net, qparams, max_batch=64, backend=EventBackend(strategy="pallas"), tick_stride=16,
+        device=device, **kw,
+    )
+
+
+def stream_groups(n_in: int) -> list[tuple[str, np.ndarray]]:
+    """256 streams of 64 steps in three groups, fed one group after the
+    other (a round-robin over mixed groups would make every tick int32):
+    96 sparse (Bernoulli 3 %, sparse ticks), 128 dense ``mnist_like``
+    (f32_exact ticks), 32 graded (values up to 3999 on 35 % of the
+    channels, as in :func:`serving_traffic`: int32 ticks)."""
+    rng = np.random.default_rng(11)
+    sparse = (rng.random((96, STREAM_STEPS, n_in)) < 0.03).astype(np.uint8)
+    dense = mnist_like(n=128, T=STREAM_STEPS, seed=12, max_rate=0.6).spikes
+    on = rng.random((32, STREAM_STEPS, n_in)) < 0.35
+    graded = np.where(on, rng.integers(1, 4000, on.shape), 0).astype(np.int32)
+    return [("sparse", sparse), ("dense", dense), ("graded", graded)]
+
+
+def prefix_oracle(net, qparams, rasters: np.ndarray, device: str) -> dict[int, np.ndarray]:
+    """Serial oracle of a group's streams (``tests/test_streaming_props.py``):
+    ``run_int(reference)`` of each stream's first b steps, for every stride
+    boundary b, is its cumulative output count -- one batched call per b."""
+    out = {0: np.zeros((len(rasters), net.n_classes), np.int64)}
+    for b in range(STREAM_CFG["stride"], STREAM_STEPS + 1, STREAM_CFG["stride"]):
+        x = raster_tensor(rasters[:, :b].transpose(1, 0, 2), device)
+        out[b] = run_int(net, qparams, x, backend="reference").spike_counts.cpu().numpy()
+    return out
+
+
+def check_readouts(readouts: dict, sids: list[str], prefix: dict, what: str) -> None:
+    window, stride = STREAM_CFG["window"], STREAM_CFG["stride"]
+    ends = list(range(stride, STREAM_STEPS + 1, stride))
+    for i, sid in enumerate(sids):
+        got = readouts[sid]
+        check([r[0] for r in got] == ends, f"{what}: {sid} readout ends {[r[0] for r in got]}")
+        for t_end, w, counts, pred in got:
+            start = max(0, t_end - window)
+            want = prefix[t_end][i] - prefix[start][i]
+            check(w == t_end - start and counts == want.tolist() and pred == int(np.argmax(want)),
+                  f"{what}: {sid} readout at {t_end} differs from serial run_int")
+
+
+def drive_streams(engine, groups, ckpt: Path | None = None):
+    """Feed every group's streams chunk by chunk (round-robin within the
+    group, groups one after the other), polling until each round drains;
+    with ``ckpt``, evict every session of the group after each round.
+    Returns the readouts by session, the wall, and the chunk latencies."""
+    manager = StreamSessionManager(engine, checkpoint_dir=ckpt, config=StreamConfig(**STREAM_CFG))
+    latencies = []
+    t0 = time.perf_counter()
+    for name, rasters in groups:
+        sids = [manager.open(f"{name}{i}").sid for i in range(len(rasters))]
+        for lo in range(0, STREAM_STEPS, STREAM_CHUNK):
+            for sid, r in zip(sids, rasters):
+                manager.feed(sid, r[lo : lo + STREAM_CHUNK])
+            while not all(manager.sessions[sid].drained for sid in sids):
+                latencies += [r.latency_s for r in manager.poll()]
+            if ckpt is not None:
+                for sid in sids:
+                    manager.evict(sid)
+    wall = time.perf_counter() - t0
+    readouts = {
+        sid: [(r.t_end, r.window, r.spike_counts.tolist(), r.prediction)
+              for r in manager.drain_readouts(sid)]
+        for sid in manager.sessions
+    }
+    return readouts, wall, latencies, manager
+
+
+def phase_streams(net, qparams, front: dict, device: str = DEVICE) -> dict:
+    """256 sessions of 64 steps in 16-step chunks; every readout against
+    the serial oracle; all three tick modes served."""
+    groups = stream_groups(net.n_in)
+    engine = stream_engine(net, qparams, device)
+    engine.warmup(STREAM_CHUNK, include_int32=True)
+    reset_counts()
+    readouts, wall, lat, manager = drive_streams(engine, groups)
+    counts = read_counts()
+    front["groups"], front["readouts"] = groups, readouts
+    for name, rasters in groups:
+        prefix = prefix_oracle(net, qparams, rasters, device)
+        check_readouts(readouts, [f"{name}{i}" for i in range(len(rasters))], prefix, "stream")
+    ticks = {k[5:]: v for k, v in engine.metrics.counters.items() if k.startswith("tick:")}
+    for mode in ("sparse", "f32_exact", "int32"):
+        check(ticks.get(mode, 0) > 0, f"streams: no {mode} tick was served")
+    n_chunks = engine.metrics.counters["session_chunks"]
+    n_steps = sum(len(r) for _, r in groups) * STREAM_STEPS
+    check(n_chunks == n_steps // STREAM_CHUNK == len(lat), "streams: one chunk request a feed")
+    p50, p99 = (1e3 * float(np.percentile(lat, q)) for q in (50, 99))
+    print(
+        f"streams: {len(readouts)} sessions x {STREAM_STEPS} steps, "
+        f"{sum(map(len, readouts.values()))} readouts equal to serial run_int; ticks {ticks}; "
+        f"{n_steps / wall:.1f} steps/s, {n_chunks / wall:.1f} chunks/s ({wall:.3f} s); "
+        f"chunk p50 {p50:.3f} ms, p99 {p99:.3f} ms"
+    )
+    print(f"streams: {dispatch_vs_tick(engine, wall)}")
+    if device == "cuda":
+        dense = groups[1][1]
+
+        def one_round():
+            m = StreamSessionManager(engine, config=StreamConfig(**STREAM_CFG))
+            for i, r in enumerate(dense):
+                m.feed(m.open(f"r{i}").sid, r[:STREAM_CHUNK])
+            m.pump()
+
+        print(f"streams: one round of 128 dense chunks: {device_split(one_round, n=3)}")
+    return counts
+
+
+def phase_stream_churn(net, qparams, front: dict, device: str = DEVICE) -> dict:
+    """The same streams with every session evicted to disk after each round
+    (fsync + rename per evict) and restored on its next feed."""
+    groups = front["groups"]
+    engine = stream_engine(net, qparams, device)
+    engine.warmup(STREAM_CHUNK, include_int32=True)
+    ckpt = fresh_dir("churn")
+    reset_counts()
+    readouts, wall, _, manager = drive_streams(engine, groups, ckpt=ckpt)
+    counts = read_counts()
+    check(readouts == front["readouts"], "churn: readouts differ from the never-evicted run")
+    c = engine.metrics.counters
+    n_sessions = len(readouts)
+    check(c["sessions_evicted"] == c["sessions_restored"] + n_sessions
+          == n_sessions * STREAM_STEPS // STREAM_CHUNK, "churn: evictions != restores + sessions")
+    n_steps = n_sessions * STREAM_STEPS
+    print(
+        f"churn: readouts identical to the never-evicted run; {c['sessions_evicted']} evictions, "
+        f"{c['sessions_restored']} restores; {n_steps / wall:.1f} steps/s ({wall:.3f} s, "
+        f"{1e3 * wall / c['sessions_evicted']:.3f} ms per evict + restore)"
+    )
+    return counts
+
+
+def phase_journal(net, qparams, serve_results: dict, device: str = DEVICE) -> dict:
+    """Phase 5's traffic again, without and with a ``Journal(fsync_every=16)``
+    in turns (without, with, with, without): results equal phase 5's, and
+    the journal holds a submit and a done for every request."""
+    walls = {"without": [], "with": []}
+    counts = {}
+    for i, mode in enumerate(("without", "with", "with", "without")):
+        journal = Journal(fresh_dir(f"wal{i}"), fsync_every=16) if mode == "with" else None
+        engine = SNNServeEngine(net, qparams, max_batch=64, backend=EventBackend(strategy="pallas"),
+                                device=device, journal=journal)
+        engine.warmup(include_int32=True)
+        reqs = serving_traffic(net.n_in)
+        if i == 1:
+            reset_counts()
+        t0 = time.perf_counter()
+        done = engine.run(reqs)
+        walls[mode].append(time.perf_counter() - t0)
+        if i == 1:
+            counts = read_counts()
+        check(len(done) == len(reqs), "journal: all served")
+        for r in done:
+            check(np.array_equal(r.spike_counts, serve_results[r.uid]),
+                  f"journal: request {r.uid} differs from phase 5")
+        if journal is not None:
+            journal.close()
+            kinds = collections.Counter(r.kind for r in read_records(journal.root))
+            check(kinds == {"submit": len(reqs), "done": len(reqs)}, f"journal records {kinds}")
+            check(recover(journal.root).requests == [], "journal: outstanding after a clean run")
+    rate = {k: [f"{len(reqs) / w:.1f}" for w in v] for k, v in walls.items()}
+    print(
+        f"journal: {len(done)} requests equal to phase 5 with and without the journal; "
+        f"samples/s without {rate['without']}, with {rate['with']} (fsync_every=16)"
+    )
+    return counts
+
+
+def phase_chaos(net, qparams, device: str = DEVICE) -> dict:
+    """A supervised engine with a journal and a checkpoint store serves 64
+    requests and 16 streams while faults fire: a slow tick, a tick raise, a
+    poisoned carry and a kill mid-service.  Every request and readout equals
+    serial run_int, and the recovery counters equal what was armed."""
+    root = fresh_dir("chaos")
+    ckpt = root / "ckpt"
+    # the tick sites count arrivals at the top of a tick (a retry arrives
+    # again): round 0's tick stalls, round 1's raises once and its retry
+    # serves; the carry site counts served ticks: round 2's first, whose
+    # requests stay on their lanes; round 2's second tick is killed, after
+    # the streams' checkpoint at step 32 and before any request completes
+    inj = (
+        FaultInjector()
+        .arm("slow_tick", at=0, sleep_s=0.6)
+        .arm("tick", at=1)
+        .arm("carry", at=2)
+        .arm("kill", at=4)
+    )
+    sup = SupervisedEngine(
+        lambda: stream_engine(net, qparams, device),
+        journal_dir=root / "wal",
+        checkpoint_dir=ckpt,
+        manager_factory=lambda eng: StreamSessionManager(
+            eng, checkpoint_dir=ckpt, config=StreamConfig(**STREAM_CFG)
+        ),
+        faults=inj,
+        slow_tick_s=0.3,
+        journal_fsync_every=16,
+    )
+    rng = np.random.default_rng(13)
+    streams = (rng.random((16, STREAM_STEPS, net.n_in)) < 0.2).astype(np.uint8)
+    req_rasters = mnist_like(n=64, T=25, seed=14).spikes
+    sids = [sup.manager.open(f"c{i}").sid for i in range(len(streams))]
+    completed: dict[int, SNNRequest] = {}
+    readouts: dict[str, dict] = {sid: {} for sid in sids}
+
+    def drive():
+        while sup.in_flight:
+            for req in sup.poll():
+                if req.uid < CHUNK_UID0:
+                    prev = completed.setdefault(req.uid, req)
+                    check(np.array_equal(prev.spike_counts, req.spike_counts),
+                          f"chaos: request {req.uid} served twice, differently")
+            for sid in sids:
+                for r in sup.manager.drain_readouts(sid):
+                    prev = readouts[sid].setdefault(r.t_end, r)
+                    check(np.array_equal(prev.spike_counts, r.spike_counts),
+                          f"chaos: {sid} readout at {r.t_end} re-emitted differently")
+
+    reset_counts()
+    for rnd, lo in enumerate(range(0, STREAM_STEPS, STREAM_CHUNK)):
+        if rnd == 2:  # requests arrive after the streams' first checkpoint
+            for uid, r in enumerate(req_rasters):
+                sup.submit(SNNRequest(uid=uid, raster=r))
+        for sid, r in zip(sids, streams):
+            sup.manager.feed(sid, r[lo : lo + STREAM_CHUNK])
+        drive()
+        if rnd == 1:
+            for sid in sids:
+                sup.manager.evict(sid)
+    counts = read_counts()
+    sup.close()
+    c = sup.metrics.counters
+    fired = collections.Counter(site for site, _, _ in inj.fired)
+    check(fired == {"slow_tick": 1, "tick": 1, "carry": 1, "kill": 1}, f"chaos: fired {fired}")
+    got = {k: c[k] for k in ("tick_retries", "recoveries_warm", "recoveries_cold",
+                             "quarantined_lanes", "slow_ticks")}
+    armed = {"tick_retries": 1, "recoveries_warm": 0, "recoveries_cold": 1,
+             "quarantined_lanes": 1, "slow_ticks": 1}
+    check(got == armed, f"chaos: counters {got}, armed {armed}")
+    last = sup.last_recovery
+    check(last["kind"] == "cold" and last["requests_resubmitted"] > 0
+          and last["sessions_reopened"] == len(sids), f"chaos: last recovery {last}")
+    check(sorted(completed) == list(range(len(req_rasters))), "chaos: a request was lost")
+    x = raster_tensor(req_rasters.transpose(1, 0, 2), device)
+    want = run_int(net, qparams, x, backend="reference").spike_counts.cpu().numpy()
+    for uid, req in completed.items():
+        check(req.status == "completed" and np.array_equal(req.spike_counts, want[uid]),
+              f"chaos: request {uid} differs from serial run_int")
+    prefix = prefix_oracle(net, qparams, streams, device)
+    check_readouts(
+        {sid: [(t, r.window, r.spike_counts.tolist(), r.prediction)
+               for t, r in sorted(readouts[sid].items())] for sid in sids},
+        sids, prefix, "chaos",
+    )
+    print(
+        f"chaos: {len(completed)} requests and {len(sids)} streams bit-exact through "
+        f"{dict(fired)}; counters {got}; cold restart {last['duration_s']:.4f} s wall "
+        f"({last['requests_resubmitted']} requests resubmitted, {last['sessions_reopened']} "
+        f"sessions reopened, {last['steps_refed']} steps re-fed, "
+        f"{last['records_replayed']} records replayed)"
+    )
+    return counts
+
+
+async def http_call(port: int, method: str, path: str, body=None) -> tuple[int, bytes]:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = b"" if body is None else json.dumps(body).encode()
+    head = f"{method} {path} HTTP/1.1\r\nHost: smoke\r\nContent-Length: {len(payload)}\r\n\r\n"
+    writer.write(head.encode() + payload)
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    await writer.wait_closed()
+    head, _, rest = data.partition(b"\r\n\r\n")
+    return int(head.split()[1]), rest
+
+
+def phase_http(net, qparams, device: str = DEVICE) -> dict:
+    """``SNNHttpServer`` on 127.0.0.1:0: a request through /submit and a
+    stream through /session/{open,feed,close}, each against serial run_int;
+    /metrics shows the stream series, /healthz answers 200."""
+    rng = np.random.default_rng(15)
+    raster = mnist_like(n=1, T=25, seed=16).spikes[0]
+    stream = (rng.random((STREAM_STEPS, net.n_in)) < 0.2).astype(np.uint8)
+
+    async def session():
+        engine = stream_engine(net, qparams, device)
+        server = AsyncSNNServer(engine)
+        manager = StreamSessionManager(engine, config=StreamConfig(**STREAM_CFG))
+        http = SNNHttpServer(server, streaming=AsyncStreamServer(server, manager),
+                             stream_tick_s=0)
+        await http.start()
+        out = {}
+        try:
+            p = http.port
+            out["submit"] = await http_call(p, "POST", "/submit",
+                                            {"raster": raster.tolist(), "uid": 1})
+            out["open"] = await http_call(p, "POST", "/session/open", {"sid": "h"})
+            out["feed"] = [
+                await http_call(p, "POST", "/session/feed",
+                                {"session": "h", "chunk": stream[lo : lo + 32].tolist()})
+                for lo in (0, 32)
+            ]
+            out["close"] = await http_call(p, "POST", "/session/close", {"session": "h"})
+            out["metrics"] = await http_call(p, "GET", "/metrics")
+            out["healthz"] = await http_call(p, "GET", "/healthz")
+        finally:
+            await http.stop()
+        return out
+
+    reset_counts()
+    out = asyncio.run(session())
+    counts = read_counts()
+    for key in ("submit", "open", "close", "metrics", "healthz"):
+        check(out[key][0] == 200, f"http: {key} answered {out[key][0]}")
+    check(all(status == 200 for status, _ in out["feed"]), "http: a feed failed")
+    x = raster_tensor(raster[:, None, :], device)
+    want = run_int(net, qparams, x, backend="reference").spike_counts[0].cpu().numpy()
+    check(json.loads(out["submit"][1])["spike_counts"] == want.tolist(),
+          "http: /submit differs from serial run_int")
+    got = [r for _, body in out["feed"] for r in json.loads(body)["readouts"]]
+    prefix = prefix_oracle(net, qparams, stream[None], device)
+    check_readouts({"h": [(r["t_end"], r["window"], r["spike_counts"], r["prediction"])
+                          for r in got]}, ["h"], prefix, "http")
+    check(json.loads(out["close"][1])["t_total"] == STREAM_STEPS, "http: close summary")
+    series = {}
+    for line in out["metrics"][1].decode().splitlines():
+        if line.startswith("neura_stream_"):
+            name, value = line.rsplit(" ", 1)
+            series[name] = float(value)
+    for event in ("sessions_opened", "sessions_closed", "session_chunks", "session_readouts"):
+        check(series.get(f'neura_stream_events_total{{event="{event}"}}', 0) > 0,
+              f"http: /metrics shows no {event}")
+    check(json.loads(out["healthz"][1])["status"] == "ok", "http: /healthz status")
+    nonzero = sum(v > 0 for v in series.values())
+    print(
+        f"http: /submit and 4 readouts over /session/* equal to serial run_int; /metrics "
+        f"{nonzero} of {len(series)} neura_stream_* series nonzero; /healthz 200"
+    )
+    return counts
+
+
+def phase_launcher(device: str = DEVICE) -> dict:
+    """``repro_torch.launch.serve_snn.main`` in replay mode and in
+    ``--streaming 16`` mode, on the card; each must return normally."""
+    runs = [
+        ["--requests", "64", "--max-batch", "64", "--T", "25",
+         "--journal", str(fresh_dir("launcher-wal"))],
+        ["--streaming", "16", "--stream-steps", "64", "--stream-chunk", "16",
+         "--stream-window", "32", "--stream-stride", "16", "--stream-idle", "2",
+         "--stream-ckpt", str(fresh_dir("launcher-ckpt")), "--max-batch", "64", "--no-journal"],
+    ]
+    reset_counts()
+    outs = []
+    for argv in runs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_snn.main([*argv, "--device", device])
+        outs.append(buf.getvalue())
+    counts = read_counts()
+    check("served 64 requests" in outs[0], "launcher: replay report")
+    check("streamed 16 sessions x 64 steps" in outs[1], "launcher: streaming report")
+    for out in outs:
+        for line in out.splitlines():
+            if "throughput" in line or line.startswith(("served", "streamed", "  churn")):
+                print(f"launcher: {line.strip()}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA card", file=sys.stderr)
@@ -1831,10 +2267,11 @@ def main() -> int:
     )
 
     launches = dict.fromkeys(build.KERNELS, 0)
+    serve_results: dict = {}
     for name, phase in [
         ("run_int", lambda: phase_run_int(net, qparams, qparams_cpu)),
         ("eval_int", lambda: phase_eval_int(net, qparams)),
-        ("serve", lambda: phase_serve(net, qparams)),
+        ("serve", lambda: phase_serve(net, qparams, serve_results)),
         ("lm_decode_int8", lambda: phase_lm_decode(arch, lm_params, 8, 16, 16)),
         ("lm_decode_int4", lambda: phase_lm_decode(arch, lm_params, 4, 4, 8)),
         ("lm_prefill", lambda: phase_lm_prefill(arch, lm_int8)),
@@ -1871,6 +2308,30 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] += v
     print(f"phases 9-10 took {time.perf_counter() - t0:.3f} s; the script so far "
+          f"{time.perf_counter() - t_start:.3f} s")
+
+    t0 = time.perf_counter()
+    front: dict = {}
+    for name, phase in [
+        ("streams", lambda: phase_streams(net, qparams, front)),
+        ("stream_churn", lambda: phase_stream_churn(net, qparams, front)),
+        ("journal", lambda: phase_journal(net, qparams, serve_results)),
+        ("chaos", lambda: phase_chaos(net, qparams)),
+        ("http", lambda: phase_http(net, qparams)),
+        ("launcher", lambda: phase_launcher()),
+    ]:
+        reset_counts()
+        with launch_sizes() as tally:
+            counts = phase()
+        print(f"launches[{name}]: {counts}")
+        by_shape = {f"{k}{list(v)}": n for (k, v), n in sorted(tally.items())}
+        print(f"launches by size[{name}] (the launches counted above): {json.dumps(by_shape)}")
+        if name == "streams":
+            for k in ("spike_matmul", "sparse_accum"):
+                check(counts[k] > 0, f"phase 11: {k} was not launched by the streams")
+        for k, v in counts.items():
+            launches[k] += v
+    print(f"phase 11 took {time.perf_counter() - t0:.3f} s; the script so far "
           f"{time.perf_counter() - t_start:.3f} s")
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was never launched on the main path")

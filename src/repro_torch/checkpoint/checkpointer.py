@@ -116,12 +116,19 @@ def _fsync_path(path: pathlib.Path) -> None:
 
 class Checkpointer:
     """Atomic, CRC-verified checkpoints under ``root``, keeping the newest
-    ``keep`` steps."""
+    ``keep`` steps.
 
-    def __init__(self, root: str | pathlib.Path, keep: int = 3):
+    ``faults`` threads the chaos injector's ``checkpoint`` site between
+    the commit's file writes (:mod:`repro_torch.serve.faults`): a fire
+    there is a torn write, which the atomic commit keeps invisible -- the
+    half-written ``.tmp`` directory is never renamed, so readers only ever
+    see whole, fsynced checkpoints."""
+
+    def __init__(self, root: str | pathlib.Path, keep: int = 3, faults=None):
         self.root = pathlib.Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.faults = faults
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
@@ -155,6 +162,8 @@ class Checkpointer:
                 tmp.mkdir(parents=True, exist_ok=True)
                 np.savez(tmp / "arrays.npz", **flat)
                 _fsync_path(tmp / "arrays.npz")
+                if self.faults is not None:
+                    self.faults.on_checkpoint_write()  # chaos: torn write
                 (tmp / "manifest.json").write_text(json.dumps(manifest))
                 _fsync_path(tmp / "manifest.json")
                 _fsync_path(tmp)
@@ -168,6 +177,8 @@ class Checkpointer:
                 os.replace(latest, self.root / "LATEST")
                 self._gc()
             except Exception as e:  # surfaced on the next wait()
+                # a BaseException (a simulated kill, interpreter shutdown)
+                # propagates: a killed process cannot stash its own failure
                 self._error = e
 
         if blocking:

@@ -31,7 +31,8 @@ certified f32 lowerings (``exact_f32_matmul``), which refuse to run under
 TF32.
 
 The serving seams -- ``batched_lane_init`` / ``batched_lane_window`` /
-``batched_lane_tick``, ``lane_state_take`` / ``lane_state_put`` and
+``batched_lane_tick``, ``lane_state_take`` / ``lane_states_take`` /
+``lane_state_put`` and
 ``run_int_batched`` -- advance pools of independent sample lanes; each lane
 is bit-exact with a serial single-sample ``run_int``.
 
@@ -91,6 +92,7 @@ __all__ = [
     "batched_lane_window",
     "batched_lane_tick",
     "lane_state_take",
+    "lane_states_take",
     "lane_state_put",
     "run_int_batched",
     "check_population_structure",
@@ -735,6 +737,25 @@ def lane_state_take(states, lane: int) -> list:
     local step is bit-exact with an uninterrupted run.
     """
     return [LayerState(*(a[lane].cpu().numpy().copy() for a in st)) for st in states]
+
+
+def lane_states_take(states, lanes) -> list:
+    """:func:`lane_state_take` of several lanes at once: one gather over the
+    pool and one device->host copy, where taking them lane by lane copies
+    once per leaf per lane.  Returns one snapshot per lane, in ``lanes``
+    order, each equal to ``lane_state_take(states, lane)``."""
+    lanes = list(lanes)
+    if not lanes:
+        return []
+    leaves = [a for st in states for a in st]  # the pool's leaves are all int32
+    idx = torch.as_tensor(lanes, device=leaves[0].device)
+    host = torch.cat(leaves, dim=1).index_select(0, idx).cpu().numpy()
+    edges = np.cumsum([0] + [a.shape[1] for a in leaves])
+    snaps = []
+    for row in host:
+        parts = [row[lo:hi].copy() for lo, hi in zip(edges[:-1], edges[1:])]
+        snaps.append([LayerState(*parts[3 * l : 3 * l + 3]) for l in range(len(states))])
+    return snaps
 
 
 def lane_state_put(states, lane: int, carry) -> list:

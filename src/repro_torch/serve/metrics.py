@@ -89,14 +89,14 @@ class ServeMetrics:
         self.latency_all = RollingWindow(window_s, max_samples)
         self.queue_depth = RollingWindow(window_s, max_samples)
         self.lane_occupancy = RollingWindow(window_s, max_samples)  # fraction 0..1
-        # -- streaming sessions (not ported yet: gauges stay 0) ---------------
+        # -- streaming sessions (repro_torch.serve.streaming) ----------------
         # gauges are set by the session manager; counters ride self.counters
         # (sessions_opened / sessions_closed / sessions_evicted /
         # sessions_restored / session_chunks / session_readouts)
         self.live_sessions = 0  # gauge: open sessions currently resident
         self.evicted_sessions = 0  # gauge: open sessions parked on disk
         self.readout_latency = RollingWindow(window_s, max_samples)  # feed->readout s
-        # -- NeurA-Guard recovery (not ported yet: gauges stay 0) -------------
+        # -- NeurA-Guard recovery (repro_torch.serve.supervisor) -------------
         # gauges set by the supervisor; counters ride self.counters
         # (recoveries_warm / recoveries_cold / tick_retries / slow_ticks /
         # quarantined_lanes / quarantine_restarts / requests_resubmitted /
@@ -319,7 +319,7 @@ class ServeMetrics:
                 f'neura_stream_readout_latency_seconds{{quantile="{q}"}} '
                 f"{self.readout_latency.percentile(q * 100, now):.6g}"
             )
-        # -- NeurA-Guard recovery / quarantine (not ported yet) ---------------
+        # -- NeurA-Guard recovery / quarantine (repro_torch.serve.supervisor) -
         family(
             "neura_recovering",
             "gauge",

@@ -60,7 +60,7 @@ class Priority(enum.IntEnum):
     """Request priority class; lower value = more urgent.
 
     ``STREAMING`` is the persistent-session traffic class
-    (``repro.serve.streaming`` in the JAX package; not ported yet): a stream's chunk requests are continuous
+    (``repro_torch.serve.streaming``): a stream's chunk requests are continuous
     background work -- below the interactive classes in strict order, but
     with their own DRR credit line (default weight above BEST_EFFORT's), so
     open sessions keep advancing under interactive overload instead of
@@ -70,7 +70,7 @@ class Priority(enum.IntEnum):
     CRITICAL = 0  # latency-critical (wearable / prosthetic control loops)
     STANDARD = 1
     BEST_EFFORT = 2
-    STREAMING = 3  # persistent-session chunk traffic (streaming, not ported yet)
+    STREAMING = 3  # persistent-session chunk traffic (repro_torch.serve.streaming)
 
 
 @dataclasses.dataclass(frozen=True)

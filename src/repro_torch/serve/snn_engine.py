@@ -25,10 +25,20 @@ Routes, as in the JAX engine:
 
 The control plane (``scheduler`` + ``metrics``: priority classes, tenant
 fairness, preemption, deadline verdicts, rolling latency windows) is the
-JAX engine's host Python, unchanged.  This slice runs on one device:
-``data_parallel`` clamps to 1, and the streaming seams, the journal, the
-supervisor's carry sweep / quarantine and fault injection wait for later
-slices (``journal`` and ``faults`` accept only None).
+JAX engine's host Python, unchanged.  So are the NeurA-Guard seams:
+``journal=`` (:mod:`repro_torch.serve.journal`) records admissions and
+terminal states, ``faults=`` (:mod:`repro_torch.serve.faults`) fires the
+chaos injector's tick and carry sites, and ``sweep_carries`` /
+``quarantine_lane`` let the supervisor condemn a lane whose carry left its
+bounds.  The streaming seams (``_carry_in`` / ``_want_carry`` /
+``_record_steps`` on a request) let :mod:`repro_torch.serve.streaming` run
+a stream as a chain of chunk requests over persistent carries.
+
+Two device-side differences from the JAX engine: the carries of every lane
+that finishes in a tick come back in one gather and one copy
+(``lane_states_take``), and the validity sweep is one bounds check over the
+whole pool on the device that reads back one mask of bad slots.  The engine
+runs on one device: ``data_parallel`` clamps to 1.
 """
 
 from __future__ import annotations
@@ -51,9 +61,10 @@ from repro_torch.core.backend import (
     get_backend,
     lane_state_put,
     lane_state_take,
+    lane_states_take,
     run_int_batched,
 )
-from repro_torch.core.fixed_point import int_max
+from repro_torch.core.fixed_point import int_max, int_min
 from repro_torch.core.network import NetworkConfig, run_int
 from repro_torch.core.snn_layer import IntLayerParams
 from repro_torch.kernels import build
@@ -110,6 +121,7 @@ class SNNRequest:
     status: str | None = None  # "completed" | "degraded" | "rejected"
     tier: str | None = None  # "full" | registered tier name (None if rejected)
     preemptions: int = 0
+    restarts: int = 0  # quarantine / crash-recovery re-admissions
     admitted_seq: int | None = None  # first-admission order (FIFO property)
     _arrival_wall: float | None = dataclasses.field(default=None, repr=False)
     _net: "NetworkConfig | None" = dataclasses.field(default=None, repr=False)
@@ -121,6 +133,17 @@ class SNNRequest:
     _sched_seq: int | None = dataclasses.field(default=None, repr=False)
     _suspended: tuple | None = dataclasses.field(default=None, repr=False)
     _finalized: bool = dataclasses.field(default=False, repr=False)
+    # -- streaming-session seam (repro_torch.serve.streaming) ----------------
+    # A chunk request continues a persistent stream: ``_carry_in`` is a
+    # lane_state_take snapshot restored at admission instead of zeroing the
+    # lane, ``_want_carry`` asks for the post-window carry back on
+    # ``carry_out``, and ``_record_steps`` keeps the final layer's per-step
+    # spike vectors on ``step_outputs`` (the sliding-window readout input).
+    _carry_in: list | None = dataclasses.field(default=None, repr=False)
+    _want_carry: bool = dataclasses.field(default=False, repr=False)
+    _record_steps: bool = dataclasses.field(default=False, repr=False)
+    carry_out: list | None = dataclasses.field(default=None, repr=False)
+    step_outputs: np.ndarray | None = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         self.priority = Priority(self.priority)  # raises on unknown classes
@@ -234,6 +257,8 @@ class _Lane:
     fresh: bool = True  # device state must be zeroed on the next tick
     counts: np.ndarray | None = None  # [n_classes] running output spikes
     layer_events: list = dataclasses.field(default_factory=list)  # per tick [valid, L]
+    step_out: list | None = None  # per tick [valid, n_classes] (streaming readout)
+    carry0: list | None = None  # chunk-start carry snapshot (quarantine restart)
 
 
 class SNNServeEngine:
@@ -249,10 +274,14 @@ class SNNServeEngine:
     ``precision_tiers`` / ``max_idle_ticks`` / ``report_design_point`` are
     the JAX engine's control-plane knobs.
 
+    ``journal`` (a :class:`~repro_torch.serve.journal.Journal`) records
+    admissions and terminal states for crash recovery; ``faults`` (a
+    :class:`~repro_torch.serve.faults.FaultInjector`) fires the chaos
+    sites of the tick loop.  Both default off and cost nothing when absent.
+
     ``device`` (default ``"cuda"``) holds the lane pool and the parameters
     (moved there if they live elsewhere).  ``data_parallel`` is accepted for
-    API parity and clamps to one device; ``journal`` and ``faults`` must be
-    None in this slice.
+    API parity and clamps to one device.
     """
 
     def __init__(
@@ -286,8 +315,6 @@ class SNNServeEngine:
             )
         if max_idle_ticks is not None and max_idle_ticks < 1:
             raise ValueError(f"max_idle_ticks must be >= 1 or None, got {max_idle_ticks}")
-        if journal is not None or faults is not None:
-            raise NotImplementedError("journal= and faults= are not ported yet; pass None")
         self.device = resolve_device(device)
         self.net = net
         self.qparams = [_on(p, self.device) for p in qparams]
@@ -312,6 +339,12 @@ class SNNServeEngine:
         )
         self.max_idle_ticks = max_idle_ticks
         self.metrics = ServeMetrics(metrics_window_s)
+        self.journal = journal
+        self.faults = faults
+        self.stop_admission = False  # graceful drain: refuse new submits
+        # Slots the supervisor's validity sweep condemned: they hold no
+        # lane, never admit, and only an engine restart reclaims them.
+        self._quarantined: set[int] = set()
         # one device: every lane lives on it (the JAX engine's one-device
         # behaviour for any data_parallel)
         self.data_parallel = 1
@@ -360,7 +393,16 @@ class SNNServeEngine:
 
     @property
     def free_lanes(self) -> int:
-        return self.max_batch - self.active_lanes
+        return self.max_batch - self.active_lanes - len(self._quarantined)
+
+    @property
+    def capacity(self) -> int:
+        """Lanes not condemned by quarantine (active or free)."""
+        return self.max_batch - len(self._quarantined)
+
+    @property
+    def quarantined(self) -> frozenset:
+        return frozenset(self._quarantined)
 
     @property
     def in_flight(self) -> bool:
@@ -369,6 +411,8 @@ class SNNServeEngine:
     # -- admission ----------------------------------------------------------
     def submit(self, req: SNNRequest) -> None:
         """Queue a request (arrival stamped now unless ``run`` set it)."""
+        if self.stop_admission:
+            raise RuntimeError(f"request {req.uid}: engine is draining, admission is stopped")
         if req.raster.shape[1] != self.net.n_in:
             raise ValueError(
                 f"request {req.uid}: raster has {req.raster.shape[1]} channels, "
@@ -376,15 +420,32 @@ class SNNServeEngine:
             )
         if req._arrival_wall is None:
             req._arrival_wall = time.perf_counter()
+        # WAL: the admission must survive a crash.  Streaming chunk requests
+        # are the session manager's to journal (recovery rebuilds them from
+        # the session's feeds and checkpointed carry).
+        if self.journal is not None and not req._want_carry:
+            self.journal.append(
+                "submit",
+                arrays={"raster": req.raster},
+                uid=req.uid,
+                priority=int(req.priority),
+                tenant=req.tenant,
+                deadline_s=req.deadline_s,
+            )
         self.metrics.inc("submitted")
         self.sched.add(req)
 
     def _routes_to_event(self, req: SNNRequest) -> bool:
-        """Direct (out-of-pool) sparse route: eager gather/csr strategies only."""
+        """Direct (out-of-pool) sparse route: eager gather/csr strategies
+        only, and never a streaming chunk (the direct route runs a
+        fresh-state ``run_int``, which can neither restore nor return a
+        carry)."""
         return (
             self.event_backend is not None
             and self._event_budget is None
             and req.density <= self.sparse_admission_threshold
+            and req._carry_in is None
+            and not req._want_carry
         )
 
     def _sparse_lane_eligible(self, req: SNNRequest) -> bool:
@@ -411,7 +472,7 @@ class SNNServeEngine:
 
     def _free_lane(self) -> int | None:
         for i, lane in enumerate(self._lanes):
-            if lane is None:
+            if lane is None and i not in self._quarantined:
                 return i
         return None
 
@@ -487,8 +548,9 @@ class SNNServeEngine:
         return done
 
     def _admit(self, req: SNNRequest, slot: int, now: float) -> None:
-        """Place a request on a free lane, restoring its snapshotted carry if
-        it was preempted (the resume is then bit-exact)."""
+        """Place a request on a free lane: restore its snapshotted carry if
+        it was preempted (the resume is then bit-exact), restore its
+        stream's carry if it is a streaming chunk, else start a fresh lane."""
         if req._suspended is not None:
             lane, carry = req._suspended
             req._suspended = None
@@ -500,9 +562,19 @@ class SNNServeEngine:
             req.admitted_seq = self._admit_seq
             self._admit_seq += 1
         req.route = "event-pallas" if self._sparse_lane_eligible(req) else "lanes"
-        self._lanes[slot] = _Lane(
-            req=req, admitted_wall=now, counts=np.zeros(self.net.n_classes, np.int64)
-        )
+        lane = _Lane(req=req, admitted_wall=now, counts=np.zeros(self.net.n_classes, np.int64))
+        if req._record_steps:
+            lane.step_out = []
+        if req._carry_in is not None:
+            # a streaming chunk resumes its stream's carry: write the
+            # snapshot over whatever the slot last held (fresh=False keeps
+            # the reset flag off); carry0 keeps it on the host so that a
+            # quarantine restarts this chunk from its own seam
+            lane_state_put(self._states, slot, req._carry_in)
+            lane.fresh = False
+            lane.carry0 = req._carry_in
+            req._carry_in = None
+        self._lanes[slot] = lane
 
     def _pick_victim(self) -> int | None:
         """Preemption victim: the non-critical lane with the most window
@@ -593,6 +665,8 @@ class SNNServeEngine:
         active = [i for i, lane in enumerate(self._lanes) if lane is not None]
         if not active:
             return []
+        if self.faults is not None:
+            self.faults.on_tick()  # chaos: may stall, raise, or "kill"
         k = self._chunk_len(active)
         dtype = (
             np.uint8
@@ -643,20 +717,43 @@ class SNNServeEngine:
         finished = []
         now = time.perf_counter()
         self.metrics.record_tick(k, tick_wall, len(self.sched), len(active), self.max_batch, now)
+        ending = []
         for i in active:
             lane = self._lanes[i]
             valid = int(meta[1, i])
             lane.counts += packed[:, i, :n_classes].sum(axis=0)  # masked past valid
             lane.layer_events.append(packed[:valid, i, n_classes:])  # [valid, L]
+            if lane.step_out is not None:
+                lane.step_out.append(packed[:valid, i, :n_classes].copy())
             lane.t += valid
             if lane.t >= lane.req.n_steps:
-                finished.append(self._complete_lane(i, now))
+                ending.append(i)
+        # the freeze in batched_lane_window pinned each finished slot's carry
+        # at its lane's boundary, so a snapshot now is the carry after the
+        # request's last real step; every such carry comes back in one copy
+        want = [i for i in ending if self._lanes[i].req._want_carry]
+        carries = dict(zip(want, lane_states_take(self._states, want)))
+        for i in ending:
+            finished.append(self._complete_lane(i, now, carries.get(i)))
+        if self.faults is not None:
+            # chaos: corrupt a still-active lane's carry *after* the tick's
+            # saturate ran (so the corruption survives until the validity
+            # sweep, like a mid-window bit flip on real hardware)
+            still = [i for i in active if self._lanes[i] is not None]
+            self.faults.poison_carry(self._states, still)
         return finished
 
-    def _complete_lane(self, slot: int, now: float) -> SNNRequest:
+    def _complete_lane(self, slot: int, now: float, carry_out=None) -> SNNRequest:
         lane = self._lanes[slot]
         self._lanes[slot] = None  # freed immediately: next dispatch may reuse it
         req = lane.req
+        req.carry_out = carry_out
+        if lane.step_out is not None:
+            req.step_outputs = (
+                np.concatenate(lane.step_out, axis=0)
+                if lane.step_out
+                else np.zeros((0, self.net.n_classes), np.int64)
+            )
         req.spike_counts = lane.counts
         req.service_s = now - lane.admitted_wall
         self._finish(req, now, stats_src=("chunks", lane.layer_events))
@@ -698,11 +795,71 @@ class SNNServeEngine:
     def _finalize(self, req: SNNRequest) -> None:
         """Invoke the completion callback; a raising callback is counted and
         contained -- it must never take the serving loop down."""
+        # WAL: the terminal state lands before the callback runs, so a crash
+        # inside a callback still replays as "served" (streaming chunks are
+        # the manager's to journal)
+        if self.journal is not None and not req._want_carry:
+            self.journal.append("done", uid=req.uid, status=req.status)
         if req.on_complete is not None:
             try:
                 req.on_complete(req)
             except Exception:
                 self.metrics.inc("callback_failures")
+
+    # -- NeurA-Guard: carry validity + lane quarantine -----------------------
+    def sweep_carries(self) -> list[int]:
+        """Validity sweep over the active lanes' device carries.
+
+        A healthy carry is bounded by construction: every tick saturates
+        ``u`` into the layer's ``u_bits`` range and ``i_syn`` into
+        ``i_bits``, and ``prev_spk`` is binary.  Anything outside those
+        bounds can only be corruption (a bit flip, an injected fault), and
+        the lane's trajectory is no longer trustworthy.  Returns the active
+        slots that fail, in slot order; the supervisor quarantines them.
+
+        One bounds check over the whole pool on the device and one copy of
+        the [max_batch] mask of bad slots (the JAX engine copies each active
+        lane's carry to the host).  The pool is int32, so there is no
+        finiteness to check.
+        """
+        active = [i for i, lane in enumerate(self._lanes) if lane is not None]
+        if not active:
+            return []
+        bad = torch.zeros(self.max_batch, dtype=torch.bool, device=self.device)
+        out = lambda a, lo, hi: ((a < lo) | (a > hi)).any(dim=1)
+        for st, cfg in zip(self._states, self.net.layers):
+            bad |= out(st.u, int_min(cfg.u_bits), int_max(cfg.u_bits))
+            bad |= out(st.i_syn, int_min(cfg.i_bits), int_max(cfg.i_bits))
+            bad |= out(st.prev_spk, 0, 1)
+        mask = bad.cpu().numpy()
+        return [i for i in active if mask[i]]
+
+    def quarantine_lane(self, slot: int) -> SNNRequest | None:
+        """Condemn a lane slot and salvage its request.
+
+        The slot never admits again (only an engine restart reclaims it).
+        The resident request restarts from its last trustworthy seam: a
+        streaming chunk re-enters the queue with its chunk-start carry
+        (``carry0``), anything else restarts from admission -- both
+        bit-exact, because everything computed *on* the corrupt lane is
+        discarded.  Returns the requeued request (``None`` for an
+        already-empty slot).
+        """
+        if not 0 <= slot < self.max_batch:
+            raise ValueError(f"no lane slot {slot}")
+        self._quarantined.add(slot)
+        lane = self._lanes[slot]
+        self._lanes[slot] = None
+        if lane is None:
+            return None
+        req = lane.req
+        req.restarts += 1
+        req._suspended = None
+        req._carry_in = lane.carry0  # chunk-start seam (None = fresh restart)
+        self.sched.requeue_front(req)
+        self.metrics.inc("quarantined_lanes")
+        self.metrics.inc("quarantine_restarts")
+        return req
 
     def warmup(self, n_steps: int | None = None, include_int32: bool = False) -> None:
         """Build the kernels and run one tick per chunk length, so nothing is

@@ -23,7 +23,9 @@ from repro_torch.kernels.quant_matmul.spike_matmul import spike_matmul, spike_ma
 from repro_torch.kernels.sparse_accum.ops import fixed_capacity_events
 from repro_torch.kernels.sparse_accum.ref import sparse_accum_ref
 from repro_torch.kernels.sparse_accum.sparse_accum import sparse_accum
+from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.snn_engine import SNNRequest, SNNServeEngine
+from repro_torch.serve.streaming import StreamConfig, StreamSessionManager
 
 pytestmark = pytest.mark.cuda
 
@@ -232,6 +234,100 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
     for uid in range(len(rasters)):
         np.testing.assert_array_equal(gpu[uid].spike_counts, cpu[uid].spike_counts)
         assert gpu[uid].route == cpu[uid].route
+
+
+def test_streams_on_the_card_match_the_cpu(cuda, tmp_path):
+    """Sparse, dense and graded streams, fed group after group with an
+    eviction in the middle: the card's readouts, carries and tick modes
+    equal the CPU's."""
+    net = _net()
+    params = tnet.init_float_params(torch.Generator().manual_seed(4), net, device="cpu")
+    qparams, _ = tnet.quantize_params(net, params)
+    rng = np.random.default_rng(5)
+    groups = [
+        [(rng.random((24, 64)) < 0.03).astype(np.uint8) for _ in range(3)],
+        [(rng.random((24, 64)) < 0.4).astype(np.uint8) for _ in range(3)],
+        # graded above this net's f32 certificate (8456): int32 ticks
+        [np.where(rng.random((24, 64)) < 0.35, rng.integers(1, 40000, (24, 64)), 0)
+         for _ in range(2)],
+    ]
+
+    def stream(device):
+        engine = SNNServeEngine(net, qparams, max_batch=4, tick_stride=8, device=device,
+                                backend=tbe.EventBackend("pallas"))
+        manager = StreamSessionManager(
+            engine, checkpoint_dir=tmp_path / str(device),
+            config=StreamConfig(window=12, stride=8, idle_budget=None),
+        )
+        out = {}
+        for g, rasters in enumerate(groups):
+            sids = [manager.open(f"g{g}s{i}").sid for i in range(len(rasters))]
+            for lo in range(0, 24, 8):
+                for sid, r in zip(sids, rasters):
+                    manager.feed(sid, r[lo:lo + 8])
+                manager.pump()
+                if lo == 8:
+                    for sid in sids:
+                        manager.evict(sid)
+            for sid in sids:
+                readouts = [(r.t_end, r.spike_counts.tolist()) for r in manager.drain_readouts(sid)]
+                out[sid] = (readouts, manager.sessions[sid].carry)
+        ticks = {k: v for k, v in engine.metrics.counters.items() if k.startswith("tick:")}
+        return out, ticks
+
+    (gpu, gpu_ticks), (cpu, cpu_ticks) = stream(cuda), stream("cpu")
+    assert gpu_ticks == cpu_ticks and set(gpu_ticks) == {"tick:sparse", "tick:f32_exact",
+                                                         "tick:int32"}
+    for sid, (readouts, carry) in cpu.items():
+        assert gpu[sid][0] == readouts and len(readouts) == 3
+        for a, b in zip(gpu[sid][1], carry):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_sweep_carries_on_the_card_finds_the_poisoned_slot(cuda):
+    """The device-side sweep (one bounds check over the pool, one mask
+    copied back) condemns exactly the lane the injector poisoned, as the
+    CPU engine's sweep does."""
+    net = _net()
+    params = tnet.init_float_params(torch.Generator().manual_seed(6), net, device="cpu")
+    qparams, _ = tnet.quantize_params(net, params)
+    rng = np.random.default_rng(7)
+    rasters = [(rng.random((12, 64)) < 0.3).astype(np.uint8) for _ in range(5)]
+    for device in (cuda, "cpu"):
+        for lane, bit in [(3, 26), (0, 17)]:
+            engine = SNNServeEngine(net, qparams, max_batch=6, tick_stride=4, device=device,
+                                    faults=FaultInjector().arm("carry", at=1, lane=lane, bit=bit))
+            for i, r in enumerate(rasters):
+                engine.submit(SNNRequest(uid=i, raster=r))
+            engine.poll()
+            assert engine.sweep_carries() == []
+            engine.poll()  # the second tick's carry fault fires
+            assert engine.sweep_carries() == [lane]
+            assert engine.quarantine_lane(lane).uid == lane
+            assert engine.sweep_carries() == []  # the condemned slot holds no lane
+
+
+def test_batched_carry_gather_matches_per_lane_take(cuda):
+    """``lane_states_take`` (one gather, one copy) equals
+    ``lane_state_take`` lane by lane on a pool of random carries."""
+    net = _net("ata_t", "synaptic")
+    states = tbe.batched_lane_init(net, 16, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for st in states:
+        for a in st:
+            a.copy_(torch.randint(-(2**20), 2**20, a.shape, generator=gen, device=cuda,
+                                  dtype=torch.int32))
+    lanes = [5, 0, 15, 7, 5]
+    got = tbe.lane_states_take(states, lanes)
+    assert len(got) == len(lanes)
+    for lane, snap in zip(lanes, got):
+        want = tbe.lane_state_take(states, lane)
+        for a, b in zip(snap, want):
+            for x, y in zip(a, b):
+                assert x.dtype == y.dtype and x.shape == y.shape
+                np.testing.assert_array_equal(x, y)
+    assert tbe.lane_states_take(states, []) == []
 
 
 # ---------------------------------------------------------------------------

@@ -294,12 +294,23 @@ def test_async_server_resolves_futures():
         p.assert_matches_serial(req)
 
 
-def test_engine_validation_and_device():
+def test_engine_validation_and_device(tmp_path):
+    from repro_torch.serve.faults import FaultInjector
+    from repro_torch.serve.journal import Journal, read_records
+
     p = _pair()
-    with pytest.raises(NotImplementedError, match="journal"):
-        _engine(p, journal=object())
-    with pytest.raises(NotImplementedError, match="faults"):
-        _engine(p, faults=object())
+    # journal= and faults= are taken, as in the JAX engine
+    inj = FaultInjector()
+    with Journal(tmp_path / "wal") as journal:
+        engine = _engine(p, journal=journal, faults=inj)
+        assert engine.journal is journal and engine.faults is inj
+        engine.run([SNNRequest(uid=3, raster=_rasters(24, [5])[0])])
+        engine.stop_admission = True
+        with pytest.raises(RuntimeError, match="admission is stopped"):
+            engine.submit(SNNRequest(uid=4, raster=_rasters(24, [5])[0]))
+    assert [(r.kind, r.fields["uid"]) for r in read_records(tmp_path / "wal")] == [
+        ("submit", 3), ("done", 3)]
+    assert inj.counts["tick"] == engine.n_ticks > 0
     assert _engine(p, data_parallel=4).data_parallel == 1
     with pytest.raises(ValueError, match="channels"):
         _engine(p).submit(SNNRequest(uid=0, raster=np.zeros((3, 7), np.int32)))
