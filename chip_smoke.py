@@ -88,10 +88,26 @@ result line):
    routes on 127.0.0.1; ``launch/serve_snn.main`` in replay and
    ``--streaming 16`` modes.  Phases 5 and 11 print dispatch against tick
    wall from the engine's own timers;
-12. a ``kernels`` JSON line (launches on phases 3-7 and 9-11, times,
-   bounds); phases 3-5 and 9-11 also print the SNN kernels' launches by
+12. the SNN path across a device mesh (``core/shard.py``): a
+   ``DeviceMesh`` of four shards on card 0 (and, on a machine with more
+   than one card, the real cards; otherwise a line says that part did not
+   run).  ``eval_int`` at batch 4096 through ``fused`` and ``event`` (its
+   fixed-capacity surrogate, ``sparse_accum`` on every shard) and a batch
+   of 4093 (padding); ``run_int_batched`` over 510 ragged samples; the
+   sweep at P = 510 (edge-padded to 512); phase 9's ``explore_snn`` with
+   ``EvalSpec(mesh=...)`` (the same ``to_json()``); ``SNNServeEngine(
+   max_batch=64, data_parallel=<mesh>)`` on phase 5's traffic (each request
+   equal to phase 5's) and 16 streaming sessions (equal to serial
+   ``run_int``).  Every sharded result equals its serial counterpart; the
+   launches by kernel of the ``eval_int`` batch, the ragged batch and the
+   sweep are 4 x the serial run's at the shard's size, the served burst's 4
+   x the unsharded engine's on the same ticks; the sharded and serial
+   walls of the ``eval_int`` batch, the P = 512 sweep and the served burst
+   are printed beside the card's name and power limit;
+13. a ``kernels`` JSON line (launches on phases 3-7 and 9-12, times,
+   bounds); phases 3-5 and 9-12 also print the SNN kernels' launches by
    size;
-13. the result line.
+14. the result line.
 """
 
 from __future__ import annotations
@@ -134,6 +150,12 @@ from repro_torch.core.flexplorer.explorer import (  # noqa: E402
     explore_snn,
 )
 from repro_torch.core.flexplorer.strategies import NSGAConfig  # noqa: E402
+from repro_torch.core.shard import (  # noqa: E402
+    DeviceMesh,
+    make_mesh,
+    run_int_population_sharded,
+    run_int_sharded,
+)
 from repro_torch.core.precision import (  # noqa: E402
     PrecisionPolicy,
     QTensor,
@@ -1326,7 +1348,7 @@ def dse_setup():
     return net, res.params, train, test, space
 
 
-def dse_search(net, params, test, space, checkpoint_dir=None, refine=None):
+def dse_search(net, params, test, space, checkpoint_dir=None, refine=None, mesh=None):
     return explore_snn(
         net, params, test,
         search=SearchSpec(
@@ -1334,7 +1356,7 @@ def dse_search(net, params, test, space, checkpoint_dir=None, refine=None):
             config=NSGAConfig(population=64, generations=3, seed=0),
             checkpoint_dir=None if checkpoint_dir is None else str(checkpoint_dir),
         ),
-        evaluate=EvalSpec(batch=max(64, len(test.labels))),
+        evaluate=EvalSpec(batch=max(64, len(test.labels)), mesh=mesh),
         refine=refine,
     )
 
@@ -1402,14 +1424,15 @@ def sweep_profile(net, cands, qps, test, n: int = 3, cold_tries: int = 10) -> st
     )
 
 
-def phase_dse(dse) -> dict:
+def phase_dse(dse, found: dict) -> dict:
     """``explore_snn`` (NSGA-II, population 64, 3 generations, c_perf and c_bw
     > 0) on the card, then: every scored candidate's sweep accuracy and
     stats against serial ``eval_int(reference)``, a repeated search, a
     search killed after generation 1 and resumed, a slice against the CPU,
     the candidate-axis ``lif_scan`` against its plain version, and the
     sweep's candidates/s at P = 64 and 512.  Returns the main path's launch
-    counts."""
+    counts; ``found["dse_json"]`` gets the search's ``to_json()`` (phase 12
+    repeats the search on a mesh)."""
     net, params, _, test, space = dse
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -1418,7 +1441,7 @@ def phase_dse(dse) -> dict:
     wall = time.perf_counter() - t0
     counts = read_counts()
     check(counts["spike_matmul"] > 0 and counts["lif_scan"] > 0, "the sweep ran its kernels")
-    out = res.to_json()
+    out = found["dse_json"] = res.to_json()
     cache = res.search.cache
     check(len(cache) > 64 and res.search.front, "the search scored more than one generation")
     print(
@@ -1551,6 +1574,27 @@ def phase_dse(dse) -> dict:
             f"{batch} samples x T={DSE_T}, best of 3: {[round(t, 4) for t in times]})"
         )
         print(f"dse sweep P={P} split: {sweep_profile(net, cs, qs, test)}")
+        # layer 0's product [T*B,256]x[P,256,128]: bytes (raster, weights,
+        # the int32 currents) and operations, int8 tensor cores for the
+        # candidates whose weights fit int8, int32 CUDA cores for the rest;
+        # beside it the operations with every wider weight split into byte
+        # planes on the int8 tensor cores (one product per plane)
+        M, (K, N) = DSE_T * batch, qs[0][0].w_ff.shape
+        n8 = sum(fits_int8(q[0].w_ff) for q in qs)
+        t_ops = 2 * M * K * N * (n8 / INT8_TC_OPS_S + (P - n8) / INT32_OPS_S)
+        planes = sum(-(-(int(q[0].w_ff.abs().max()).bit_length() + 1) // 8) for q in qs)
+        t_planes = 2 * M * K * N * planes / INT8_TC_OPS_S
+        t_bytes = 4 * (M * K + P * K * N + P * M * N) / HBM_BYTES_S
+        print(
+            f"dse sweep P={P} layer-0 spike_matmul [{M},{K}]x[{P},{K},{N}] bound: bytes "
+            f"{1e3 * t_bytes:.5f} ms ({4 * (M * K + P * K * N + P * M * N) / 1e9:.4f} GB), "
+            f"operations {1e3 * t_ops:.5f} ms ({2 * P * M * K * N:.4g} ops, {n8} candidates "
+            f"int8): bound {1e3 * max(t_ops, t_bytes):.5f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}); with weight byte planes "
+            f"({planes} int8 products) operations {1e3 * t_planes:.5f} ms: bound "
+            f"{1e3 * max(t_planes, t_bytes):.5f} ms "
+            f"({'operations' if t_planes >= t_bytes else 'bytes'})"
+        )
     print(f"dse: phase 9 took {time.perf_counter() - t_phase:.3f} s")
     return counts
 
@@ -2194,6 +2238,245 @@ def phase_launcher(device: str = DEVICE) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the SNN path across a device mesh (four shards of one card)
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 4
+
+
+def card_mesh(n: int = N_SHARDS) -> DeviceMesh:
+    """``n`` shards on card 0: the partition, padding, reassembly and each
+    shard's launches of a real mesh, on the one card there is."""
+    return make_mesh(n, devices=[torch.device("cuda", 0)] * n)
+
+
+def launched(fn) -> dict[str, int]:
+    """The SNN kernels' launches by the wrappers' counters while ``fn`` runs."""
+    before = kernels.launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    return {k: after[k] - before[k] for k in ("spike_matmul", "lif_scan", "sparse_accum")}
+
+
+def check_n_times(sharded: dict, serial: dict, what: str) -> None:
+    check(sum(serial.values()) > 0, f"{what}: the serial run launched no kernel")
+    check(sharded == {k: N_SHARDS * v for k, v in serial.items()},
+          f"{what}: sharded launches {sharded} != {N_SHARDS} x serial {serial}")
+
+
+def same_stats(a: dict, b: dict) -> bool:
+    return np.array_equal(a["input_events_per_step"], b["input_events_per_step"]) and all(
+        np.array_equal(x, y) for x, y in zip(a["layer_events_per_step"], b["layer_events_per_step"])
+    )
+
+
+def walls(fn_a, fn_b, n: int = 3) -> tuple[float, float]:
+    """Best-of-``n`` walls (ms) of two functions, run in turns a, b, b, a, ..."""
+    ta, tb = [], []
+    for i in range(n):
+        order = [(fn_a, ta), (fn_b, tb)] if i % 2 == 0 else [(fn_b, tb), (fn_a, ta)]
+        for fn, out in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+    return min(ta), min(tb)
+
+
+def phase_shard_eval_int(net, qparams, smi: str) -> dict:
+    """``eval_int`` on phase 4's set at batch 4096 through ``fused`` and
+    ``event`` (its fixed-capacity surrogate on every shard), and a batch of
+    4093 (padding): accuracy and statistics equal to the serial run;
+    launches of the 4096 batch = 4 x the serial run's at 1024 samples."""
+    ds = mnist_like(n=4096, T=25, seed=2)
+    odd = SpikeDataset(ds.spikes[:4093], ds.labels[:4093], ds.n_classes, ds.name + ":4093")
+    mesh = card_mesh()
+    runs = {}
+    for name in ("fused", "event"):
+        runs[name] = eval_int(net, qparams, ds, batch_size=4096, return_stats=True, backend=name,
+                              mesh=mesh)
+    runs["fused-4093"] = eval_int(net, qparams, odd, batch_size=4096, return_stats=True,
+                                  backend="fused", mesh=mesh)
+    counts = read_counts()
+    for name, data, backend in [("fused", ds, "fused"), ("event", ds, "event"),
+                                ("fused-4093", odd, "fused")]:
+        acc, st = eval_int(net, qparams, data, batch_size=4096, return_stats=True, backend=backend)
+        check(runs[name][0] == acc and same_stats(runs[name][1], st),
+              f"sharded eval_int[{name}] != serial")
+    x = raster_tensor(ds.spikes.transpose(1, 0, 2), DEVICE)
+    per = len(ds.labels) // N_SHARDS
+    for name in ("fused", "event"):
+        backend = backend_mod.get_backend(name)
+        surrogate = backend.jit_surrogate(net, x) or backend  # what every shard runs
+        sharded = launched(lambda: run_int_sharded(net, qparams, x, mesh, backend=backend))
+        serial = launched(lambda: surrogate.run_int(net, qparams, x[:, :per].contiguous()))
+        check_n_times(sharded, serial, f"eval_int[{name}] batch")
+        if name == "event":
+            check(sharded["sparse_accum"] >= N_SHARDS, "event: sparse_accum not on every shard")
+        print(f"shard eval_int[{name}]: 4096-sample batch launches {json.dumps(sharded)} = "
+              f"{N_SHARDS} x serial at {per} samples {json.dumps(serial)}")
+    ms_serial, ms_sharded = walls(
+        lambda: eval_int(net, qparams, ds, batch_size=4096, backend="fused"),
+        lambda: eval_int(net, qparams, ds, batch_size=4096, backend="fused", mesh=mesh),
+    )
+    print(
+        f"shard eval_int: fused and event (4096) and fused (4093, padded to 4096) on "
+        f"{N_SHARDS} shards of one card equal serial in accuracy ({runs['fused'][0]:.6f}) and "
+        f"float32 stats; 4096-sample fused batch wall: serial {ms_serial:.3f} ms, sharded "
+        f"{ms_sharded:.3f} ms ({ms_sharded / ms_serial:.3f}x) on {smi}"
+    )
+    sharded_run = lambda: eval_int(net, qparams, ds, batch_size=4096, backend="fused", mesh=mesh)
+    print(f"shard eval_int[fused] batch split: {device_split(sharded_run, n=3)}")
+    return counts
+
+
+def phase_shard_batched(net, qparams) -> dict:
+    """``run_int_batched`` over 510 ragged samples (padded to 512 with
+    zero-length lanes) on the mesh: equal to the serial record; launches = 4
+    x the serial run's at 128 samples."""
+    ds = mnist_like(n=510, T=25, seed=13)
+    rng = np.random.default_rng(13)
+    lengths = rng.integers(1, 26, 510).astype(np.int32)
+    x = raster_tensor(ds.spikes.transpose(1, 0, 2), DEVICE)
+    mesh = card_mesh()
+    rec = backend_mod.run_int_batched(net, qparams, x, lengths, mesh=mesh)
+    counts = read_counts()
+    assert_records_equal(rec, backend_mod.run_int_batched(net, qparams, x, lengths),
+                         "sharded run_int_batched")
+    x4, l4 = x[:, :508], lengths[:508]  # a batch that divides: 127 a shard
+    sharded = launched(lambda: backend_mod.run_int_batched(net, qparams, x4, l4, mesh=mesh))
+    serial = launched(lambda: backend_mod.run_int_batched(net, qparams, x4[:, :127], l4[:127]))
+    check_n_times(sharded, serial, "run_int_batched")
+    print(f"shard run_int_batched: 510 ragged samples (lengths 1..25) equal serial; launches "
+          f"{json.dumps(sharded)} = {N_SHARDS} x serial at 127 samples")
+    return counts
+
+
+def phase_shard_sweep(dse, smi: str) -> dict:
+    """``eval_int_population`` at P = 510 (edge-padded to 512) on phase 9's
+    DSE net: each candidate's accuracy and stats equal to the serial sweep;
+    P = 512 launches = 4 x the serial sweep's at P = 128."""
+    net, params, _, test, space = dse
+    rng = np.random.default_rng(1)
+    all_cfgs = list(itertools.product(space.ff_bits, space.rec_bits, space.leak_bits))
+    picks = [all_cfgs[i] for i in rng.choice(len(all_cfgs), 512, replace=False)]
+    cs = [net.replace_precisions(w_bits=a, w_rec_bits=b, leak_bits=c) for a, b, c in picks]
+    qs = [quantize_params(c, params)[0] for c in cs]
+    batch, mesh = len(test.labels), card_mesh()
+    accs, stats = eval_int_population(net, cs[:510], qs[:510], test, batch_size=batch,
+                                      return_stats=True, mesh=mesh)
+    counts = read_counts()
+    want, want_stats = eval_int_population(net, cs[:510], qs[:510], test, batch_size=batch,
+                                           return_stats=True)
+    check(np.array_equal(accs, want), "sharded sweep accuracies != serial")
+    check(all(same_stats(a, b) for a, b in zip(stats, want_stats)), "sharded sweep stats != serial")
+    x = raster_tensor(test.spikes.transpose(1, 0, 2), DEVICE)
+    stacked, b_regs, a_regs = stack_population(cs, qs)
+    quarter = [IntLayerParams(*(t[:128] for t in p)) for p in stacked]
+    sharded = launched(lambda: run_int_population_sharded(net, stacked, b_regs, a_regs, x, mesh))
+    serial = launched(lambda: run_int_population(net, quarter, b_regs[:128], a_regs[:128], x))
+    check_n_times(sharded, serial, "sweep P=512")
+    ms_serial, ms_sharded = walls(
+        lambda: eval_int_population(net, cs, qs, test, batch_size=batch, return_stats=True),
+        lambda: eval_int_population(net, cs, qs, test, batch_size=batch, return_stats=True,
+                                    mesh=mesh),
+    )
+    print(
+        f"shard sweep: P=510 on {N_SHARDS} shards (edge-padded to 512) equal to the serial sweep "
+        f"in every accuracy and float32 stat; P=512 launches {json.dumps(sharded)} = "
+        f"{N_SHARDS} x serial at P=128; P=512 sweep wall: serial {ms_serial:.3f} ms, sharded "
+        f"{ms_sharded:.3f} ms ({ms_sharded / ms_serial:.3f}x) on {smi}"
+    )
+    return counts
+
+
+def phase_shard_dse(dse, found: dict) -> dict:
+    """``explore_snn`` on phase 9's search with ``EvalSpec(mesh=...)``: the
+    same ``to_json()`` as phase 9's unsharded search on the same weights
+    (population 64 divides over 4 shards, so the sweep widths stay)."""
+    net, params, _, test, space = dse
+    t0 = time.perf_counter()
+    res = dse_search(net, params, test, space, mesh=card_mesh())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(json.dumps(res.to_json(), sort_keys=True) == json.dumps(found["dse_json"], sort_keys=True),
+          "sharded explore_snn != phase 9's search")
+    print(f"shard dse: explore_snn nsga2 (64 x 3) with EvalSpec(mesh={N_SHARDS} shards) gives phase "
+          f"9's to_json() over {len(res.search.cache)} candidates ({wall:.3f} s)")
+    return counts
+
+
+def phase_shard_serve(net, qparams, serve_results: dict, smi: str) -> dict:
+    """``SNNServeEngine(max_batch=64, data_parallel=<4-shard mesh>)``: phase
+    5's 256 requests, each equal to phase 5's counts, then 16 streaming
+    sessions against serial ``run_int``; the unsharded engine on the same
+    traffic runs the same ticks with a quarter of the launches."""
+    mk = lambda dp: SNNServeEngine(net, qparams, max_batch=64, data_parallel=dp,
+                                   backend=EventBackend(strategy="pallas"), device=DEVICE)
+    engine = mk(card_mesh())
+    check(engine.data_parallel == N_SHARDS, f"engine data_parallel {engine.data_parallel}")
+    engine.warmup(include_int32=True)
+    reset_counts()
+    done = []
+    t0 = time.perf_counter()
+    four = launched(lambda: done.extend(engine.run(serving_traffic(net.n_in))))
+    wall = time.perf_counter() - t0
+    groups = [(name, r[:6]) for name, r in stream_groups(net.n_in)][:2]
+    groups.append(("graded", stream_groups(net.n_in)[2][1][:4]))
+    readouts, _, _, _ = drive_streams(mk(card_mesh()), groups)
+    counts = read_counts()
+    check(len(done) == 256 and all(r.status == "completed" for r in done), "sharded: all served")
+    for r in done:
+        check(np.array_equal(r.spike_counts, serve_results[r.uid]),
+              f"sharded engine: request {r.uid} differs from phase 5")
+    for name, rasters in groups:
+        prefix = prefix_oracle(net, qparams, rasters, DEVICE)
+        check_readouts(readouts, [f"{name}{i}" for i in range(len(rasters))], prefix, "sharded stream")
+    ticks4 = {k: v for k, v in engine.metrics.counters.items() if k.startswith("tick:")}
+    plain = mk(None)
+    plain.warmup(include_int32=True)
+    t0 = time.perf_counter()
+    one = launched(lambda: plain.run(serving_traffic(net.n_in)))
+    plain_wall = time.perf_counter() - t0
+    ticks1 = {k: v for k, v in plain.metrics.counters.items() if k.startswith("tick:")}
+    check(ticks4 == ticks1, f"sharded ticks {ticks4} != unsharded {ticks1}")
+    check_n_times(four, one, "served burst")
+    print(
+        f"shard serve: 64 lanes as {N_SHARDS} pools of 16, data_parallel {engine.data_parallel}; "
+        f"256 requests equal to phase 5, {len(readouts)} streams equal to serial run_int; ticks "
+        f"{ticks4} as unsharded; launches {json.dumps(four)} = {N_SHARDS} x unsharded "
+        f"{json.dumps(one)}; burst wall: unsharded {1e3 * plain_wall:.3f} ms, sharded "
+        f"{1e3 * wall:.3f} ms ({wall / plain_wall:.3f}x) on {smi}"
+    )
+    print(f"shard serve: {dispatch_vs_tick(engine, wall)}")
+    return counts
+
+
+def phase_shard_cards(net, qparams) -> None:
+    """The real cards, one shard each, where the machine has more than one."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"shard cards: not run (this machine has {n} card; the mesh above names card 0 "
+              f"{N_SHARDS} times)")
+        return
+    mesh = make_mesh(n)
+    ds = mnist_like(n=4096, T=25, seed=2)
+    for name in ("fused", "event"):
+        got = eval_int(net, qparams, ds, batch_size=4096, return_stats=True, backend=name, mesh=mesh)
+        want = eval_int(net, qparams, ds, batch_size=4096, return_stats=True, backend=name)
+        check(got[0] == want[0] and same_stats(got[1], want[1]), f"{n}-card eval_int[{name}]")
+    ms_serial, ms_sharded = walls(
+        lambda: eval_int(net, qparams, ds, batch_size=4096, backend="fused"),
+        lambda: eval_int(net, qparams, ds, batch_size=4096, backend="fused", mesh=mesh),
+    )
+    print(f"shard cards: eval_int on {n} cards equals serial; fused batch wall serial "
+          f"{ms_serial:.3f} ms, {n} cards {ms_sharded:.3f} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA card", file=sys.stderr)
@@ -2292,10 +2575,11 @@ def main() -> int:
     phase_lm_card_vs_cpu(arch)
 
     t0 = time.perf_counter()
+    found: dict = {}
     dse = dse_setup()
     qs = quickstart_setup()
     for name, phase in [
-        ("dse", lambda: phase_dse(dse)),
+        ("dse", lambda: phase_dse(dse, found)),
         ("dse_refine", lambda: phase_dse_refine(dse)),
         ("train", lambda: phase_train(qs)),
     ]:
@@ -2332,6 +2616,26 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] += v
     print(f"phase 11 took {time.perf_counter() - t0:.3f} s; the script so far "
+          f"{time.perf_counter() - t_start:.3f} s")
+
+    t0 = time.perf_counter()
+    for name, phase in [
+        ("shard_eval_int", lambda: phase_shard_eval_int(net, qparams, smi)),
+        ("shard_batched", lambda: phase_shard_batched(net, qparams)),
+        ("shard_sweep", lambda: phase_shard_sweep(dse, smi)),
+        ("shard_dse", lambda: phase_shard_dse(dse, found)),
+        ("shard_serve", lambda: phase_shard_serve(net, qparams, serve_results, smi)),
+    ]:
+        reset_counts()
+        with launch_sizes() as tally:
+            counts = phase()
+        print(f"launches[{name}]: {counts}")
+        by_shape = {f"{k}{list(v)}": n for (k, v), n in sorted(tally.items())}
+        print(f"launches by size[{name}] (the launches counted above): {json.dumps(by_shape)}")
+        for k, v in counts.items():
+            launches[k] += v
+    phase_shard_cards(net, qparams)
+    print(f"phase 12 took {time.perf_counter() - t0:.3f} s; the script so far "
           f"{time.perf_counter() - t_start:.3f} s")
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was never launched on the main path")

@@ -858,11 +858,16 @@ def run_int_batched(net, qparams, rasters, lengths=None, mesh=None) -> SimRecord
     parameters' device), each sample zero-padded; ``lengths`` int [B] (None =
     all full length).  A sample's contributions are masked past its own
     length, so every per-sample slice of the record is bit-exact with a
-    serial ``run_int`` over that sample's unpadded window.  ``mesh`` must be
-    None: multi-device sharding waits for a later slice.
+    serial ``run_int`` over that sample's unpadded window.
+
+    ``mesh`` (``None`` | ``"auto"`` | int | ``repro_torch.core.shard.
+    DeviceMesh``) spreads the sample axis across devices -- still bit-exact
+    per sample (lanes are independent); see ``repro_torch.core.shard``.
     """
     if mesh is not None:
-        raise NotImplementedError("run_int_batched: mesh sharding is not ported yet (mesh=None)")
+        from repro_torch.core import shard as shard_lib  # deferred: shard imports us
+
+        return shard_lib.run_int_batched_sharded(net, qparams, rasters, lengths, mesh)
     device = qparams[0].w_ff.device
     rasters = torch.as_tensor(rasters).to(device=device, dtype=torch.int32)
     T, B, _ = rasters.shape

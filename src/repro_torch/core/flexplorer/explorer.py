@@ -15,7 +15,7 @@ evaluate=..., refine=...)`` with three spec dataclasses:
   ``repro_torch.core.flexplorer.strategies``), and search-state
   checkpointing so a killed search resumes mid-schedule.
 * :class:`EvalSpec` -- *how candidates are scored*: simulator backend,
-  eval batch size, perf-cost targets (``mesh`` must be None here).
+  eval batch size, device mesh, perf-cost targets.
 * :class:`RefineSpec` -- the optional second QAT train-in-the-loop phase
   over the search finalists (``snn.qat.refine_candidates``: all finalists
   fine-tune at once on a stacked candidate axis).
@@ -23,9 +23,11 @@ evaluate=..., refine=...)`` with three spec dataclasses:
 Population-capable strategies score each round's uncached candidates
 through one population sweep (``eval_int_population``: on the card every
 layer's currents through ``spike_matmul`` and the feed-forward membrane
-scans through ``lif_scan``, all candidates per launch).  The search runs in
-one process on the device of ``float_params``; the JAX version's
-multi-device and multi-host fan-out waits for a later slice.
+scans through ``lif_scan``, all candidates of a shard per launch), its
+candidate axis split across ``evaluate.mesh``'s devices and -- when a
+``torch.distributed`` process group is up (``compat.maybe_init_distributed``)
+-- partitioned across *processes* first: each process sweeps its slice and
+the scores and event statistics are all-gathered.
 
 The legacy 15-kwarg signature (``space=``, ``anneal_cfg=``, ``eval_batch=``,
 ``refine_top_k=``, ...) still works through a deprecation shim that warns
@@ -46,10 +48,12 @@ import numpy as np
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import hw_model
+from repro_torch.core import shard as shard_lib
 from repro_torch.core.flexplorer import cost as cost_lib
 from repro_torch.core.flexplorer import strategies as strategies_lib
 from repro_torch.core.network import NetworkConfig, quantize_params
 from repro_torch.data.snn_datasets import SpikeDataset
+from repro_torch.distributed import compat
 from repro_torch.snn import qat as qat_lib
 from repro_torch.snn.train import eval_int, eval_int_population
 
@@ -107,7 +111,8 @@ class SearchSpec:
 @dataclasses.dataclass(frozen=True)
 class EvalSpec:
     """How candidates are scored: backend, batch, mesh, perf targets.
-    ``mesh`` other than None (multi-device evaluation) is not ported yet."""
+    ``mesh`` is ``None`` | ``"auto"`` | int | ``repro_torch.core.shard.
+    DeviceMesh``."""
 
     backend: object = "reference"
     batch: int = 512
@@ -330,7 +335,15 @@ def explore_snn(
     requested alongside one.
 
     Candidates are scored on the device of ``float_params`` (the card, or
-    the CPU where the caller built them there).
+    the CPU where the caller built them there).  ``evaluate.mesh`` spreads
+    the evaluation across devices (the serial search's samples, the
+    population sweeps' candidates), and sweep widths round up to the shard
+    multiple so every sweep ships full shards (the annealer's speculative
+    lane fill scores fresh candidates in the spare lanes).  When a process
+    group is configured (torchrun's environment; see
+    ``compat.maybe_init_distributed``) the candidate axis is also
+    partitioned across processes and all-gathered after each sweep; a
+    single process is unaffected.
 
     When ``search.weights.c_perf > 0`` the objective gains an event-aware
     perf term: each candidate's simulated event traffic (measured during
@@ -351,9 +364,6 @@ def explore_snn(
     through ``eval_int``.  Results land in ``result.refined``;
     ``best_net``/``best_qparams`` remain the unrefined incumbent.
 
-    Not ported yet, and refused with ``NotImplementedError``:
-    ``evaluate.mesh`` other than None (multi-device evaluation).
-
     Legacy flat kwargs (``space=``, ``anneal_cfg=``, ``population=``,
     ``eval_batch=``, ``refine_top_k=``, ...) are accepted through a shim
     that warns once per process; see ``docs/EXPLORER.md``.
@@ -366,11 +376,6 @@ def explore_snn(
     weights, device, perf_targets = search.weights, search.device, evaluate.perf_targets
     backend, eval_batch = evaluate.backend, evaluate.batch
 
-    if evaluate.mesh is not None:
-        raise NotImplementedError(
-            "explore_snn: evaluate.mesh (multi-device evaluation) is not ported yet; "
-            "pass mesh=None"
-        )
     if refine.top_k > 0 and refine.train_ds is None:
         raise ValueError(
             "explore_snn: refine.top_k > 0 needs refine.train_ds (legacy "
@@ -386,9 +391,19 @@ def explore_snn(
     knobs["leak_bits"] = list(search.space.leak_bits)
 
     # -- strategy + evaluation-path selection -------------------------------
+    compat.maybe_init_distributed()
+    n_hosts = compat.process_count()
+    dmesh = shard_lib.resolve_mesh(evaluate.mesh)
+    n_shards = dmesh.n_shards if dmesh is not None else 1
+    width_unit = n_shards * n_hosts
+
     serial_mode = search.strategy == "anneal" and search.population <= 1
-    # one process, one device: the sweep width is the population itself
-    sweep_width = search.population if search.population > 1 else 0
+    # Population sweeps ship whole shards on every process: round the sweep
+    # width up so the spare lanes carry speculative candidates (annealer)
+    # or padding (NSGA-II) instead of shard remainders.
+    sweep_width = (
+        -(-search.population // width_unit) * width_unit if search.population > 1 else 0
+    )
     strategy = strategies_lib.make_strategy(
         search.strategy,
         knobs,
@@ -442,29 +457,40 @@ def explore_snn(
         cand, qparams = quantized(cfg)
         if use_perf:
             acc, stats = eval_int(
-                cand, qparams, eval_ds, batch_size=eval_batch, return_stats=True, backend=backend
+                cand, qparams, eval_ds, batch_size=eval_batch,
+                return_stats=True, backend=backend, mesh=dmesh,
             )
             stats_stash[cfg] = stats
             return acc
-        return eval_int(cand, qparams, eval_ds, batch_size=eval_batch, backend=backend)
+        return eval_int(
+            cand, qparams, eval_ds, batch_size=eval_batch, backend=backend, mesh=dmesh
+        )
 
     def sweep_acc_fn(cfg_batch: list) -> np.ndarray:
         # Pad to a fixed width (the annealer's sweep width) or to the next
         # power-of-two bucket of the batch (NSGA-II's generation batches
-        # vary), as the JAX version does to reuse its compiled program: the
-        # padding lanes score duplicates of the last candidate, so the
-        # scores -- and the search -- are the same in both packages.
-        width = fixed_width or _next_pow2(len(cfg_batch))
+        # vary), rounded up to whole shards on every process, as the JAX
+        # version does: the padding lanes score duplicates of the last
+        # candidate, so the scores -- and the search -- are the same in
+        # both packages.
+        if fixed_width:
+            width = fixed_width
+        else:
+            width = -(-_next_pow2(len(cfg_batch)) // width_unit) * width_unit
         padded = list(cfg_batch) + [cfg_batch[-1]] * (width - len(cfg_batch))
-        nets, qps = zip(*(quantized(c) for c in padded))
+        lo, hi = shard_lib.host_bounds(len(padded)) if n_hosts > 1 else (0, len(padded))
+        nets, qps = zip(*(quantized(c) for c in padded[lo:hi]))
         if use_perf:
             accs, stats = eval_int_population(
-                net, list(nets), list(qps), eval_ds, batch_size=eval_batch, return_stats=True
+                net, list(nets), list(qps), eval_ds, batch_size=eval_batch,
+                return_stats=True, mesh=dmesh,
             )
-            for c, s in zip(padded, stats):
-                stats_stash[c] = s
+            accs = _gather_population(accs, stats, padded, n_hosts, stats_stash)
         else:
-            accs = eval_int_population(net, list(nets), list(qps), eval_ds, batch_size=eval_batch)
+            accs = eval_int_population(
+                net, list(nets), list(qps), eval_ds, batch_size=eval_batch, mesh=dmesh
+            )
+            accs = shard_lib.allgather_hosts(np.asarray(accs)) if n_hosts > 1 else accs
         return np.asarray(accs)[: len(cfg_batch)]
 
     batch_acc_fn = (
@@ -556,6 +582,7 @@ def explore_snn(
             lr=refine.lr,
             seed=seed,
             eval_batch=eval_batch,
+            mesh=dmesh,
         )
         for k, cfg in enumerate(chosen):
             cand = cand_nets[k]
@@ -566,7 +593,8 @@ def explore_snn(
             if use_perf:
                 # the refined parameters spike differently: re-measure traffic
                 accuracy, stats = eval_int(
-                    cand, qp, eval_ds, batch_size=eval_batch, return_stats=True, backend=backend
+                    cand, qp, eval_ds, batch_size=eval_batch,
+                    return_stats=True, backend=backend, mesh=dmesh,
                 )
                 traffic = hw_model.EventTraffic.from_stats(stats)
                 dp = hw_model.design_point(cand, traffic)
@@ -598,6 +626,28 @@ def explore_snn(
         weights=weights,
         refined=refined,
     )
+
+
+def _gather_population(accs, stats, padded, n_hosts, stats_stash) -> np.ndarray:
+    """Stash per-candidate stats and all-gather accs/stats across processes."""
+    if n_hosts > 1:
+        in_ev = np.stack([np.asarray(s["input_events_per_step"]) for s in stats])
+        layer_ev = np.stack(
+            [np.stack([np.asarray(e) for e in s["layer_events_per_step"]]) for s in stats]
+        )
+        accs = shard_lib.allgather_hosts(np.asarray(accs))
+        in_ev = shard_lib.allgather_hosts(in_ev)
+        layer_ev = shard_lib.allgather_hosts(layer_ev)
+        stats = [
+            {
+                "input_events_per_step": in_ev[i],
+                "layer_events_per_step": [layer_ev[i, li] for li in range(layer_ev.shape[1])],
+            }
+            for i in range(len(padded))
+        ]
+    for c, s in zip(padded, stats):
+        stats_stash[c] = s
+    return np.asarray(accs)
 
 
 def _select_finalists(result, top_k: int) -> list[tuple]:

@@ -46,8 +46,9 @@ Every mode journals to ``--journal`` (default: a fresh temporary
 directory; ``--no-journal`` turns it off); work left outstanding there by a
 crashed run is recovered and re-served before the new workload.  SIGTERM or
 SIGINT stops admission and drains what is in flight; a second signal
-force-quits.  ``--data-parallel`` is accepted and clamps to one device, as
-the engine does.
+force-quits.  ``--data-parallel N`` shards the engine's lane pool across N
+cards (clamped to the cards there are, then to a divisor of
+``--max-batch``, as the JAX launcher does; one pool on a ``cpu`` engine).
 """
 
 from __future__ import annotations
@@ -382,7 +383,8 @@ def main(argv=None) -> None:
         "--data-parallel",
         type=int,
         default=None,
-        help="accepted for the JAX launcher's interface; the engine clamps it to one device",
+        help="shard the lane pool across this many cards "
+        "(clamped to what exists; must divide --max-batch)",
     )
     ap.add_argument(
         "--critical-frac",

@@ -2,8 +2,9 @@
 
 Port of ``repro/serve/faults.py`` (numpy only).  The one device-side
 difference: ``poison_carry`` adds its corruption to the lane pool's
-membrane tensor in place, on the pool's own device, where the JAX version
-returns a functionally updated pool.  ``FaultInjector.from_seed`` draws
+membrane tensor in place, on the pool's own device (the engine keeps one
+pool per shard), where the JAX version returns a functionally updated
+pool.  ``FaultInjector.from_seed`` draws
 from the same numpy stream, so a seed gives JAX's schedule.
 
 Crash-safety code is only as trustworthy as the crashes it has survived,
@@ -179,17 +180,22 @@ class FaultInjector:
         if spec is not None:
             raise InjectedFault(f"injected: tick failure (arrival {self.counts['tick'] - 1})")
 
-    def poison_carry(self, states: list, active: list[int]) -> tuple[list, int | None]:
+    def poison_carry(
+        self, pools: list, active: list[int], lanes_per_pool: int
+    ) -> tuple[list, int | None]:
         """Called after the tick's outputs were read: maybe corrupt one
         active lane's layer-0 membrane carry (add ``1 << bit`` in place,
         pushing it past the ``u_bits`` saturation range the validity
-        sweep checks).  Returns ``(states, poisoned_lane | None)``."""
+        sweep checks).  ``pools`` is the engine's list of per-shard lane
+        pools (one on an unsharded engine); slot ``s`` is lane ``s %
+        lanes_per_pool`` of pool ``s // lanes_per_pool``.  Returns
+        ``(pools, poisoned_lane | None)``."""
         spec = self._fire("carry")
         if spec is None or not active:
-            return states, None
+            return pools, None
         lane = spec.lane if spec.lane is not None and spec.lane in active else active[0]
-        states[0].u[lane] += 1 << spec.bit
-        return states, lane
+        pools[lane // lanes_per_pool][0].u[lane % lanes_per_pool] += 1 << spec.bit
+        return pools, lane
 
     # -- durability hooks ----------------------------------------------------
     def on_checkpoint_write(self) -> None:

@@ -37,8 +37,13 @@ a stream as a chain of chunk requests over persistent carries.
 Two device-side differences from the JAX engine: the carries of every lane
 that finishes in a tick come back in one gather and one copy
 (``lane_states_take``), and the validity sweep is one bounds check over the
-whole pool on the device that reads back one mask of bad slots.  The engine
-runs on one device: ``data_parallel`` clamps to 1.
+whole pool on the device that reads back one mask of bad slots.
+
+``data_parallel`` shards the lane pool across devices, as in JAX: one pool
+per shard, slot ``s`` on shard ``s // (max_batch // n_shards)`` (the index
+*is* the placement), and each tick advances every shard's pool on its own
+device through ``core/shard.py::wrap_lane_window``.  Carry copies, the
+validity sweep and fault injection route by slot.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import hw_model
+from repro_torch.core import shard as shard_lib
 from repro_torch.core.backend import (
     EventBackend,
     InferenceBackend,
@@ -66,7 +72,7 @@ from repro_torch.core.backend import (
 )
 from repro_torch.core.fixed_point import int_max, int_min
 from repro_torch.core.network import NetworkConfig, run_int
-from repro_torch.core.snn_layer import IntLayerParams
+from repro_torch.core.snn_layer import IntLayerParams, LayerState
 from repro_torch.kernels import build
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import PrecisionTier, Priority, SchedPolicy, Scheduler
@@ -280,8 +286,14 @@ class SNNServeEngine:
     sites of the tick loop.  Both default off and cost nothing when absent.
 
     ``device`` (default ``"cuda"``) holds the lane pool and the parameters
-    (moved there if they live elsewhere).  ``data_parallel`` is accepted for
-    API parity and clamps to one device.
+    (moved there if they live elsewhere).  ``data_parallel`` shards the lane
+    pool, with JAX's rules: a count that exists but does not divide
+    ``max_batch`` is refused; an over-ask clamps to the devices there are
+    (the CUDA cards for a ``cuda`` engine, one for a ``cpu`` engine), then
+    down to a divisor of ``max_batch``.  A
+    :class:`~repro_torch.core.shard.DeviceMesh` is taken as given (it may
+    name one device several times); its shard count must divide
+    ``max_batch``.  ``engine.data_parallel`` reports the shard count.
     """
 
     def __init__(
@@ -294,7 +306,7 @@ class SNNServeEngine:
         sparse_admission_threshold: float = 0.10,
         tick_stride: int | None = 32,
         report_design_point: bool = True,
-        data_parallel: int | None = None,
+        data_parallel: "int | shard_lib.DeviceMesh | None" = None,
         scheduler: "SchedPolicy | Scheduler | None" = None,
         precision_tiers: Sequence[PrecisionTier] = (),
         max_idle_ticks: int | None = 1000,
@@ -305,7 +317,7 @@ class SNNServeEngine:
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        if data_parallel is not None and data_parallel < 1:
+        if isinstance(data_parallel, int) and data_parallel < 1:
             raise ValueError(f"data_parallel must be >= 1 or None, got {data_parallel}")
         if tick_stride is not None and tick_stride < 1:
             raise ValueError(f"tick_stride must be >= 1 or None, got {tick_stride}")
@@ -345,11 +357,19 @@ class SNNServeEngine:
         # Slots the supervisor's validity sweep condemned: they hold no
         # lane, never admit, and only an engine restart reclaims them.
         self._quarantined: set[int] = set()
-        # one device: every lane lives on it (the JAX engine's one-device
-        # behaviour for any data_parallel)
-        self.data_parallel = 1
-
-        self._states = batched_lane_init(net, max_batch, device=self.device)
+        self._dmesh = self._lane_mesh(data_parallel)
+        devices = (self.device,) if self._dmesh is None else self._dmesh.devices
+        self.data_parallel = len(devices)
+        self._per_pool = max_batch // self.data_parallel
+        self._replicas = (
+            [self.qparams] if self._dmesh is None else shard_lib.replicate(self.qparams, self._dmesh)
+        )
+        self._pools = [batched_lane_init(net, self._per_pool, device=d) for d in devices]
+        self._window = (
+            None
+            if self._dmesh is None
+            else shard_lib.wrap_lane_window(self._shard_window, self._dmesh)
+        )
         self._lanes: list[_Lane | None] = [None] * max_batch
         self.n_ticks = 0  # chunk dispatches
         self.n_steps_run = 0  # simulated time steps advanced (sum of chunk lengths)
@@ -380,6 +400,62 @@ class SNNServeEngine:
                 l0.n_in, sparse_admission_threshold
             )
             self._sparse_val_max = bound // (int_max(l0.w_bits) * self._event_budget)
+
+    def _lane_mesh(self, data_parallel) -> "shard_lib.DeviceMesh | None":
+        """The lane pool's mesh (None: one pool on ``self.device``)."""
+        if isinstance(data_parallel, shard_lib.DeviceMesh):
+            n = data_parallel.n_shards
+            if self.max_batch % n:
+                raise ValueError(
+                    f"data_parallel={n} must divide max_batch={self.max_batch} "
+                    "(lanes are split evenly across devices)"
+                )
+            if any(d.type != self.device.type for d in data_parallel.devices):
+                raise ValueError(
+                    f"data_parallel mesh {data_parallel.devices} does not lie on the "
+                    f"engine's device type {self.device.type!r}"
+                )
+            return data_parallel if n > 1 else None
+        if data_parallel is None or data_parallel <= 1:
+            return None
+        n_avail = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        if data_parallel <= n_avail and self.max_batch % data_parallel:
+            # the requested count exists but cannot split the pool: that is
+            # a config error, not something to silently reshape
+            raise ValueError(
+                f"data_parallel={data_parallel} must divide max_batch="
+                f"{self.max_batch} (lanes are split evenly across devices)"
+            )
+        # over-asks clamp down -- to the device count if it divides, else to
+        # the largest usable shard count below it
+        n = min(data_parallel, n_avail)
+        while self.max_batch % n:
+            n -= 1
+        return shard_lib.make_mesh(n) if n > 1 else None
+
+    def _slot(self, slot: int) -> tuple[list, int]:
+        """The pool holding ``slot`` and the slot's lane in it."""
+        return self._pools[slot // self._per_pool], slot % self._per_pool
+
+    def _put(self, slot: int, carry) -> None:
+        pool, lane = self._slot(slot)
+        lane_state_put(pool, lane, carry)
+
+    def _take(self, slot: int) -> list:
+        pool, lane = self._slot(slot)
+        return lane_state_take(pool, lane)
+
+    def _take_many(self, slots: list[int]) -> list:
+        """:func:`lane_states_take` of ``slots``: one gather and one copy per
+        shard that holds any of them; snapshots in ``slots`` order."""
+        by_pool: dict[int, list[int]] = {}
+        for s in slots:
+            by_pool.setdefault(s // self._per_pool, []).append(s)
+        snaps = {}
+        for p, group in by_pool.items():
+            lanes = [s % self._per_pool for s in group]
+            snaps.update(zip(group, lane_states_take(self._pools[p], lanes)))
+        return [snaps[s] for s in slots]
 
     # -- introspection ------------------------------------------------------
     @property
@@ -554,7 +630,7 @@ class SNNServeEngine:
         if req._suspended is not None:
             lane, carry = req._suspended
             req._suspended = None
-            lane_state_put(self._states, slot, carry)
+            self._put(slot, carry)
             self._lanes[slot] = lane
             self.metrics.inc("resumed")
             return
@@ -570,7 +646,7 @@ class SNNServeEngine:
             # snapshot over whatever the slot last held (fresh=False keeps
             # the reset flag off); carry0 keeps it on the host so that a
             # quarantine restarts this chunk from its own seam
-            lane_state_put(self._states, slot, req._carry_in)
+            self._put(slot, req._carry_in)
             lane.fresh = False
             lane.carry0 = req._carry_in
             req._carry_in = None
@@ -601,7 +677,7 @@ class SNNServeEngine:
         self._lanes[slot] = None
         req = lane.req
         req.preemptions += 1
-        req._suspended = (lane, lane_state_take(self._states, slot))
+        req._suspended = (lane, self._take(slot))
         self.sched.requeue_front(req)
         self.metrics.inc("preempted")
 
@@ -654,11 +730,21 @@ class SNNServeEngine:
         return min(k, self._chunk_cap())
 
     def _advance(self, x: np.ndarray, meta: np.ndarray, ff_mode: str, budget) -> np.ndarray:
-        """One lane-window call on the device; returns the packed host copy."""
-        xt = torch.from_numpy(x).to(self.device)
-        mt = torch.from_numpy(meta).to(self.device)
-        packed = _lane_window_packed(self.net, self.qparams, self._states, xt, mt, ff_mode, budget)
+        """One lane-window call on every shard; returns the packed host copy."""
+        if self._dmesh is None:
+            xt = torch.from_numpy(x).to(self.device)
+            mt = torch.from_numpy(meta).to(self.device)
+            packed = _lane_window_packed(
+                self.net, self.qparams, self._pools[0], xt, mt, ff_mode, budget
+            )
+        else:
+            x, meta = torch.from_numpy(x), torch.from_numpy(meta)
+            _, packed = self._window(self._replicas, self._pools, x, meta, ff_mode, budget)
         return packed.cpu().numpy()
+
+    def _shard_window(self, qparams, pool, x, meta, ff_mode, budget):
+        """One shard's lane-window call (the pool advances in place)."""
+        return pool, _lane_window_packed(self.net, qparams, pool, x, meta, ff_mode, budget)
 
     def tick(self) -> list[SNNRequest]:
         """One chunked advance for every active lane; returns finished."""
@@ -732,7 +818,7 @@ class SNNServeEngine:
         # at its lane's boundary, so a snapshot now is the carry after the
         # request's last real step; every such carry comes back in one copy
         want = [i for i in ending if self._lanes[i].req._want_carry]
-        carries = dict(zip(want, lane_states_take(self._states, want)))
+        carries = dict(zip(want, self._take_many(want)))
         for i in ending:
             finished.append(self._complete_lane(i, now, carries.get(i)))
         if self.faults is not None:
@@ -740,7 +826,7 @@ class SNNServeEngine:
             # saturate ran (so the corruption survives until the validity
             # sweep, like a mid-window bit flip on real hardware)
             still = [i for i in active if self._lanes[i] is not None]
-            self.faults.poison_carry(self._states, still)
+            self.faults.poison_carry(self._pools, still, self._per_pool)
         return finished
 
     def _complete_lane(self, slot: int, now: float, carry_out=None) -> SNNRequest:
@@ -817,21 +903,24 @@ class SNNServeEngine:
         the lane's trajectory is no longer trustworthy.  Returns the active
         slots that fail, in slot order; the supervisor quarantines them.
 
-        One bounds check over the whole pool on the device and one copy of
-        the [max_batch] mask of bad slots (the JAX engine copies each active
+        One bounds check over each shard's pool on its device and one copy
+        of each shard's mask of bad slots (the JAX engine copies each active
         lane's carry to the host).  The pool is int32, so there is no
         finiteness to check.
         """
         active = [i for i, lane in enumerate(self._lanes) if lane is not None]
         if not active:
             return []
-        bad = torch.zeros(self.max_batch, dtype=torch.bool, device=self.device)
         out = lambda a, lo, hi: ((a < lo) | (a > hi)).any(dim=1)
-        for st, cfg in zip(self._states, self.net.layers):
-            bad |= out(st.u, int_min(cfg.u_bits), int_max(cfg.u_bits))
-            bad |= out(st.i_syn, int_min(cfg.i_bits), int_max(cfg.i_bits))
-            bad |= out(st.prev_spk, 0, 1)
-        mask = bad.cpu().numpy()
+        masks = []
+        for pool in self._pools:
+            bad = torch.zeros(self._per_pool, dtype=torch.bool, device=pool[0].u.device)
+            for st, cfg in zip(pool, self.net.layers):
+                bad |= out(st.u, int_min(cfg.u_bits), int_max(cfg.u_bits))
+                bad |= out(st.i_syn, int_min(cfg.i_bits), int_max(cfg.i_bits))
+                bad |= out(st.prev_spk, 0, 1)
+            masks.append(bad.cpu().numpy())
+        mask = np.concatenate(masks)
         return [i for i in active if mask[i]]
 
     def quarantine_lane(self, slot: int) -> SNNRequest | None:
@@ -895,10 +984,11 @@ class SNNServeEngine:
                 if kk == cap or k >= T:
                     break
                 k <<= 1
-        # zero-validity chunks froze every carry, but reset the pool anyway
-        for st in self._states:
-            for a in st:
-                a.zero_()
+        # zero-validity chunks froze every carry, but reset the pools anyway
+        for pool in self._pools:
+            for st in pool:
+                for a in st:
+                    a.zero_()
         if self.event_backend is not None and self._event_budget is None:
             self._serve_event(SNNRequest(uid=-1, raster=np.zeros((T, self.net.n_in), np.uint8)))
         for tier in self.tiers:

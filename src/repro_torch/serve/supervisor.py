@@ -2,7 +2,7 @@
 
 Port of ``repro/serve/supervisor.py`` (host Python, unchanged in policy).
 On a device a restart builds a fresh lane pool: the dead engine's pool is
-released (its ``_states`` dropped), and whatever is salvaged from it
+released (its ``_pools`` dropped), and whatever is salvaged from it
 crosses only through host snapshots -- preemption snapshots, chunk-start
 carries (``_Lane.carry0``), the journal and the checkpoints.
 
@@ -132,7 +132,7 @@ class SupervisedEngine:
         self._wire(new)
         self.engine = new
         if new is not old:
-            old._states = None
+            old._pools = None
 
     # -- passthroughs --------------------------------------------------------
     @property

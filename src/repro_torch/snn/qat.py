@@ -47,6 +47,7 @@ import torch
 
 from repro_torch._device import full_f32_matmul
 from repro_torch.core import coeff_gen
+from repro_torch.core import shard as shard_lib
 from repro_torch.core.backend import SimRecord, check_population_structure
 from repro_torch.core.fixed_point import int_max, saturate
 from repro_torch.core.network import NetworkConfig, layer_scale, quantize_params
@@ -445,21 +446,38 @@ def refine_candidates(
     bit-exact quantized path (``eval_int_population``), once per epoch and
     once before the first, and each candidate keeps its best checkpoint --
     refinement can reorder but never lose accuracy against post-training
-    quantization on the scoring set.  ``mesh`` must be None: multi-device
-    fan-out waits for a later slice.
+    quantization on the scoring set.
+
+    ``mesh`` (``None`` | ``"auto"`` | int | ``repro_torch.core.shard.
+    DeviceMesh``) splits the candidate axis across the mesh's devices, as
+    JAX's ``shard_map`` of the vmapped step does: the candidates are
+    edge-padded to the shard multiple, each shard takes its slice's train
+    steps (its own optimizer state) on its device, and scoring sweeps the
+    unpadded candidates over the same mesh.  A candidate's gradient is its
+    own loss's, so sharding changes no candidate's arithmetic except where a
+    float product's summation order depends on how many candidates it
+    batches; scores are unaffected (they come from the int32 evaluator).
     """
     # Lazy import: repro_torch.snn.train imports this module.
     from repro_torch.snn.train import _float_batch, _layers, _leaves, eval_int_population
 
-    if mesh is not None:
-        raise NotImplementedError("refine_candidates: mesh sharding is not ported yet (mesh=None)")
     candidates = list(candidates)
     check_population_structure(net, candidates)
     n_cand = len(candidates)
     dev = float_params[0].w_ff.device
+    dmesh = shard_lib.resolve_mesh(mesh)
+    sharded = dmesh is not None and dmesh.n_shards > 1
+    n_shards = dmesh.n_shards if sharded else 1
+    padded_n = -(-n_cand // n_shards) * n_shards
+    padded = candidates + [candidates[-1]] * (padded_n - n_cand)
 
-    grid = candidate_grid(candidates, dev)
-    stacked = [torch.stack([t] * n_cand) for t in _leaves(float_params)]
+    grid = candidate_grid(padded, dev)
+    stacked = [torch.stack([t] * padded_n) for t in _leaves(float_params)]
+    if sharded:  # one slice of the candidate axis per shard, on its device
+        cut = lambda ts: [list(p) for p in zip(*(shard_lib.split(t, dmesh, 0) for t in ts))]
+        shards, grids, devices = cut(stacked), [tuple(g) for g in cut(grid)], dmesh.devices
+    else:
+        shards, grids, devices = [stacked], [grid], (dev,)
 
     spike_fn = fast_sigmoid(surrogate_slope)
     n_train = len(train_ds.labels)
@@ -468,7 +486,16 @@ def refine_candidates(
     optimizer = opt_lib.adamw(
         opt_lib.linear_warmup_cosine(lr, steps_per_epoch, max(1, epochs) * steps_per_epoch)
     )
-    opt_state = optimizer.init(stacked)
+    opt_states = [optimizer.init(s) for s in shards]
+
+    def gathered(shards):
+        """The unpadded candidates' stacked leaves on the parameters' device."""
+        if not sharded:
+            return shards[0]
+        return [
+            shard_lib.join([s[j] for s in shards], dmesh, 0)[:n_cand].to(dev)
+            for j in range(len(shards[0]))
+        ]
 
     def candidate(leaves, k):
         return _layers([t[k] for t in leaves])
@@ -479,12 +506,14 @@ def refine_candidates(
             quantize_params(c, candidate(leaves, k))[0] for k, c in enumerate(candidates)
         ]
         return np.asarray(
-            eval_int_population(net, candidates, qparams_list, eval_ds, batch_size=eval_batch)
+            eval_int_population(
+                net, candidates, qparams_list, eval_ds, batch_size=eval_batch, mesh=dmesh
+            )
         )
 
-    base_acc = score(stacked)
+    best = gathered(shards)
+    base_acc = score(best)
     best_acc = base_acc.copy()
-    best = stacked
     history = [{"epoch": -1, "acc": base_acc.tolist()}]
 
     rng = np.random.default_rng(seed)
@@ -492,17 +521,21 @@ def refine_candidates(
         for epoch in range(epochs):
             for spikes, labels in train_ds.batches(eff_batch, rng):
                 x, y = _float_batch(spikes, labels, dev)
-                stacked, opt_state, _, _ = refine_step(
-                    net, optimizer, stacked, opt_state, grid, x, y, spike_fn, rate_reg
-                )
-            accs = score(stacked)
+                batch = {d: (x.to(d), y.to(d)) for d in dict.fromkeys(devices)}
+                for i, d in enumerate(devices):
+                    shards[i], opt_states[i], _, _ = refine_step(
+                        net, optimizer, shards[i], opt_states[i], grids[i], *batch[d],
+                        spike_fn, rate_reg,
+                    )
+            leaves = gathered(shards)
+            accs = score(leaves)
             history.append({"epoch": epoch, "acc": accs.tolist()})
             improved = accs > best_acc
             if improved.any():
                 mask = torch.from_numpy(improved).to(dev)
                 best = [
                     torch.where(mask.reshape((-1,) + (1,) * (h.dim() - 1)), h, b)
-                    for b, h in zip(best, stacked)
+                    for b, h in zip(best, leaves)
                 ]
                 best_acc = np.where(improved, accs, best_acc)
 

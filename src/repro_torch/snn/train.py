@@ -26,8 +26,9 @@ import torch
 
 from repro_torch._device import full_f32_matmul, resolve_device
 from repro_torch.core import backend as backend_lib
+from repro_torch.core import shard as shard_lib
 from repro_torch.core.backend import _batch_mean
-from repro_torch.core.network import NetworkConfig, init_float_params, run_float, run_int
+from repro_torch.core.network import NetworkConfig, init_float_params, run_float
 from repro_torch.core.snn_layer import FloatLayerParams
 from repro_torch.data.snn_datasets import SpikeDataset, raster_tensor
 from repro_torch.snn import qat as qat_lib
@@ -229,17 +230,23 @@ def eval_float(
     backend="reference",
     mesh=None,
 ) -> float:
-    """Accuracy of the float model on the parameters' device.  ``mesh`` must
-    be None: multi-device evaluation waits for a later slice."""
-    if mesh is not None:
-        raise NotImplementedError("eval_float: mesh sharding is not ported yet (mesh=None)")
+    """Accuracy of the float model on the parameters' device.
+
+    ``mesh`` (``None`` | ``"auto"`` | int | ``repro_torch.core.shard.
+    DeviceMesh``) spreads each batch's sample axis across the mesh's devices
+    (``shard.run_float_sharded``).  A float product over a shard's rows may
+    round differently from one over the whole batch, so a spike threshold
+    can flip on one ulp and the accuracy move by a sample.
+    """
     spike_fn = fast_sigmoid(surrogate_slope)
+    dmesh = shard_lib.resolve_mesh(mesh)
     device = params[0].w_ff.device
     correct = total = 0
     with torch.no_grad(), full_f32_matmul():
         for spikes, labels in ds.batches(batch_size):
             x = raster_tensor(spikes, device).to(torch.float32)
-            preds = run_float(net, params, x, spike_fn, backend=backend).predictions()
+            rec = shard_lib.run_float_sharded(net, params, x, spike_fn, dmesh, backend=backend)
+            preds = rec.predictions()
             correct += int((preds.cpu().numpy() == labels).sum())
             total += len(labels)
     return correct / max(1, total)
@@ -259,19 +266,26 @@ def eval_int(
     With ``return_stats``, also returns per-layer mean events per step and
     input events per step (the latency/energy model inputs, see
     ``hw_model.EventTraffic``).  Every registered backend is bit-exact, so
-    ``backend`` is a speed knob, not an accuracy knob.  ``mesh`` must be
-    None: multi-device evaluation waits for a later slice.
+    ``backend`` is a speed knob, not an accuracy knob.
+
+    ``mesh`` (``None`` | ``"auto"`` | int | ``repro_torch.core.shard.
+    DeviceMesh``) spreads each batch's sample axis across the mesh's devices
+    -- bit-exact with the serial path (see ``repro_torch.core.shard``); the
+    statistics are taken over the reassembled batch, as the serial path
+    takes them.  ``backend="event"`` shards through its fixed-capacity
+    surrogate; an explicit ``EventBackend("csr")`` warns and runs serially.
     """
-    if mesh is not None:
-        raise NotImplementedError("eval_int: mesh sharding is not ported yet (mesh=None)")
     resolved = backend_lib.get_backend(backend)
+    dmesh = shard_lib.resolve_mesh(mesh)
     device = qparams[0].w_ff.device
 
     correct = total = 0
     layer_ev = None
     in_ev = None
     for spikes, labels in ds.batches(batch_size):
-        rec = run_int(net, qparams, raster_tensor(spikes, device), backend=resolved)
+        rec = shard_lib.run_int_sharded(
+            net, qparams, raster_tensor(spikes, device), dmesh, backend=resolved
+        )
         stats = rec.event_stats()
         correct += int((rec.predictions().cpu().numpy() == labels).sum())
         n = len(labels)
@@ -290,12 +304,13 @@ def eval_int(
     return acc, {"input_events_per_step": np.asarray(in_ev), "layer_events_per_step": layer_ev}
 
 
-def _population_fwd(net, stacked_qparams, beta_regs, alpha_regs, spikes):
-    """One data batch of the sweep: [P, batch] predictions, [P, T, L]
-    batch-mean emitted events and [T] batch-mean input events (numpy
-    float32, as JAX's ``jnp.mean`` computes them: ``sum * fl32(1/batch)``)."""
-    counts, emitted = backend_lib.run_int_population(
-        net, stacked_qparams, beta_regs, alpha_regs, spikes, return_events=True
+def _population_fwd(net, stacked_qparams, beta_regs, alpha_regs, spikes, dmesh=None):
+    """One data batch of the sweep (its candidate axis across ``dmesh``):
+    [P, batch] predictions, [P, T, L] batch-mean emitted events and [T]
+    batch-mean input events (numpy float32, as JAX's ``jnp.mean`` computes
+    them: ``sum * fl32(1/batch)``)."""
+    counts, emitted = shard_lib.run_int_population_sharded(
+        net, stacked_qparams, beta_regs, alpha_regs, spikes, dmesh, return_events=True
     )
     P, T, L, B = emitted.shape
     evs = _batch_mean(emitted.reshape(P * T * L, B)).reshape(P, T, L)
@@ -324,14 +339,15 @@ def eval_int_population(
     per-candidate event-traffic dict of the same shape as ``eval_int(...,
     return_stats=True)`` (numpy float32, bit-identical to JAX's sweep) --
     each candidate quantizes differently and therefore spikes differently,
-    which is what the event-aware DSE cost needs to see.  ``mesh`` must be
-    None: multi-device sweeps wait for a later slice.
+    which is what the event-aware DSE cost needs to see.
+
+    ``mesh`` spreads the *candidate* axis across devices (the DSE fan-out):
+    each shard sweeps its slice of the population, so per-candidate results
+    stay bit-exact with the one-device sweep and with serial
+    :func:`eval_int` (see ``repro_torch.core.shard``).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "eval_int_population: mesh sharding is not ported yet (mesh=None)"
-        )
     backend_lib.check_population_structure(net, candidate_nets)
+    dmesh = shard_lib.resolve_mesh(mesh)
     stacked, beta_regs, alpha_regs = backend_lib.stack_population(candidate_nets, qparams_list)
     device = beta_regs.device
 
@@ -342,7 +358,7 @@ def eval_int_population(
     in_ev = None  # [T]
     for spikes, labels in ds.batches(batch_size):
         preds, evs, iev = _population_fwd(
-            net, stacked, beta_regs, alpha_regs, raster_tensor(spikes, device)
+            net, stacked, beta_regs, alpha_regs, raster_tensor(spikes, device), dmesh
         )
         correct += (preds == labels[None, :]).sum(axis=1)
         n = len(labels)

@@ -18,6 +18,7 @@ from repro.data import snn_datasets as jds
 from repro.snn import train as jtrain
 from repro_torch.core import backend as tbe
 from repro_torch.core import network as tnet
+from repro_torch.core import shard
 from repro_torch.core import snn_layer as tsl
 from repro_torch.data import snn_datasets as tds
 from repro_torch.snn import train as ttrain
@@ -187,8 +188,9 @@ def test_run_int_batched_ragged_matches_jax_and_serial(topology, neuron):
         assert torch.equal(got.spike_counts[b], serial.spike_counts[0])
     full = tbe.run_int_batched(tn, tq, x)
     _assert_record(full, jbe.run_int_batched(jn, jq, x))
-    with pytest.raises(NotImplementedError):
-        tbe.run_int_batched(tn, tq, x, mesh=2)
+    # mesh= shards the sample axis: 4 shards on the CPU give the same record
+    mesh = shard.make_mesh(4, devices=["cpu"] * 4)
+    _assert_record(tbe.run_int_batched(tn, tq, x, lengths, mesh=mesh), want)
 
 
 @pytest.mark.parametrize(

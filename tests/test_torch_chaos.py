@@ -135,7 +135,7 @@ def test_persistent_tick_failures_escalate_to_warm_restart():
     assert sup.metrics.counters["recoveries_warm"] >= 1
     assert sup.status()["last_recovery"]["kind"] == "warm"
     # the restart built a fresh pool and released the dead engine's
-    assert sup.engine is not first and first._states is None
+    assert sup.engine is not first and first._pools is None
 
 
 def test_slow_tick_stall_is_counted_without_any_failure():
@@ -374,7 +374,7 @@ def test_poison_and_sweep_condemn_the_slot_jax_condemns():
             e.submit(mk(uid=i, raster=r))
         e.poll()
         assert e.sweep_carries() == [2]
-    for a, b in zip(te._states, je._states):
+    for a, b in zip(te._pools[0], je._states):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x.numpy(), np.asarray(y))
     assert te.quarantine_lane(2).uid == je.quarantine_lane(2).uid == 2

@@ -795,3 +795,114 @@ def test_one_train_step_on_the_card_matches_the_cpu(cuda, qat):
                 assert float((x.cpu() - y).abs().max()) <= 2e-3
     with pytest.raises(ValueError, match="init_params are on cpu"):
         ttrain.train_snn(net, ds, init_params=params, **kw)
+
+
+def _card_mesh(cuda, n=4):
+    from repro_torch.core import shard
+
+    return shard.make_mesh(n, devices=[torch.device("cuda", 0)] * n)
+
+
+def _launches():
+    return {"spike_matmul": spike_matmul.launches, "lif_scan": lif_scan.launches,
+            "sparse_accum": sparse_accum.launches}
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _launches().items()}
+
+
+@pytest.mark.parametrize("backend", ["fused", "event"])
+def test_sharded_eval_int_on_the_card_matches_serial(cuda, backend):
+    """Four shards on one card (the strided sample-axis slices must reach
+    the kernels contiguous): accuracy and statistics equal the serial run,
+    and a batch that divides launches each kernel n_shards times the serial
+    run's at the shard's size."""
+    from repro_torch.core import shard
+    from repro_torch.data import snn_datasets as tds
+    from repro_torch.snn import train as ttrain
+
+    net = _net()
+    params = tnet.init_float_params(torch.Generator().manual_seed(5), net, device="cpu")
+    qp = [tsl.IntLayerParams(*(a.to(cuda) for a in p)) for p in tnet.quantize_params(net, params)[0]]
+    ds = tds.mnist_like(n=50, T=10, seed=6, max_rate=0.15)
+    ds.spikes = ds.spikes[:, :, :64]
+    mesh = _card_mesh(cuda)
+    resolved = tbe.get_backend(backend)
+    want = ttrain.eval_int(net, qp, ds, batch_size=24, return_stats=True, backend=resolved)
+    got = ttrain.eval_int(net, qp, ds, batch_size=24, return_stats=True, backend=resolved, mesh=mesh)
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(got[1]["input_events_per_step"], want[1]["input_events_per_step"])
+    for a, b in zip(got[1]["layer_events_per_step"], want[1]["layer_events_per_step"]):
+        np.testing.assert_array_equal(a, b)
+    x = torch.from_numpy(ds.spikes[:24].transpose(1, 0, 2).astype(np.int32)).to(cuda)
+    surrogate = resolved.jit_surrogate(net, x) or resolved
+    before = _launches()
+    rec = shard.run_int_sharded(net, qp, x, mesh, backend=resolved)
+    torch.cuda.synchronize()
+    sharded = _delta(before)
+    before = _launches()
+    serial = surrogate.run_int(net, qp, x[:, :6].contiguous())
+    torch.cuda.synchronize()
+    one = _delta(before)
+    assert sharded == {k: 4 * v for k, v in one.items()} and sum(one.values()) > 0
+    assert torch.equal(rec.spike_counts[:6], serial.spike_counts)
+
+
+def test_sharded_sweep_on_the_card_matches_serial(cuda):
+    """Five candidates on four shards of one card: edge-padded (theta and
+    registers too, which lif_scan reads on the device), sliced back, equal
+    to the one-device sweep; n_shards x its launches at P = 2."""
+    from repro_torch.core import shard
+
+    net = _net()
+    params = tnet.init_float_params(torch.Generator().manual_seed(3), net, device="cpu")
+    cands = [net.replace_precisions(w_bits=w, leak_bits=l)
+             for w, l in [(2, 1), (6, 3), (8, 8), (16, 5), (12, 2)]]
+    qs = [[tsl.IntLayerParams(*(a.to(cuda) for a in p)) for p in tnet.quantize_params(c, params)[0]]
+          for c in cands]
+    stacked, b, a = tbe.stack_population(cands, qs)
+    x = torch.from_numpy(_raster(10 * 20, 64, seed=9).reshape(10, 20, 64)).to(cuda)
+    want = tbe.run_int_population(net, stacked, b, a, x, return_events=True)
+    before = _launches()
+    got = shard.run_int_population_sharded(net, stacked, b, a, x, _card_mesh(cuda), return_events=True)
+    torch.cuda.synchronize()
+    sharded = _delta(before)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    two = [[t[:2] for t in p] for p in stacked]
+    before = _launches()
+    tbe.run_int_population(net, [tsl.IntLayerParams(*p) for p in two], b[:2], a[:2], x)
+    torch.cuda.synchronize()
+    one = _delta(before)
+    assert sharded == {k: 4 * v for k, v in one.items()} and one["lif_scan"] > 0
+
+
+def test_sharded_engine_on_the_card_matches_serial(cuda):
+    """A four-shard lane pool on one card serves every request equal to a
+    serial run_int.  Admission and each tick's route are global decisions,
+    so it runs the unsharded engine's ticks, and every tick that launches a
+    kernel launches it on every shard: four times the unsharded launches."""
+    net = _net()
+    params = tnet.init_float_params(torch.Generator().manual_seed(2), net, device="cpu")
+    qp = [tsl.IntLayerParams(*(a.to(cuda) for a in p)) for p in tnet.quantize_params(net, params)[0]]
+    rng = np.random.default_rng(1)
+    rasters = [(rng.random((int(rng.integers(3, 11)), 64)) < r).astype(np.uint8)
+               for r in [0.03] * 8 + [0.3] * 8]
+    # values above the f32 certificate (2**24 / (31 * 64) for w6): an int32 tick
+    rasters += [np.where(rng.random((6, 64)) < 0.3, 20000, 0).astype(np.int32)]
+    runs = {}
+    for dp in (None, _card_mesh(cuda)):
+        eng = SNNServeEngine(net, qp, max_batch=8, data_parallel=dp, device=cuda,
+                             backend=tbe.EventBackend("pallas"))
+        before = _launches()
+        done = eng.run([SNNRequest(uid=i, raster=r) for i, r in enumerate(rasters)])
+        torch.cuda.synchronize()
+        ticks = {k: v for k, v in eng.metrics.counters.items() if k.startswith("tick:")}
+        runs[eng.data_parallel] = (_delta(before), ticks, {r.uid: r.spike_counts for r in done})
+    (one, ticks1, res1), (four, ticks4, res4) = runs[1], runs[4]
+    assert ticks4 == ticks1 and ticks1.get("tick:sparse") and ticks1.get("tick:int32")
+    assert four == {k: 4 * v for k, v in one.items()} and one["spike_matmul"] > 0
+    for uid, r in enumerate(rasters):
+        x = torch.from_numpy(r.astype(np.int32)[:, None, :]).to(cuda)
+        want = tnet.run_int(net, qp, x).spike_counts[0].cpu().numpy()
+        assert np.array_equal(res4[uid], want) and np.array_equal(res1[uid], want)

@@ -26,6 +26,7 @@ from repro.core import snn_layer as jsl
 from repro.data.snn_datasets import mnist_like
 from repro_torch.checkpoint.checkpointer import CheckpointCorruptError, Checkpointer, latest_step
 from repro_torch.core import network as tnet
+from repro_torch.core import shard
 from repro_torch.core import snn_layer as tsl
 from repro_torch.core.flexplorer import annealer as tann
 from repro_torch.core.flexplorer import cost as tcost
@@ -233,21 +234,28 @@ def test_legacy_kwargs_shim_warns_once_and_matches(tiny):
         texp.explore_snn(tn, tp, tds_, annealing_config=None)
 
 
-@pytest.mark.parametrize(
-    "kw,exc,what",
-    [
-        (dict(evaluate=texp.EvalSpec(mesh=2)), NotImplementedError, "multi-device"),
-        (dict(evaluate=texp.EvalSpec(mesh="auto")), NotImplementedError, "multi-device"),
-        # the refine phase is ported: without its training data it raises
-        # JAX's ValueError
-        (dict(refine=texp.RefineSpec(top_k=2)), ValueError, "refine_train_ds"),
-    ],
-    ids=["mesh-2", "mesh-auto", "refine"],
-)
-def test_unported_phases_raise(tiny, kw, exc, what):
+@pytest.mark.parametrize("case", ["mesh-2", "mesh-auto", "refine"])
+def test_unported_phases_raise(tiny, case):
+    """The phases the port once refused.  ``evaluate.mesh`` is ported: a
+    count beyond the devices there are raises JAX's ``make_mesh`` error, and
+    ``"auto"`` runs (on a host with one device, the serial search verbatim:
+    the same ``to_json()`` as ``mesh=None``).  The refine phase is ported:
+    without its training data it raises JAX's ValueError."""
     _, (tn, tp, tds_) = tiny
-    with pytest.raises(exc, match=what):
-        texp.explore_snn(tn, tp, tds_, **kw)
+    if case == "mesh-2":
+        with pytest.raises(ValueError, match="exceeds"):
+            texp.explore_snn(tn, tp, tds_, evaluate=texp.EvalSpec(mesh=shard.make_mesh().n_shards + 1))
+    elif case == "mesh-auto":
+        space = texp.SNNSearchSpace(ff_bits=(4, 6), leak_bits=(3, 8))
+        cfg = TS.AnnealConfig(t_start=1.0, t_min=0.3, alpha=0.5, seed=0)
+        spec = texp.SearchSpec(space=space, config=cfg, population=2)
+        auto = texp.explore_snn(tn, tp, tds_, search=spec, evaluate=texp.EvalSpec(batch=32, mesh="auto"))
+        plain = texp.explore_snn(tn, tp, tds_, search=spec, evaluate=texp.EvalSpec(batch=32))
+        if shard.make_mesh().n_shards == 1:
+            assert json.dumps(auto.to_json(), sort_keys=True) == json.dumps(plain.to_json(), sort_keys=True)
+    else:
+        with pytest.raises(ValueError, match="refine_train_ds"):
+            texp.explore_snn(tn, tp, tds_, refine=texp.RefineSpec(top_k=2))
 
 
 def test_population_backend_warning(tiny):

@@ -23,6 +23,7 @@ from repro.data import snn_datasets as jds
 from repro.snn import train as jtrain
 from repro_torch.core import backend as tbe
 from repro_torch.core import network as tnet
+from repro_torch.core import shard
 from repro_torch.core import snn_layer as tsl
 from repro_torch.data import snn_datasets as tds
 from repro_torch.kernels.lif_scan.lif_scan import lif_scan
@@ -252,5 +253,11 @@ def test_eval_int_population_refuses_a_mesh():
     jn, tn = _nets("lif", "ff", "subtract")
     _, (tnets, tqs) = _population(jn, tn, candidates=CANDIDATES[:2])
     _, tds_ = _dataset(24, 4, n=4)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttrain.eval_int_population(tn, tnets, tqs, tds_, mesh=2)
+    # a mesh is taken now: an over-ask is refused as JAX's make_mesh refuses
+    # it, and 2 shards on the CPU give the one-device sweep's accuracies
+    with pytest.raises(ValueError, match="exceeds"):
+        ttrain.eval_int_population(tn, tnets, tqs, tds_, mesh=shard.make_mesh().n_shards + 1)
+    np.testing.assert_array_equal(
+        ttrain.eval_int_population(tn, tnets, tqs, tds_, mesh=shard.make_mesh(2, devices=["cpu"] * 2)),
+        ttrain.eval_int_population(tn, tnets, tqs, tds_),
+    )

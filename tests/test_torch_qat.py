@@ -31,6 +31,7 @@ from repro.snn import qat as jqat
 from repro.snn import surrogate as jsur
 from repro.snn import train as jtrain
 from repro_torch.core import network as tnet
+from repro_torch.core import shard
 from repro_torch.core import snn_layer as tsl
 from repro_torch.core.flexplorer import cost as tcost
 from repro_torch.core.flexplorer import explorer as texp
@@ -247,8 +248,10 @@ def test_refine_candidates_matches_jax(tiny_trained):
         qp, _ = tnet.quantize_params(cand, tr.params[k])
         assert ttrain.eval_int(cand, qp, tte, batch_size=128) == tr.best_acc[k]
         _close(tr.params[k], jr.params[k], 1e-3)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tqat.refine_candidates(tn, _candidates(tn), tp, ttr, tte, mesh=2)
+    # a mesh is taken now (tests/test_torch_shard.py runs it): an over-ask
+    # is refused before any training, as JAX's make_mesh refuses it
+    with pytest.raises(ValueError, match="exceeds"):
+        tqat.refine_candidates(tn, _candidates(tn), tp, ttr, tte, mesh=shard.make_mesh().n_shards + 1)
 
 
 def test_refine_step_equals_serial_steps(tiny_trained):

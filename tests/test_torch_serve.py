@@ -278,7 +278,7 @@ def test_warmup_leaves_engine_clean_and_serves():
     engine.warmup(include_int32=True)
     assert not engine.in_flight and engine.n_served == 0
     assert engine.metrics.snapshot()["ticks"] == 0
-    for st in engine._states:
+    for st in engine._pools[0]:
         assert all(not a.any() for a in st)
     (req,) = engine.run([SNNRequest(uid=0, raster=_rasters(24, [9])[0])])
     p.assert_matches_serial(req)

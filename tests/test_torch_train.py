@@ -26,6 +26,7 @@ from repro.snn import surrogate as jsur
 from repro.snn import train as jtrain
 from repro.train import optimizer as jopt
 from repro_torch.core import network as tnet
+from repro_torch.core import shard
 from repro_torch.core import snn_layer as tsl
 from repro_torch.data import snn_datasets as tds
 from repro_torch.snn import surrogate as tsur
@@ -258,8 +259,12 @@ def test_eval_float_matches_jax(trained):
     tp = _carry(tn, jres.params)
     want = jtrain.eval_float(jn, jres.params, jte, batch_size=16)
     assert ttrain.eval_float(tn, tp, tte, batch_size=16) == want
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttrain.eval_float(tn, tp, tte, mesh=2)
+    # a mesh is taken now: an over-ask is refused as JAX's make_mesh refuses
+    # it, and 3 shards on the CPU give the serial accuracy
+    with pytest.raises(ValueError, match="exceeds"):
+        ttrain.eval_float(tn, tp, tte, mesh=shard.make_mesh().n_shards + 1)
+    mesh = shard.make_mesh(3, devices=["cpu"] * 3)
+    assert ttrain.eval_float(tn, tp, tte, batch_size=16, mesh=mesh) == want
 
 
 def test_train_snn_device_rules():
