@@ -104,10 +104,25 @@ result line):
    x the unsharded engine's on the same ticks; the sharded and serial
    walls of the ``eval_int`` batch, the P = 512 sweep and the served burst
    are printed beside the card's name and power limit;
-13. a ``kernels`` JSON line (launches on phases 3-7 and 9-12, times,
+13. LM training through the production loop: one train step
+   (``build_train_step``, launch/train.py's seq 256 x batch 8, the loop's
+   AdamW schedule, ``remat="block"``) of full-width stablelm-1.6b and
+   granite-moe-1b-a400m, 2 warm-up and 5 timed steps (ms a step, tokens/s,
+   model-FLOPs share of the bf16 peak, peak memory, device-busy share and
+   top device items beside the card's name and power limit; the loss
+   finite and falling; no kernel launched, as JAX trains through none);
+   granite's layer-0 routing card == CPU; ``TrainLoop`` at
+   examples/lm_train_100m.py's ~100 M config for 60 steps with a
+   checkpoint every 20 and a failure injected at 30 (one failure, restored
+   at 20, the loss fallen), then a second ``run`` that resumes from LATEST;
+   one reduced-config step card vs CPU at f32 compute (stablelm, qwen2-moe)
+   stage by stage within 1e-5; ``ServeEngine`` on int8 granite-moe at full
+   width (8 requests), every ``quant_matmul`` launch equal to its plain
+   version;
+14. a ``kernels`` JSON line (launches on phases 3-7 and 9-13, times,
    bounds); phases 3-5 and 9-12 also print the SNN kernels' launches by
    size;
-14. the result line.
+15. the result line.
 """
 
 from __future__ import annotations
@@ -119,6 +134,7 @@ import dataclasses
 import io
 import itertools
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -179,6 +195,7 @@ from repro_torch.core.snn_layer import (  # noqa: E402
     Topology,
 )
 from repro_torch.data.snn_datasets import SpikeDataset, mnist_like, raster_tensor  # noqa: E402
+from repro_torch.data.tokens import SyntheticTokens  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attend  # noqa: E402
@@ -197,11 +214,13 @@ from repro_torch.kernels.sparse_accum.ref import sparse_accum_ref  # noqa: E402
 from repro_torch.kernels.sparse_accum.sparse_accum import sparse_accum  # noqa: E402
 from repro_torch.launch import serve_snn  # noqa: E402
 from repro_torch.launch.serve import QUANT_RULES  # noqa: E402
+from repro_torch.launch.steps import build_train_step  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import mlp as mlp_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import AttnMask, attend  # noqa: E402
-from repro_torch.models.common import tree_leaves  # noqa: E402
-from repro_torch.models.registry import get_arch  # noqa: E402
+from repro_torch.models.common import rms_norm, tree_leaves, tree_unflatten  # noqa: E402
+from repro_torch.models.registry import ShapeSpec, get_arch  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.faults import FaultInjector  # noqa: E402
 from repro_torch.serve.http import SNNHttpServer  # noqa: E402
@@ -223,6 +242,7 @@ from repro_torch.snn.qat import (  # noqa: E402
 from repro_torch.snn.surrogate import fast_sigmoid  # noqa: E402
 from repro_torch.snn.train import eval_int, eval_int_population, train_snn  # noqa: E402
 from repro_torch.train import optimizer as opt_mod  # noqa: E402
+from repro_torch.train.loop import TrainLoop  # noqa: E402
 from repro_torch.train.optimizer import adamw, linear_warmup_cosine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper, dense, 700 W).
@@ -980,9 +1000,10 @@ def lm_requests(n: int, max_new: int, vocab: int) -> list[Request]:
     return [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
 
 
-def device_split(fn, n: int = 5) -> str:
+def device_split(fn, n: int = 5, top: int = 4, width: int = 40) -> str:
     """Wall vs device-busy time of ``n`` calls of ``fn`` under torch.profiler,
-    and the kernels that took the most device time."""
+    and the ``top`` kernels that took the most device time (names cut to
+    ``width`` characters)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -999,8 +1020,11 @@ def device_split(fn, n: int = 5) -> str:
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
     if not events:
         return f"wall {wall_ms:.3f} ms per call; device time not measured (the profiler saw none)"
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
-    names = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3 / n:.3f} ms" for e in top)
+    items = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    names = ", ".join(
+        f"{e.key[:width]} {e.self_device_time_total / 1e3 / n:.3f} ms ({e.count / n:g} launches)"
+        for e in items
+    )
     return (
         f"wall {wall_ms:.3f} ms per call (under the profiler), device busy {busy_ms:.3f} ms "
         f"({100 * (1 - busy_ms / wall_ms):.1f} % idle); top kernels per call: {names}"
@@ -1276,6 +1300,11 @@ DSE_WEIGHTS = dict(c_hw=0.4, c_acc=0.4, c_perf=0.2, c_lat=0.4, c_energy=0.4, c_b
 DSE_CKPT = ROOT / "build" / "dse_checkpoints"  # git-ignored, inside the checkout
 # the sweep's CUDA kernels, as torch.profiler names them
 SWEEP_KERNELS = {"spike_matmul": "spike_matmul_kernel", "lif_scan": "lif_scan_kernel"}
+# The profiler starts recording late after the step into its recorded
+# steps: launched at once, the first recorded sweep lost its first device
+# events (its layer-0 ``spike_matmul`` in 6 of 300 windows on an H100); after
+# a 20 ms wait no window of 300 lost any (scripts/profiler_window_check.py).
+PROFILER_SETTLE_S = 0.02
 
 
 class PlantedKill(Exception):
@@ -1364,7 +1393,8 @@ def dse_search(net, params, test, space, checkpoint_dir=None, refine=None, mesh=
 def sweep_profile(net, cands, qps, test, n: int = 3, cold_tries: int = 10) -> str:
     """``n`` ``eval_int_population`` calls under torch.profiler, after one
     warm-up sweep inside the profiler's window (its schedule's warm-up step:
-    the tracer is running but the sweep is not recorded): wall and device
+    the tracer is running but the sweep is not recorded) and a wait of
+    PROFILER_SETTLE_S for the recording to start: wall and device
     busy per call, and the launches of each sweep kernel as the profiler saw
     them, which must equal the wrappers' counts over the same calls.
     First, ``cold_tries`` fresh profilers, each around a single sweep with
@@ -1397,6 +1427,7 @@ def sweep_profile(net, cands, qps, test, n: int = 3, cold_tries: int = 10) -> st
         sweep()  # the warm-up step
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(PROFILER_SETTLE_S)
         before = kernels.launch_counts()
         t0 = time.perf_counter()
         for i in range(n):
@@ -2477,6 +2508,338 @@ def phase_shard_cards(net, qparams) -> None:
           f"{ms_serial:.3f} ms, {n} cards {ms_sharded:.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: LM training through the production loop
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("stablelm-1.6b", "granite-moe-1b-a400m")
+TRAIN_SEQ, TRAIN_BATCH = 256, 8  # launch/train.py's defaults
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+LOOP_DIR = ROOT / "build" / "phase13"  # the TrainLoop's checkpoints (git-ignored)
+# examples/lm_train_100m.py's ~100 M config of the stablelm family
+LM100M = dict(n_layers=12, d_model=512, n_heads=8, n_kv_heads=8, d_head=64, d_ff=1408, vocab=8192)
+LOOP_STEPS, LOOP_CKPT, LOOP_FAIL, LOOP_MORE = 60, 20, 30, 10
+MOE_QDOTS_PER_LAYER = 4  # wq wk wv wo; granite's experts are 4-D leaves and stay float
+
+
+def loop_optimizer():
+    """TrainLoop's optimizer: AdamW over ``linear_warmup_cosine(3e-4, 20, 10000)``."""
+    return adamw(linear_warmup_cosine(3e-4, 20, 10_000))
+
+
+def matmul_params(arch, cfg) -> float:
+    """The parameters one token multiplies by: every 2-D block weight, the
+    routed experts' at top_k / n_experts, the head (the tied embedding or
+    ``lm_head``); not norms, biases or the input embedding's lookup."""
+    n = 0.0
+    for path, spec in tree_leaves(arch.template(cfg)):
+        shape = spec.shape
+        if path == "embed":
+            n += math.prod(shape) if cfg.tie_embeddings else 0
+        elif path == "lm_head":
+            n += math.prod(shape)
+        elif path.startswith("blocks/") and len(shape) >= 3:
+            share = 1.0
+            if "/moe/w_" in path:
+                share = cfg.moe.top_k / cfg.moe.n_experts
+            n += math.prod(shape) * share
+    return n
+
+
+def model_flops_per_token(arch, cfg, seq: int) -> float:
+    """Model FLOPs of one token's forward and backward: 6 x ``matmul_params``
+    plus attention's scores and values, 12 x layers x seq x heads x d_head
+    (PaLM's model FLOPs; the causal half not taken off; remat's recompute
+    not counted)."""
+    return 6 * matmul_params(arch, cfg) + 12 * cfg.n_layers * seq * cfg.n_heads * cfg.d_head
+
+
+def route_card_vs_cpu(cfg, params, tokens) -> str:
+    """Layer 0's router on one chunk of the step's batch (the embedded tokens
+    after ``norm2``, f32 logits computed once on the CPU) routed on the card
+    and on the CPU: the same experts for every token whose k-th and
+    (k+1)-th probabilities differ by more than 1e-6 relative (float rounding
+    decides the rest), and rows of exact ties on the lower experts."""
+    moe = cfg.moe
+    blk = tree_map(lambda _, t: t[0], params["blocks"])["pos0"]
+    x = rms_norm(tfm._embed_tokens(cfg, params, tokens), blk["norm2"]).float().cpu()
+    logits = torch.einsum("bcd,de->bce", x, blk["moe"]["router"].float().cpu())
+    ties = torch.zeros(2, moe.n_experts)
+    ties[1, ::2] = 1.0  # 16 tied for 8 places
+    logits = torch.cat([logits.reshape(-1, moe.n_experts), ties])[None]
+    g_cpu, a_cpu = mlp_mod._route(moe, logits)
+    g_card, a_card = mlp_mod._route(moe, logits.to(DEVICE))
+    probs = torch.softmax(logits, dim=-1).sort(dim=-1, descending=True).values
+    gap = probs[..., moe.top_k - 1] - probs[..., moe.top_k]
+    decided = gap > 1e-6 * probs[..., moe.top_k - 1]
+    same = ((g_card.cpu() > 0) == (g_cpu > 0)).all(dim=-1)
+    check(bool(same[decided].all()), "MoE routing card vs CPU differs on a decided token")
+    picked = [(g_card[0, -i].cpu() > 0).nonzero()[:, 0].tolist() for i in (2, 1)]
+    check(picked == [list(range(moe.top_k)), list(range(0, 2 * moe.top_k, 2))],
+          f"MoE routing on the card breaks ties as {picked}")
+    check(abs(float(a_card) - float(a_cpu)) <= 1e-6 * abs(float(a_cpu)), "MoE aux card vs CPU")
+    n = same.numel() - 2
+    return (
+        f"layer-0 routing of {n} tokens (top {moe.top_k} of {moe.n_experts}) equal card vs CPU "
+        f"on {int(same[0, :n][decided[0, :n]].sum())} decided tokens, "
+        f"{n - int(decided[0, :n].sum())} within 1e-6 (equal: {int(same[0, :n].sum())} of {n}); "
+        f"exact-tie rows on experts 0..{moe.top_k - 1} and the {moe.top_k} lowest even ones"
+    )
+
+
+def fwd_bwd_share(arch, cfg, params, batch, timed: list[float]) -> str:
+    """Where a step's wall goes: the loss and its gradients alone (the
+    step's ``lm_loss`` and ``torch.autograd.grad``, best of 3), and the rest
+    of the step -- clipping and the AdamW update -- by difference."""
+    leaves = [t for _, t in tree_leaves(params)]
+    loss_fn = arch.loss_fn(cfg)
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diff = [t.detach().requires_grad_(True) for t in leaves]
+        loss, _ = loss_fn(tree_unflatten(params, diff), batch)
+        grads = torch.autograd.grad(loss, diff)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        del diff, loss, grads
+    fb, step_s = min(secs), min(timed)
+    return (
+        f"forward + backward alone {1e3 * fb:.3f} ms (best of 3); the fastest step "
+        f"{1e3 * step_s:.3f} ms, so clipping and the AdamW update take about "
+        f"{1e3 * (step_s - fb):.3f} ms ({100 * (step_s - fb) / step_s:.1f} % of the step)"
+    )
+
+
+def phase_lm_train_full(name: str, smi: str) -> dict:
+    """One full-width train step (``build_train_step``) of ``name`` at
+    launch/train.py's defaults: seq 256, batch 8, the loop's AdamW schedule,
+    ``remat="block"`` (the config's).  2 warm-up and 5 timed steps on
+    ``SyntheticTokens`` batches; the loss finite and falling over the 7."""
+    arch = get_arch(name)
+    cfg = arch.config
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = arch.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    opt = loop_optimizer()
+    state = opt.init([t for _, t in tree_leaves(params)])
+    step = build_train_step(arch, shape, None, cfg, optimizer=opt).jitted
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in next(data).items()}
+               for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    losses, secs = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, b)
+        losses.append(float(metrics["loss"]))  # the loop's sync
+        secs.append(time.perf_counter() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"{name}: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{name}: the loss did not fall over 7 steps: {losses}")
+    check(sum(counts.values()) == 0, f"{name}: the train step launched a kernel: {counts}")
+    timed = secs[TRAIN_WARMUP:]
+    step_s = statistics.mean(timed)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops = model_flops_per_token(arch, cfg, TRAIN_SEQ) * tokens
+    print(
+        f"lm train {name}: full width ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}{f', {cfg.moe.n_experts} experts top {cfg.moe.top_k}' if cfg.moe else ''}), "
+        f"{n_params} f32 parameters, remat={cfg.remat}, seq {TRAIN_SEQ} x batch {TRAIN_BATCH}; "
+        f"set-up {setup_s:.3f} s; losses {[round(x, 6) for x in losses]}; steps (s) "
+        f"{[round(x, 4) for x in secs]}; timed mean {1e3 * step_s:.3f} ms a step (min "
+        f"{1e3 * min(timed):.3f}), {tokens / step_s:.1f} tokens/s, model FLOPs "
+        f"{flops:.4e} a step ({matmul_params(arch, cfg):.4e} matmul parameters a token, "
+        f"attention included) = {flops / step_s / 1e12:.2f} TFLOP/s, "
+        f"{flops / step_s / BF16_TC_FLOPS:.4f} of the dense bf16 peak; peak memory "
+        f"{peak / 2**30:.3f} GiB (max_memory_allocated); launches {json.dumps(counts)}; on {smi}"
+    )
+    if cfg.moe is not None:
+        route = route_card_vs_cpu(cfg, params, batches[0]["tokens"][:, : cfg.moe.seq_chunk])
+        print(f"lm train {name}: {route}")
+    print(f"lm train {name}: {fwd_bwd_share(arch, cfg, params, batches[-1], timed)}")
+    split = device_split(lambda: step(params, state, batches[-1]), n=2, top=8, width=120)
+    print(f"lm train {name} step split: {split}")
+    del params, state, step, batches, metrics
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_lm_train_loop(smi: str) -> dict:
+    """``TrainLoop`` at examples/lm_train_100m.py's ~100 M config (12 x 512,
+    vocab 8192), seq 256 x batch 8, 60 steps, a checkpoint every 20, a node
+    failure injected at step 30: one failure, restored at 20, 60 steps
+    reached, the loss fallen, the failure and restored events in
+    metrics.jsonl; then a second ``run`` on the same directory resumes from
+    LATEST (60) and goes on 10 steps."""
+    arch = get_arch("stablelm-1.6b")
+    cfg = dataclasses.replace(arch.reduced_config, **LM100M)
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    run_dir = LOOP_DIR / "lm100m"
+
+    def make() -> TrainLoop:
+        loop = TrainLoop("stablelm-1.6b", TRAIN_SEQ, TRAIN_BATCH, None, str(run_dir),
+                         ckpt_every=LOOP_CKPT, log_every=10, fail_at_step=LOOP_FAIL, device=DEVICE)
+        loop.arch = dataclasses.replace(arch, reduced_config=cfg)
+        loop.cfg = cfg
+        return loop
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = make().run(LOOP_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    t0 = time.perf_counter()
+    more = make().run(LOOP_STEPS + LOOP_MORE)
+    more_wall = time.perf_counter() - t0
+    events = [json.loads(line) for line in open(out["metrics_path"])]
+    kinds = [(e["event"], e["step"]) for e in events if e["event"] != "straggler"]
+    check(out["failures"] == 1, f"TrainLoop failures {out['failures']}")
+    check(out["final_step"] == LOOP_STEPS, f"TrainLoop final step {out['final_step']}")
+    check(out["final_loss"] < out["first_loss"],
+          f"TrainLoop loss {out['first_loss']} -> {out['final_loss']}")
+    check(("failure", LOOP_FAIL) in kinds and ("restored", LOOP_FAIL // LOOP_CKPT * LOOP_CKPT) in kinds,
+          f"TrainLoop events {kinds}")
+    check(more["final_step"] == LOOP_STEPS + LOOP_MORE and more["failures"] == 0,
+          f"TrainLoop second run {more}")
+    check(("resume", LOOP_STEPS) in kinds, f"second run did not resume from LATEST: {kinds}")
+    n_params = sum(math.prod(s.shape) for _, s in tree_leaves(arch.template(cfg)))
+    dts = [e["dt"] for e in events if e["event"] == "step"]
+    ran = LOOP_STEPS + (LOOP_FAIL - LOOP_FAIL // LOOP_CKPT * LOOP_CKPT)
+    stragglers = sum(e["event"] == "straggler" for e in events)
+    print(
+        f"lm train loop: TrainLoop at ~100 M ({n_params} parameters, 12 x 512, vocab 8192), "
+        f"seq {TRAIN_SEQ} x batch {TRAIN_BATCH}: {LOOP_STEPS} steps with a failure at "
+        f"{LOOP_FAIL} restored at {LOOP_FAIL // LOOP_CKPT * LOOP_CKPT} ({ran} steps run) in "
+        f"{wall:.3f} s, checkpoints every {LOOP_CKPT}; loss {out['first_loss']:.6f} -> "
+        f"{out['final_loss']:.6f}; logged step walls (s) {dts}; {stragglers} straggler events; "
+        f"resumed from LATEST at {LOOP_STEPS} and ran {LOOP_MORE} more in {more_wall:.3f} s "
+        f"(loss {more['final_loss']:.6f}); on {smi}"
+    )
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    return counts
+
+
+def phase_lm_train_card_vs_cpu() -> None:
+    """One reduced-config train step at f32 compute on the card and on the
+    CPU from the same parameters and batch (stablelm; qwen2-moe with shared
+    experts), held stage by stage to CARD_VS_CPU_TOL: the loss, each
+    gradient leaf (read where the step clips them) and the AdamW update
+    from the CPU's clipped gradients on both devices; the composed step's
+    parameters printed."""
+    real = opt_mod.clip_by_global_norm
+    for name in ("stablelm-1.6b", "qwen2-moe-a2.7b"):
+        arch = get_arch(name)
+        cfg = dataclasses.replace(arch.reduced_config, compute_dtype=torch.float32)
+        shape = ShapeSpec("train", 64, 4, "train")
+        params = arch.init_params(torch.Generator().manual_seed(0), cfg)
+        batch = arch.input_concrete(torch.Generator().manual_seed(1), shape, cfg)
+        seen, out = [], {}
+
+        def spy(grads, max_norm, batch_dims=0):
+            seen.append([g.cpu() for g in grads])
+            return real(grads, max_norm, batch_dims)
+
+        with mock.patch.object(opt_mod, "clip_by_global_norm", spy):
+            for dev in (DEVICE, "cpu"):
+                p = tree_map(lambda _, t: t.to(dev, copy=True), params)
+                opt = loop_optimizer()
+                st = opt.init([t for _, t in tree_leaves(p)])
+                step = build_train_step(arch, shape, None, cfg, optimizer=opt).jitted
+                p, _, m = step(p, st, {k: v.to(dev) for k, v in batch.items()})
+                out[dev] = (float(m["loss"]), [t.cpu() for _, t in tree_leaves(p)])
+        (lg, pg), (lc, pc) = out[DEVICE], out["cpu"]
+        check(abs(lg - lc) <= CARD_VS_CPU_TOL * abs(lc), f"{name}: train loss card {lg} vs CPU {lc}")
+        g_err = max(rel_err(a, b) for a, b in zip(*seen))
+        check(g_err <= CARD_VS_CPU_TOL, f"{name}: gradients card vs CPU {g_err:.3e} of max |g|")
+        clipped, _ = real(seen[1], 1.0)
+        leaves = [t for _, t in tree_leaves(params)]
+        updated = {}
+        for dev in ("cpu", DEVICE):
+            opt = loop_optimizer()
+            ps = [t.to(dev) for t in leaves]
+            upd, _ = opt.update([g.to(dev) for g in clipped], opt.init(ps), ps)
+            updated[dev] = [p + u for p, u in zip(ps, upd)]
+        u_err = max(rel_err(a, b) for a, b in zip(updated[DEVICE], updated["cpu"]))
+        check(u_err <= CARD_VS_CPU_TOL, f"{name}: AdamW update card vs CPU {u_err:.3e} of max |w|")
+        composed = max(rel_err(a, b) for a, b in zip(pg, pc))
+        print(
+            f"lm train card vs CPU ({name} reduced, f32 compute, seq 64 x batch 4): loss "
+            f"{lg:.8f} vs {lc:.8f}; gradients within {g_err:.3e} of max |g|, the AdamW update "
+            f"from the same gradients within {u_err:.3e} of max |w| (limit {CARD_VS_CPU_TOL}); the "
+            f"composed step's parameters within {composed:.3e} of max |w|"
+        )
+
+
+@contextlib.contextmanager
+def recorded_quant_matmul():
+    """Every ``quant_matmul`` launch made through ``qdot`` while the block
+    runs: (x, q, scale, bits, out), for checking against the plain version."""
+    from repro_torch.kernels.quant_matmul import quant_matmul as qm_module
+
+    seen, real = [], qm_module.quant_matmul
+
+    def record(x, q, scale, *, bits, **kw):
+        out = real(x, q, scale, bits=bits, **kw)
+        seen.append((x.clone(), q, scale, bits, out.clone()))
+        return out
+
+    with mock.patch.object(qm_module, "quant_matmul", record):
+        yield seen
+
+
+def phase_lm_serve_moe(smi: str) -> dict:
+    """``ServeEngine`` on int8 granite-moe-1b-a400m at full width (the
+    attention projections int8; the experts are 4-D leaves and stay float,
+    as in JAX): 8 requests of 4-32 prompt tokens, 4 new tokens each;
+    ``quant_matmul`` launches = 4 x 24 x decode steps, each equal to its
+    plain version on the card to the bf16 tolerance of phase 2."""
+    arch = get_arch("granite-moe-1b-a400m")
+    full = dataclasses.replace(arch, reduced_config=arch.config)
+    params = arch.init_params(torch.Generator(device=DEVICE).manual_seed(0))
+    engine = ServeEngine(full, params, max_batch=8, max_len=64, quant=lm_policy(8), device=DEVICE)
+    del params
+    reqs = lm_requests(8, 4, arch.config.vocab)
+    with recorded_quant_matmul() as seen:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    steps = engine.decode_steps
+    check(len(done) == 8 and all(len(r.generated) == 4 for r in done), "MoE serving: all served")
+    check(all(0 <= t < arch.config.vocab for r in done for t in r.generated), "MoE tokens in vocab")
+    n_qdots = MOE_QDOTS_PER_LAYER * arch.config.n_layers
+    check(counts["quant_matmul"] == n_qdots * steps > 0,
+          f"MoE serving: quant_matmul launches {counts['quant_matmul']} != {n_qdots} x {steps}")
+    check(len(seen) == counts["quant_matmul"], "MoE serving: recorded launches != counted")
+    err = 0.0
+    for x, q, scale, bits, out in seen:
+        want = quant_matmul_ref(x, q, scale, bits, out.dtype)
+        err = max(err, close(out, want, QM_TOL, f"MoE serving quant_matmul {list(x.shape)}"))
+    prompt_toks = sum(len(r.prompt) for r in reqs)
+    print(
+        f"lm serve moe: {arch.name} full width int8 (attention projections), 8 requests "
+        f"({prompt_toks} prompt tokens, token by token), 32 generated in {steps} decode steps, "
+        f"{wall:.3f} s = {1e3 * wall / steps:.3f} ms/step; {counts['quant_matmul']} quant_matmul "
+        f"launches = {n_qdots} x {steps}, each within the bf16 tolerance of plain (max_abs_err "
+        f"{err:.3e}); req0 {sorted(done, key=lambda r: r.uid)[0].generated}; on {smi}"
+    )
+    del engine, seen
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA card", file=sys.stderr)
@@ -2636,6 +2999,22 @@ def main() -> int:
             launches[k] += v
     phase_shard_cards(net, qparams)
     print(f"phase 12 took {time.perf_counter() - t0:.3f} s; the script so far "
+          f"{time.perf_counter() - t_start:.3f} s")
+
+    t0 = time.perf_counter()
+    for name, phase in [
+        ("lm_train_stablelm", lambda: phase_lm_train_full("stablelm-1.6b", smi)),
+        ("lm_train_granite", lambda: phase_lm_train_full("granite-moe-1b-a400m", smi)),
+        ("lm_train_loop", lambda: phase_lm_train_loop(smi)),
+        ("lm_serve_moe", lambda: phase_lm_serve_moe(smi)),
+    ]:
+        reset_counts()
+        counts = phase()
+        print(f"launches[{name}]: {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+    phase_lm_train_card_vs_cpu()
+    print(f"phase 13 took {time.perf_counter() - t0:.3f} s; the script so far "
           f"{time.perf_counter() - t_start:.3f} s")
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was never launched on the main path")

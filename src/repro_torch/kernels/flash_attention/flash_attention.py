@@ -9,7 +9,11 @@ masks; ragged Sq / Sk; grouped-query attention by reading kv head
 ``h // (Hq // Hk)`` directly.
 
 For CPU tensors the wrapper runs :func:`~.ref.flash_attention_ref` (with the
-kv heads repeated); for CUDA tensors it launches the kernel or raises.
+kv heads repeated); for CUDA tensors it launches the kernel or raises.  The
+kernel is forward-only (the JAX package has no flash backward either), so
+an input that requires grad raises on every device rather than being
+detached: training runs the plain attention
+(``models/attention.py::attend_query_chunked``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,11 @@ def flash_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Attention over positions 0..Sq-1 (queries) and 0..Sk-1 (keys) -> [B, Hq, Sq, D] in q's dtype."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the kernel has no backward and an input requires grad; "
+            "train through models.attention.attend_query_chunked"
+        )
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, Hq, Sq, D = q.shape

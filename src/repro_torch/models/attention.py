@@ -8,8 +8,9 @@ Port of ``repro/models/attention.py``.  Shapes follow the
   including the int8-cache path; both are plain PyTorch, as the JAX package
   computes them outside any Pallas kernel.
 * :func:`attend_chunked` (prefill at 4096 tokens and more) launches the
-  ``flash_attention`` kernel for CUDA tensors; for CPU tensors it keeps the
-  JAX package's exact query-chunked plain code.
+  ``flash_attention`` kernel for CUDA tensors; for CPU tensors it runs
+  :func:`attend_query_chunked`, the JAX package's exact query-chunked plain
+  code, which train mode runs on every device (the kernel has no backward).
 """
 
 from __future__ import annotations
@@ -20,7 +21,16 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attend
 
-__all__ = ["rope", "mrope", "attend", "attend_chunked", "AttnMask", "decode_attend", "KVCache"]
+__all__ = [
+    "rope",
+    "mrope",
+    "attend",
+    "attend_chunked",
+    "attend_query_chunked",
+    "AttnMask",
+    "decode_attend",
+    "KVCache",
+]
 
 NEG_INF = -2.3819763e38  # matches the JAX package and the kernel
 
@@ -145,19 +155,31 @@ def attend_chunked(
     """Exact attention without the full [Sq, Sk] score matrix. Returns [B, Sq, Hq, D].
 
     CUDA tensors: the ``flash_attention`` kernel, which takes positions
-    0..Sq-1 and 0..Sk-1 only; other positions raise.  CPU tensors: the JAX
-    package's query-chunked plain attention (softmax is row-wise over keys,
-    so chunking queries is exact).
+    0..Sq-1 and 0..Sk-1 only; other positions raise.  CPU tensors:
+    :func:`attend_query_chunked`.
     """
-    B, Sq, Hq, D = q.shape
     if q.device.type == "cuda":
-        if not (_is_arange(q_positions, Sq) and _is_arange(k_positions, k.shape[1])):
+        if not (_is_arange(q_positions, q.shape[1]) and _is_arange(k_positions, k.shape[1])):
             raise ValueError(
                 "attend_chunked: the flash_attention kernel takes positions 0..S-1 only"
             )
         return flash_attend(
             q, k, v, causal=mask.causal, window=mask.window, softcap=softcap, scale=scale
         )
+    return attend_query_chunked(
+        q, k, v, mask=mask, q_positions=q_positions, k_positions=k_positions,
+        softcap=softcap, scale=scale, q_chunk=q_chunk,
+    )
+
+
+def attend_query_chunked(
+    q, k, v, *, mask: AttnMask = AttnMask(), q_positions=None, k_positions=None,
+    softcap: float | None = None, scale: float | None = None, q_chunk: int = 1024,
+):
+    """The JAX package's ``attend_chunked``: plain attention over ``q_chunk``
+    queries at a time (softmax is row-wise over keys, so chunking queries is
+    exact), on any device and differentiable.  Returns [B, Sq, Hq, D]."""
+    Sq = q.shape[1]
     if Sq % q_chunk:
         return attend(
             q, k, v, mask=mask, q_positions=q_positions, k_positions=k_positions,

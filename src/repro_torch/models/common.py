@@ -24,6 +24,7 @@ __all__ = [
     "materialize",
     "params_from_numpy",
     "tree_leaves",
+    "tree_unflatten",
     "rms_norm",
     "layer_norm",
 ]
@@ -58,6 +59,14 @@ def tree_leaves(tree, path: str = ""):
             out.extend(tree_leaves(tree[k], f"{path}/{k}" if path else str(k)))
         return out
     return [(path, tree)]
+
+
+def tree_unflatten(like, leaves):
+    """A nested dict shaped as ``like`` whose leaves are ``leaves``, taken in
+    :func:`tree_leaves` order (the inverse of flattening ``like``)."""
+    it = iter(leaves)
+    values = {p: next(it) for p, _ in tree_leaves(like)}
+    return tree_map(lambda p, _: values[p], like)
 
 
 def materialize(gen: torch.Generator, template, device=None):

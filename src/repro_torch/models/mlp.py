@@ -1,13 +1,23 @@
-"""Feed-forward blocks: SwiGLU / squared-ReLU / GELU MLPs.
+"""Feed-forward blocks: SwiGLU / squared-ReLU / GELU MLPs and capacity-based MoE.
 
-Port of the dense half of ``repro/models/mlp.py``.  The mixture-of-experts
-half (``MoEConfig`` is kept so configs carry the same fields) is not ported
-yet: :func:`moe_apply` raises.
+Port of ``repro/models/mlp.py``.  The MoE is JAX's dispatch/combine einsum
+formulation: chunked over the sequence so the one-hot dispatch tensor stays
+bounded, top-k routing with a capacity per (batch row, chunk) and the
+Switch-style load-balancing auxiliary loss.  The expert products are plain
+einsums in JAX (no Pallas kernel), and so they are here.
+
+Routing is equal to JAX's on every device: ``jax.lax.top_k`` breaks ties
+toward the lower expert, and ``torch.topk`` promises no tie order on the
+card, so the top k come from a stable descending sort.  The capacity
+positions are an f32 ``cumsum``, as in JAX (exact below 2^24 tokens a
+chunk).  ``shard_experts`` names a sharding axis only and changes nothing
+on one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -15,9 +25,7 @@ import torch.nn.functional as F
 from repro_torch.core.precision import qdot
 from repro_torch.models.common import dense
 
-__all__ = ["MLPConfig", "MoEConfig", "mlp_template", "mlp_apply", "moe_apply"]
-
-_MOE_TODO = "mixture-of-experts blocks are not ported yet (ROADMAP Queue 1 #12)"
+__all__ = ["MLPConfig", "MoEConfig", "mlp_template", "mlp_apply", "moe_template", "moe_apply"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +41,7 @@ class MoEConfig:
     d_ff_expert: int
     n_experts: int
     top_k: int
-    n_shared: int = 0
+    n_shared: int = 0  # always-on experts (qwen2-moe)
     capacity_factor: float = 1.25
     seq_chunk: int = 512
     router_aux_weight: float = 0.01
@@ -61,5 +69,94 @@ def mlp_apply(cfg: MLPConfig, params, x: torch.Tensor) -> torch.Tensor:
     return qdot(h, params["w_down"])
 
 
-def moe_apply(cfg: MoEConfig, params, x):
-    raise NotImplementedError(_MOE_TODO)
+# --------------------------------------------------------------------------
+# Mixture of Experts
+# --------------------------------------------------------------------------
+
+
+def _shared_cfg(cfg: MoEConfig) -> MLPConfig:
+    return MLPConfig(cfg.d_model, cfg.d_ff_expert * cfg.n_shared, "swiglu")
+
+
+def moe_template(cfg: MoEConfig) -> dict:
+    t = {
+        "router": dense(cfg.d_model, cfg.n_experts, scale=0.02),
+        "w_gate": dense(cfg.n_experts, cfg.d_model, cfg.d_ff_expert),
+        "w_up": dense(cfg.n_experts, cfg.d_model, cfg.d_ff_expert),
+        "w_down": dense(cfg.n_experts, cfg.d_ff_expert, cfg.d_model),
+    }
+    if cfg.n_shared:
+        t["shared"] = mlp_template(_shared_cfg(cfg))
+    return t
+
+
+def _capacity(cfg: MoEConfig, chunk: int) -> int:
+    return max(1, math.ceil(chunk * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
+
+
+def _route(cfg: MoEConfig, router_logits: torch.Tensor):
+    """Top-k routing. logits [B,C,E] -> (gates [B,C,E], aux_loss).
+
+    The top k of a stable descending sort: equal probabilities keep the
+    lower expert first, as ``jax.lax.top_k`` does.
+    """
+    probs = torch.softmax(router_logits.to(torch.float32), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_vals, top_idx = vals[..., : cfg.top_k], idx[..., : cfg.top_k]  # [B,C,k]
+    top_vals = top_vals / (torch.sum(top_vals, dim=-1, keepdim=True) + 1e-9)
+    # JAX's einsum of the values with a one-hot over experts: each gate is one
+    # value plus exact zeros, so a scatter gives the same bits
+    gate_full = torch.zeros_like(probs).scatter(-1, top_idx, top_vals)
+    # Load-balance loss (Switch-style): mean prob * mean assignment per expert.
+    onehot = F.one_hot(top_idx, cfg.n_experts).to(probs.dtype)  # [B,C,k,E]
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.mean(torch.sum(onehot, dim=2), dim=(0, 1))
+    aux = cfg.n_experts * torch.sum(me * ce)
+    return gate_full, aux
+
+
+def _moe_chunk(cfg: MoEConfig, params, x_chunk: torch.Tensor):
+    """x_chunk [B, C, D] -> (out [B, C, D], aux)."""
+    _, C, _ = x_chunk.shape
+    cap = _capacity(cfg, C)
+    dt = x_chunk.dtype
+    logits = torch.einsum(
+        "bcd,de->bce", x_chunk.to(torch.float32), params["router"].to(torch.float32)
+    )
+    gates, aux = _route(cfg, logits)  # [B,C,E]
+
+    # Position of each token within its expert's capacity buffer.
+    assign = (gates > 0).to(torch.float32)  # [B,C,E]
+    pos = torch.cumsum(assign, dim=1) * assign - 1.0  # -1 = unassigned
+    keep = (pos >= 0) & (pos < cap)
+    pos = torch.clamp(pos, 0, cap - 1).to(torch.int64)
+    # dispatch[b,c,e,cap]: one-hot over capacity slot
+    disp = F.one_hot(pos, cap).to(dt) * keep[..., None].to(dt)
+    combine = disp * gates[..., None].to(dt)
+
+    expert_in = torch.einsum("bcek,bcd->ebkd", disp, x_chunk)  # [E,B,cap,D]
+    h = F.silu(torch.einsum("ebkd,edf->ebkf", expert_in, params["w_gate"].to(dt))) * torch.einsum(
+        "ebkd,edf->ebkf", expert_in, params["w_up"].to(dt)
+    )
+    expert_out = torch.einsum("ebkf,efd->ebkd", h, params["w_down"].to(dt))
+    out = torch.einsum("bcek,ebkd->bcd", combine, expert_out)
+    return out, aux
+
+
+def moe_apply(cfg: MoEConfig, params, x: torch.Tensor):
+    """x [B, S, D] -> (out [B, S, D], aux_loss scalar)."""
+    B, S, D = x.shape
+    chunk = min(cfg.seq_chunk, S)
+    pad = -S % chunk  # a ragged last chunk is zero-padded; its tokens route but are discarded
+    x_p = F.pad(x, (0, 0, 0, pad)) if pad else x
+    n_chunks = x_p.shape[1] // chunk
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    outs = []
+    for i in range(n_chunks):
+        out, aux = _moe_chunk(cfg, params, x_p[:, i * chunk : (i + 1) * chunk])
+        aux_total = aux_total + aux
+        outs.append(out)
+    out = torch.cat(outs, dim=1)[:, :S]
+    if cfg.n_shared:
+        out = out + mlp_apply(_shared_cfg(cfg), params["shared"], x)
+    return out, cfg.router_aux_weight * aux_total / max(1, n_chunks)

@@ -1,10 +1,15 @@
 """Architecture registry: one uniform handle per ported architecture.
 
 Port of ``repro/models/registry.py``.  An :class:`Arch` bundles a model
-config with its reduced variant, its parameter template and its prefill
-step.
+config with its reduced variant, its parameter and input templates, real
+init, its loss / prefill / decode functions and its cache template.
+Templates are torch terms: ``{name: (shape, dtype)}`` with torch dtypes,
+as :func:`~repro_torch.models.transformer.cache_template` gives them.
 Configs register themselves on import from ``repro_torch.configs``; only
-the families whose blocks are ported load (the four dense configs).
+the families whose blocks are ported load: the four dense configs and the
+two MoE configs.  The XLA sharding helpers (``param_pspecs``,
+``input_pspecs``, ``cache_pspecs``) have no counterpart here (ROADMAP
+Queue 1 #6).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core.precision import tree_map
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 
@@ -36,7 +42,14 @@ SHAPES: dict[str, ShapeSpec] = {
     "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
 }
 
-_PORTED_CONFIGS = ("phi3_medium_14b", "nemotron_4_15b", "stablelm_1_6b", "gemma2_27b")
+_PORTED_CONFIGS = (
+    "phi3_medium_14b",
+    "nemotron_4_15b",
+    "stablelm_1_6b",
+    "gemma2_27b",
+    "granite_moe_1b",
+    "qwen2_moe_a2_7b",
+)
 
 _REGISTRY: dict[str, "Arch"] = {}
 
@@ -51,16 +64,62 @@ class Arch:
     skip_reason: str = ""
     n_vision_tokens: int = 0
 
+    # -- parameters ------------------------------------------------------
     def template(self, cfg=None):
         return tfm.model_template(cfg or self.config)
+
+    def abstract_params(self, cfg=None):
+        """``{name: (shape, dtype)}`` of every parameter leaf (nested as the tree)."""
+        return tree_map(lambda _, s: (s.shape, s.dtype), self.template(cfg))
 
     def init_params(self, gen: torch.Generator, cfg=None, device=None):
         """Random parameters from ``gen`` (on its device unless ``device`` is given)."""
         return common.materialize(gen, self.template(cfg), device)
 
+    # -- step functions ----------------------------------------------------
+    def loss_fn(self, cfg=None) -> Callable:
+        cfg = cfg or self.config
+        return lambda params, batch: tfm.lm_loss(cfg, params, batch)
+
     def prefill_fn(self, cfg=None) -> Callable:
         cfg = cfg or self.config
         return lambda params, batch: tfm.prefill(cfg, params, batch["tokens"])
+
+    def decode_fn(self, cfg=None) -> Callable:
+        cfg = cfg or self.config
+        return lambda params, caches, batch: tfm.decode_step(
+            cfg, params, caches, batch["tokens"], batch["cur_len"]
+        )
+
+    # -- inputs ------------------------------------------------------------
+    def input_template(self, shape: ShapeSpec, cfg=None) -> dict:
+        """``{name: (shape, dtype)}`` of every model input of this (arch x shape) cell."""
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.kind in ("train", "prefill"):
+            t = {"tokens": ((B, S), i32)}
+            if shape.kind == "train":
+                t["targets"] = ((B, S), i32)
+            return t
+        return {"tokens": ((B, 1), i32), "cur_len": ((B,), i32)}
+
+    def input_concrete(self, gen: torch.Generator, shape: ShapeSpec, cfg=None, device=None) -> dict:
+        """Random realised inputs from ``gen`` (on its device unless ``device``
+        is given): tokens uniform over the vocab, ``cur_len`` half the sequence."""
+        cfg = cfg or self.config
+        device = torch.device(device) if device is not None else gen.device
+        out = {}
+        for k, (s, dt) in self.input_template(shape, cfg).items():
+            if k == "cur_len":
+                out[k] = torch.full(s, shape.seq_len // 2, dtype=dt, device=device)
+            else:
+                x = torch.randint(0, cfg.vocab, s, generator=gen, dtype=dt, device=gen.device)
+                out[k] = x.to(device)
+        return out
+
+    # -- caches --------------------------------------------------------
+    def cache_abstract(self, shape: ShapeSpec, cfg=None):
+        return tfm.cache_template(cfg or self.config, shape.global_batch, shape.seq_len)
 
 
 def register(arch: Arch) -> Arch:

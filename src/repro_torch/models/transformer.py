@@ -1,18 +1,25 @@
-"""The decoder LM: prefill and one-token decode with caches.
+"""The decoder LM of the dense and MoE families: training, prefill and decode.
 
-Port of the serving half of ``repro/models/transformer.py`` for the dense
-family.  A model is a repeating *pattern* of blocks (gemma2: alternating
-local / global attention); parameters of each pattern position are stacked
-over the repeat-group axis, and the JAX ``lax.scan`` over groups becomes a
-Python loop that indexes the stacked leaves.
+Port of ``repro/models/transformer.py``.  A model is a repeating *pattern*
+of blocks (gemma2: alternating local / global attention); parameters of
+each pattern position are stacked over the repeat-group axis, and the JAX
+``lax.scan`` over groups becomes a Python loop that indexes the stacked
+leaves.
 
-Two execution modes share one block implementation:
+Three execution modes share one block implementation:
+  * train    -- full-sequence, no cache (:func:`forward`, :func:`lm_loss`)
   * prefill  -- full-sequence, emits exact-length KV caches
   * decode   -- one token against preallocated caches, written in place
 
-SSM, mixture-of-experts and M-RoPE / vision blocks raise
-``NotImplementedError`` (ROADMAP Queue 1 #12); ``forward`` and ``lm_loss``
-come with the training slice.
+Train mode runs the plain attention on every device, as JAX trains through
+no Pallas kernel: :func:`~repro_torch.models.attention.attend` below 4096
+tokens, the query-chunked plain code at 4096 and more.  Prefill at 4096
+tokens and more launches the forward-only ``flash_attention`` kernel on
+the card.  ``remat="block"`` recomputes each repeat group in the backward
+pass (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``).
+
+SSM / hybrid blocks and M-RoPE / vision blocks raise
+``NotImplementedError`` (ROADMAP Queue 1 #5).
 """
 
 from __future__ import annotations
@@ -22,13 +29,21 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.core.precision import QTensor, qdot, tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import AttnMask, KVCache
 from repro_torch.models.common import dense, rms_norm
-from repro_torch.models.mlp import MLPConfig, MoEConfig, mlp_apply, mlp_template
+from repro_torch.models.mlp import (
+    MLPConfig,
+    MoEConfig,
+    mlp_apply,
+    mlp_template,
+    moe_apply,
+    moe_template,
+)
 
 __all__ = [
     "ModelConfig",
@@ -36,13 +51,15 @@ __all__ = [
     "layer_pattern",
     "n_groups",
     "model_template",
+    "forward",
+    "lm_loss",
     "prefill",
     "decode_step",
     "cache_template",
     "cache_init",
 ]
 
-_TODO = "is not ported yet (ROADMAP Queue 1 #12)"
+_TODO = "is not ported yet (ROADMAP Queue 1 #5)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +92,7 @@ class ModelConfig:
     moe_period: int = 1
     ssm: Any = None  # SSM blocks are not ported; kept so configs carry the same fields
     attn_period: int = 0  # hybrid: 0 = all-attention; k = attn every k-th; -1 = none
-    remat: str = "none"  # training only; no effect on prefill / decode
+    remat: str = "none"  # none | block; training only, no effect on prefill / decode
     compute_dtype: torch.dtype = torch.bfloat16
     shard_head_dim: bool = True  # sharding only; no effect on one device
     kv_cache_bits: int | None = None  # 8 = int8 KV cache
@@ -128,9 +145,8 @@ def n_groups(cfg: ModelConfig) -> int:
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.mrope:
         raise NotImplementedError(f"M-RoPE / vision blocks {_TODO}")
-    for kind in layer_pattern(cfg):
-        if kind.mixer != "attn" or kind.moe:
-            raise NotImplementedError(f"{cfg.family} blocks {_TODO}")
+    if any(kind.mixer != "attn" for kind in layer_pattern(cfg)):
+        raise NotImplementedError(f"SSM blocks ({cfg.family}) {_TODO}")
 
 
 # --------------------------------------------------------------------------
@@ -154,14 +170,18 @@ def _attn_template(cfg: ModelConfig) -> dict:
     return t
 
 
-def _block_template(cfg: ModelConfig) -> dict:
+def _block_template(cfg: ModelConfig, kind: BlockKind) -> dict:
     t: dict = {"norm1": dense(cfg.d_model, init="ones"), "attn": _attn_template(cfg)}
-    if cfg.d_ff > 0:
+    has_ff = kind.moe or cfg.d_ff > 0
+    if has_ff:
         t["norm2"] = dense(cfg.d_model, init="ones")
-        t["mlp"] = mlp_template(MLPConfig(cfg.d_model, cfg.d_ff, cfg.act))
+        if kind.moe:
+            t["moe"] = moe_template(cfg.moe)
+        else:
+            t["mlp"] = mlp_template(MLPConfig(cfg.d_model, cfg.d_ff, cfg.act))
     if cfg.sandwich_norm:
         t["post_norm1"] = dense(cfg.d_model, init="ones")
-        if cfg.d_ff > 0:
+        if has_ff:
             t["post_norm2"] = dense(cfg.d_model, init="ones")
     return t
 
@@ -178,7 +198,7 @@ def model_template(cfg: ModelConfig) -> dict:
     t: dict = {
         "embed": dense(cfg.vocab, cfg.d_model, scale=0.02),
         "final_norm": dense(cfg.d_model, init="ones"),
-        "blocks": {f"pos{i}": _stack(_block_template(cfg), ng) for i in range(len(pattern))},
+        "blocks": {f"pos{i}": _stack(_block_template(cfg, k), ng) for i, k in enumerate(pattern)},
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = dense(cfg.d_model, cfg.vocab, scale=0.02)
@@ -231,34 +251,45 @@ def _attn_apply(cfg, kind, p, x, positions, mode, cache):
         )
         new_cache = cache
     else:
-        attend_fn = attn_lib.attend_chunked if S >= 4096 else attn_lib.attend
+        if S < 4096:
+            attend_fn = attn_lib.attend
+        elif mode == "train":  # JAX trains through the plain code; the kernel has no backward
+            attend_fn = attn_lib.attend_query_chunked
+        else:
+            attend_fn = attn_lib.attend_chunked
         out = attend_fn(
             q, k, v, mask=AttnMask(causal=True, window=kind.window), q_positions=positions,
             k_positions=positions, softcap=cfg.attn_softcap,
         )
-        new_cache = {
-            "k": k.to(cfg.compute_dtype),
-            "v": v.to(cfg.compute_dtype),
-            "len": torch.full((B,), S, dtype=torch.int32, device=x.device),
-        }
+        if mode == "prefill":
+            new_cache = {
+                "k": k.to(cfg.compute_dtype),
+                "v": v.to(cfg.compute_dtype),
+                "len": torch.full((B,), S, dtype=torch.int32, device=x.device),
+            }
     out = out.reshape(B, S, cfg.n_heads * cfg.d_head)
     return qdot(out, p["wo"]), new_cache
 
 
 def _block_apply(cfg, kind, p, x, positions, mode, cache):
-    """Pre-norm block. Returns (x, new_cache)."""
+    """Pre-norm block. Returns (x, new_cache, aux_loss)."""
     h = rms_norm(x, p["norm1"])
     mix, new_cache = _attn_apply(cfg, kind, p["attn"], h, positions, mode, cache)
     if cfg.sandwich_norm:
         mix = rms_norm(mix, p["post_norm1"])
     x = x + mix
-    if cfg.d_ff > 0:
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind.moe or cfg.d_ff > 0:
         h = rms_norm(x, p["norm2"])
-        ff = mlp_apply(MLPConfig(cfg.d_model, cfg.d_ff, cfg.act), p["mlp"], h)
+        if kind.moe:
+            ff, aux = moe_apply(cfg.moe, p["moe"], h)
+        else:
+            ff = mlp_apply(MLPConfig(cfg.d_model, cfg.d_ff, cfg.act), p["mlp"], h)
         if cfg.sandwich_norm:
             ff = rms_norm(ff, p["post_norm2"])
         x = x + ff
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # --------------------------------------------------------------------------
@@ -283,35 +314,109 @@ def _logits(cfg, params, h):
     return logits
 
 
-def _group(tree, g: int):
-    """Group ``g``'s slice of every stacked leaf (views, no copy)."""
-    return tree_map(lambda _, t: t.layer(g) if isinstance(t, QTensor) else t[g], tree)
+def _groups(tree, n: int) -> list:
+    """Each of the ``n`` groups' slices of every stacked leaf (views, no copy).
+
+    Each leaf is unbound once: the backward of ``unbind`` stacks the
+    groups' gradients into the leaf's in one pass, where indexing ``t[g]``
+    per group would give each group a zero-filled gradient of the whole
+    stacked leaf to add up (JAX's scan writes each iteration's gradient
+    into its slice)."""
+    split = tree_map(
+        lambda _, t: [t.layer(g) for g in range(n)] if isinstance(t, QTensor) else t.unbind(0), tree
+    )
+    return [tree_map(lambda _, s: s[g], split) for g in range(n)]
 
 
 def _scan_blocks(cfg, params, h, positions, mode, caches):
     """Loop over repeat groups; within a group, pattern positions unroll.
 
-    decode: ``caches`` are updated in place and returned.  prefill: returns
-    the new exact-length caches, stacked over groups.
+    Returns ``(h, caches, aux)``: decode updates ``caches`` in place and
+    returns them; prefill returns the new exact-length caches, stacked over
+    groups; train returns None.  ``aux`` sums the MoE blocks' auxiliary
+    losses.  In train mode with ``remat="block"`` each group's body is
+    recomputed in the backward pass instead of keeping its activations.
     """
     pattern = layer_pattern(cfg)
+    ng = n_groups(cfg)
     new = {f"pos{i}": [] for i in range(len(pattern))}
-    for g in range(n_groups(cfg)):
-        block_params = _group(params["blocks"], g)
-        group_caches = None if caches is None else _group(caches, g)
-        for i, kind in enumerate(pattern):
-            cache_i = None if group_caches is None else group_caches[f"pos{i}"]
-            h, new_cache = _block_apply(
-                cfg, kind, block_params[f"pos{i}"], h, positions, mode, cache_i
-            )
-            new[f"pos{i}"].append(new_cache)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    all_params = _groups(params["blocks"], ng)
+    all_caches = [None] * ng if caches is None else _groups(caches, ng)
+    for g in range(ng):
+        block_params, group_caches = all_params[g], all_caches[g]
+
+        def group_body(h, block_params=block_params, group_caches=group_caches):
+            aux_g = torch.zeros((), dtype=torch.float32, device=h.device)
+            for i, kind in enumerate(pattern):
+                cache_i = None if group_caches is None else group_caches[f"pos{i}"]
+                h, new_cache, aux = _block_apply(
+                    cfg, kind, block_params[f"pos{i}"], h, positions, mode, cache_i
+                )
+                aux_g = aux_g + aux
+                new[f"pos{i}"].append(new_cache)
+            return h, aux_g
+
+        if mode == "train" and cfg.remat == "block" and torch.is_grad_enabled():
+            h, aux_g = checkpoint(group_body, h, use_reentrant=False)
+        else:
+            h, aux_g = group_body(h)
+        aux_total = aux_total + aux_g
     if mode == "decode":
-        return h, caches
+        return h, caches, aux_total
+    if mode == "train":
+        return h, None, aux_total
     stacked = {
         pos: {name: torch.stack([c[name] for c in per_group]) for name in per_group[0]}
         for pos, per_group in new.items()
     }
-    return h, stacked
+    return h, stacked, aux_total
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, positions=None):
+    """Training forward: tokens [B, S] -> (logits [B, S, V] f32, aux_loss)."""
+    _check_supported(cfg)
+    h = _embed_tokens(cfg, params, tokens)
+    if positions is None:
+        positions = torch.arange(h.shape[1], device=h.device)
+    h, _, aux = _scan_blocks(cfg, params, h, positions, "train", None)
+    return _logits(cfg, params, h), aux
+
+
+def _chunked_ce(cfg: ModelConfig, params, h: torch.Tensor, targets: torch.Tensor, chunk: int = 512):
+    """Sequence-chunked cross-entropy: the f32 head matmul and log-softmax run
+    per chunk of ``chunk`` positions, so the live logits stay [B, chunk, V]
+    (JAX's scan over chunks)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    B, S, _ = h.shape
+    if S % chunk:
+        chunk = S  # one shot for odd smoke shapes
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, chunk):
+        logits = torch.matmul(h[:, i : i + chunk].to(torch.float32), head.to(torch.float32))
+        if cfg.logit_softcap is not None:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        logp = torch.log_softmax(logits, dim=-1)
+        tc = targets[:, i : i + chunk].to(torch.int64)
+        ll = torch.gather(logp, -1, tc[..., None])[..., 0]
+        total = total - torch.sum(ll)
+    return total / (B * S)
+
+
+def lm_loss(cfg: ModelConfig, params, batch: dict):
+    """Next-token cross-entropy (+ MoE aux). batch: tokens / targets [B, S].
+
+    Returns ``(ce + aux, {"ce": ce, "aux": aux})``.
+    """
+    _check_supported(cfg)
+    h = _embed_tokens(cfg, params, batch["tokens"])
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, _, aux = _scan_blocks(cfg, params, h, positions, "train", None)
+    h = rms_norm(h, params["final_norm"])
+    targets = batch["targets"]
+    h = h[:, -targets.shape[1] :, :]
+    ce = _chunked_ce(cfg, params, h, targets)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor):
@@ -324,7 +429,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor):
     h = _embed_tokens(cfg, params, tokens)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
-    h, caches = _scan_blocks(cfg, params, h, positions, "prefill", None)
+    h, caches, _ = _scan_blocks(cfg, params, h, positions, "prefill", None)
     return _logits(cfg, params, h[:, -1:, :]), caches
 
 
@@ -336,7 +441,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor, cur_len:
     _check_supported(cfg)
     h = _embed_tokens(cfg, params, tokens)
     positions = cur_len[:, None]  # [B, 1]
-    h, caches = _scan_blocks(cfg, params, h, positions, "decode", caches)
+    h, caches, _ = _scan_blocks(cfg, params, h, positions, "decode", caches)
     return _logits(cfg, params, h), caches
 
 

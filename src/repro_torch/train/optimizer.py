@@ -22,7 +22,11 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple, Sequence
 
+import numpy as np
 import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.models.common import params_from_numpy, tree_leaves, tree_unflatten
 
 __all__ = [
     "Optimizer",
@@ -33,6 +37,8 @@ __all__ = [
     "constant_schedule",
     "linear_warmup_cosine",
     "apply_updates",
+    "adamw_state_from_numpy",
+    "adamw_state_to_numpy",
 ]
 
 f32 = torch.float32
@@ -168,3 +174,29 @@ def linear_warmup_cosine(
 
 def apply_updates(params: Sequence[torch.Tensor], updates: Sequence[torch.Tensor]) -> list:
     return [p + u.to(p.dtype) for p, u in zip(params, updates)]
+
+
+def adamw_state_from_numpy(state, device="cuda") -> AdamWState:
+    """Carry a JAX ``AdamWState`` -- ``step`` and the moment trees ``mu`` and
+    ``nu`` over a nested-dict parameter tree, with every leaf a numpy array
+    (``jax.tree.map(np.asarray, state)``) -- onto ``device`` as the port's
+    state: the moments as flat lists in ``tree_leaves`` order, the order the
+    LM train step flattens the parameters in."""
+    device = resolve_device(device)
+    mu, nu = params_from_numpy(state.mu, device), params_from_numpy(state.nu, device)
+    step = torch.tensor(int(state.step), dtype=torch.int32, device=device)
+    return AdamWState(
+        step=step, mu=[t for _, t in tree_leaves(mu)], nu=[t for _, t in tree_leaves(nu)]
+    )
+
+
+def adamw_state_to_numpy(state: AdamWState, like) -> dict:
+    """The port's state back as numpy: ``{"step", "mu", "nu"}`` with the
+    moments as nested dicts shaped as the parameter tree ``like`` (the
+    fields of JAX's ``AdamWState``)."""
+    host = lambda ts: [t.detach().cpu().numpy() for t in ts]
+    return {
+        "step": np.asarray(state.step.cpu().numpy(), np.int32),
+        "mu": tree_unflatten(like, host(state.mu)),
+        "nu": tree_unflatten(like, host(state.nu)),
+    }

@@ -906,3 +906,92 @@ def test_sharded_engine_on_the_card_matches_serial(cuda):
         x = torch.from_numpy(r.astype(np.int32)[:, None, :]).to(cuda)
         want = tnet.run_int(net, qp, x).spike_counts[0].cpu().numpy()
         assert np.array_equal(res4[uid], want) and np.array_equal(res1[uid], want)
+
+
+# ---------------------------------------------------------------------------
+# LM training
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["stablelm-1.6b", "qwen2-moe-a2.7b"])
+def test_one_lm_train_step_on_the_card_matches_the_cpu(cuda, name):
+    """build_train_step at f32 compute (qwen2-moe: shared experts) from the
+    same parameters and batch, held stage by stage: the loss within 1e-5
+    relative, every gradient leaf (read where the step clips them) within
+    1e-5 of its max |g|, and the AdamW update from the same gradients
+    within 1e-5 of each leaf's max |w|."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.core.precision import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import ShapeSpec, get_arch
+    from repro_torch.train import optimizer as topt
+
+    arch = get_arch(name)
+    cfg = dataclasses.replace(arch.reduced_config, compute_dtype=torch.float32)
+    shape = ShapeSpec("t", 32, 4, "train")
+    params = arch.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = arch.input_concrete(torch.Generator().manual_seed(1), shape, cfg)
+    seen, real = [], topt.clip_by_global_norm
+
+    def spy(grads, max_norm, batch_dims=0):
+        seen.append([g.cpu() for g in grads])
+        return real(grads, max_norm, batch_dims)
+
+    def run(dev):
+        p = tree_map(lambda _, t: t.to(dev, copy=True), params)
+        opt = topt.adamw(3e-4)
+        st = opt.init([t for _, t in tree_leaves(p)])
+        step = steps.build_train_step(arch, shape, None, cfg, optimizer=opt).jitted
+        return step(p, st, {k: v.to(dev) for k, v in batch.items()})[2]["loss"]
+
+    with mock.patch.object(topt, "clip_by_global_norm", spy):
+        lg, lc = float(run(cuda)), float(run("cpu"))
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    g_card, g_cpu = seen
+    for a, b in zip(g_card, g_cpu):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    clipped, _ = real(g_cpu, 1.0)
+    leaves = [t for _, t in tree_leaves(params)]
+    updated = []
+    for dev in ("cpu", cuda):
+        opt = topt.adamw(3e-4)
+        ps = [t.to(dev) for t in leaves]
+        upd, _ = opt.update([g.to(dev) for g in clipped], opt.init(ps), ps)
+        updated.append([(p + u).cpu() for p, u in zip(ps, upd)])
+    for a, b in zip(*updated):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_flash_attend_refuses_inputs_that_require_grad_on_the_card(cuda):
+    from repro_torch.kernels.flash_attention.ops import flash_attend
+
+    q = torch.randn(1, 128, 2, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 128, 2, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attend(q, k, k)
+    with torch.no_grad():
+        assert flash_attend(q, k, k).shape == q.shape
+
+
+def test_moe_routing_on_the_card_matches_the_cpu(cuda):
+    """The same router logits routed on both devices: the same experts for
+    every token and ties kept on the lower expert (torch.topk promises no
+    tie order on the card; the port sorts stably)."""
+    from repro_torch.models import mlp
+    from repro_torch.models.registry import get_arch
+
+    cfg = get_arch("granite-moe-1b-a400m").config.moe  # 32 experts, top 8
+    logits = torch.randn(4, 256, cfg.n_experts, generator=torch.Generator().manual_seed(0))
+    logits[0, :16] = 0.0  # all tied
+    logits[1, :16] = 0.0
+    logits[1, :16, ::2] = 1.0  # 16 tied for 8 places
+    gc, auxc = mlp._route(cfg, logits)
+    gg, auxg = mlp._route(cfg, logits.to(cuda))
+    assert torch.equal(gg.cpu() > 0, gc > 0)
+    assert (gc[0, :16] > 0).nonzero()[:, 1].reshape(16, 8).tolist() == [list(range(8))] * 16
+    assert (gc[1, :16] > 0).nonzero()[:, 1].reshape(16, 8).tolist() == [list(range(0, 16, 2))] * 16
+    torch.testing.assert_close(gg.cpu(), gc, rtol=1e-6, atol=1e-7)
+    assert abs(float(auxg) - float(auxc)) <= 1e-6 * float(auxc)

@@ -37,6 +37,7 @@ from repro_torch.models.registry import SHAPES, get_arch, list_archs
 from repro_torch.serve import engine as t_engine
 
 DENSE = ["gemma2-27b", "nemotron-4-15b", "phi3-medium-14b", "stablelm-1.6b"]
+PORTED = sorted(DENSE + ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"])  # the MoE family too
 RULES = t_launch.QUANT_RULES[0]
 
 
@@ -48,6 +49,8 @@ def jax_quant_kernel():
 
 
 def _field_value(v):
+    if dataclasses.is_dataclass(v):  # MoEConfig
+        return dataclasses.astuple(v)
     if isinstance(v, torch.dtype):
         return str(v).removeprefix("torch.")
     if isinstance(v, type) or hasattr(v, "dtype"):  # a jnp dtype class
@@ -58,11 +61,11 @@ def _field_value(v):
 def test_registry_holds_the_four_dense_configs_field_for_field():
     from repro.models.registry import SHAPES as J_SHAPES
 
-    assert list_archs() == DENSE and set(DENSE) <= set(j_list_archs())
+    assert list_archs() == PORTED and set(PORTED) <= set(j_list_archs())
     assert {k: dataclasses.astuple(v) for k, v in SHAPES.items()} == {
         k: dataclasses.astuple(v) for k, v in J_SHAPES.items()
     }
-    for name in DENSE:
+    for name in PORTED:
         t, j = get_arch(name), j_get_arch(name)
         assert (t.name, t.family, t.skip_shapes, t.skip_reason, t.n_vision_tokens) == (
             j.name, j.family, j.skip_shapes, j.skip_reason, j.n_vision_tokens,
@@ -73,7 +76,7 @@ def test_registry_holds_the_four_dense_configs_field_for_field():
             assert tf == jf, name
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_model_template_shapes_match_jax(name):
     t, j = get_arch(name), j_get_arch(name)
     got = {}

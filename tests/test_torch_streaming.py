@@ -82,8 +82,14 @@ def _raster(net, T, seed=1, rate=0.3):
 
 
 def _prefix_counts(net, qparams, raster, b, cache={}):
-    """Serial oracle: run_int on the first b steps == cumulative counts."""
-    key = (id(qparams), raster.tobytes(), b)
+    """Serial oracle: run_int on the first b steps == cumulative counts.
+
+    Cached by content -- the network config and the quantized arrays'
+    shapes and bytes -- never by ``id(qparams)``: a freed ``qparams``'s id
+    is reused by the next combo's, which would read the earlier net's
+    counts."""
+    arrays = tuple((tuple(t.shape), t.numpy().tobytes()) for p in qparams for t in p)
+    key = (net, arrays, raster.tobytes(), b)
     if key not in cache:
         if b == 0:
             cache[key] = np.zeros(net.n_classes, np.int64)
