@@ -119,10 +119,37 @@ result line):
    stage by stage within 1e-5; ``ServeEngine`` on int8 granite-moe at full
    width (8 requests), every ``quant_matmul`` launch equal to its plain
    version;
-14. a ``kernels`` JSON line (launches on phases 3-7 and 9-13, times,
+14. the SSM, hybrid and VLM LMs at full width (random weights from a
+   seeded generator): (a) mamba2-780m, all 48 layers: ``ServeEngine`` int8
+   on 16 requests of 4-12 prompt tokens (sampled requests against a
+   serial decode of their prompt alone) and int4 on 4, ``quant_matmul``
+   launches = 48 x 2 x decode steps, each held to its plain version, then
+   the same traffic served again with nothing recorded, which is the pass
+   timed; a 512-token f32 prefill (two SSD chunks) against 512 decode
+   steps replayed from a CUDA graph (every layer's state and conv state
+   and the next logits within 2e-3); a 4096-token int8 prefill, checked,
+   then timed warm; (b) its train step as phase 13's; (c) jamba-v0.1-52b at full
+   width cut to one pattern group (8 of 32 layers: 1 attention + 7 SSD,
+   MoE 16 x top 2 on the even positions), int8 serving of 8 requests (30
+   quantized products a step; requests 0 and 5 against serial decodes, as
+   in (d)) and a 4096-token int8 prefill with one
+   ``flash_attention`` launch, the MoE's transient bytes reckoned first;
+   (d) qwen2-vl-2b (28 layers): a 4096-position int8 prefill of 256 patch
+   embeddings on a 16 x 16 M-RoPE grid and 3840 text tokens (28
+   ``flash_attention``, 196 ``quant_matmul`` launches), the same at 2
+   layers card == CPU, int8 serving of 8 requests, and a train step of
+   128 patches + 128 text tokens x batch 8; (e) reduced mamba2, jamba
+   (its routing card == CPU) and qwen2-vl train steps card vs CPU stage by
+   stage within 1e-5 (SSM gradients 1e-4, and each f32 gradient of an SSM
+   config against an f64 step on the CPU: the card's within 4x the CPU's
+   distance).  Every ``quant_matmul`` launch of phase 14 is held to its
+   plain version, its atol widened with K (``qm_tol_k``), and every
+   ``flash_attention`` launch to its plain version at FA_TOL, with planted
+   faults outside it;
+15. a ``kernels`` JSON line (launches on phases 3-7 and 9-14, times,
    bounds); phases 3-5 and 9-12 also print the SNN kernels' launches by
    size;
-15. the result line.
+16. the result line.
 """
 
 from __future__ import annotations
@@ -990,11 +1017,12 @@ def lm_policy(bits: int) -> PrecisionPolicy:
     return PrecisionPolicy(rules=((QUANT_RULES[0], bits),))
 
 
-def lm_requests(n: int, max_new: int, vocab: int) -> list[Request]:
-    """Prompts of 4-32 tokens over the full vocab; request 9 repeats request
-    0's prompt, so with 8 slots the two land in different waves."""
+def lm_requests(n: int, max_new: int, vocab: int, max_prompt: int = 32) -> list[Request]:
+    """Prompts of 4-``max_prompt`` tokens over the full vocab; request 9
+    repeats request 0's prompt, so with 8 slots the two land in different
+    waves."""
     rng = np.random.default_rng(11)
-    prompts = [rng.integers(0, vocab, int(rng.integers(4, 33))) for _ in range(n)]
+    prompts = [rng.integers(0, vocab, int(rng.integers(4, max_prompt + 1))) for _ in range(n)]
     if n > 9:
         prompts[9] = prompts[0].copy()
     return [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
@@ -1039,10 +1067,12 @@ SERIAL_TOL = 1e-3
 SERIAL_UIDS = (0, 5, 9, 13)  # request 9 repeats request 0's prompt
 
 
-def record_logits(engine: ServeEngine, uids) -> tuple[dict, dict]:
-    """Wrap ``engine``'s decode step, admission and tick so that each request
-    in ``uids`` keeps its slot and the logits row that chose each of its
-    generated tokens (a device copy per token)."""
+@contextlib.contextmanager
+def record_logits(engine: ServeEngine, uids):
+    """Wrap ``engine``'s decode step, admission and tick while the block runs
+    so that each request in ``uids`` keeps its slot and the logits row that
+    chose each of its generated tokens (a device copy per token); yields
+    (rows, slot_of)."""
     rows, slot_of, last = {u: [] for u in uids}, {}, {}
     decode, admit, tick = engine._decode, engine.admit, engine.tick
 
@@ -1065,7 +1095,10 @@ def record_logits(engine: ServeEngine, uids) -> tuple[dict, dict]:
         return finished
 
     engine._decode, engine.admit, engine.tick = _decode, _admit, _tick
-    return rows, slot_of
+    try:
+        yield rows, slot_of
+    finally:
+        del engine._decode, engine.admit, engine.tick  # the class's methods again
 
 
 def serial_decode(engine: ServeEngine, req: Request, slot: int) -> list[torch.Tensor]:
@@ -1089,47 +1122,88 @@ def serial_decode(engine: ServeEngine, req: Request, slot: int) -> list[torch.Te
     return rows
 
 
-def phase_lm_decode(arch, params, bits: int, n_requests: int, max_new: int) -> dict:
+def qdots_per_step(qparams) -> int:
+    """``quant_matmul`` launches of one decode step, from the quantized
+    tree: each stacked QTensor leaf [groups, K, N] runs once a group."""
+    return sum(t.shape[0] for _, t in tree_leaves(qparams) if isinstance(t, QTensor))
+
+
+def phase_lm_decode(
+    arch, params, bits: int, n_requests: int, max_new: int, qdots: int,
+    *, check_plain: bool = False, max_prompt: int = 32, smi: str = "",
+) -> dict:
+    """Serve ``n_requests`` (prompts of 4-``max_prompt`` tokens) through
+    ``ServeEngine(max_batch=8, max_len=256)`` on ``arch.config``; ``qdots``
+    quantized products a decode step (checked against the quantized tree).
+    At int8, sampled requests against a serial decode of their prompt alone.
+    ``check_plain``: every ``quant_matmul`` launch of the run against its
+    plain version; the recording slows that pass, so the same traffic is
+    then served again with nothing recorded, and that pass is the one timed
+    (it must take the same steps and serve the same tokens)."""
     full = dataclasses.replace(arch, reduced_config=arch.config)
     engine = ServeEngine(
         full, params, max_batch=8, max_len=256, quant=lm_policy(bits), device=DEVICE
     )
-    reqs = lm_requests(n_requests, max_new, arch.config.vocab)
+    check(qdots_per_step(engine.params) == qdots, f"int{bits}: {qdots} quantized products a step")
+    reqs = lm_requests(n_requests, max_new, arch.config.vocab, max_prompt)
     uids = [u for u in SERIAL_UIDS if u < n_requests] if bits == 8 else []
-    rows, slot_of = record_logits(engine, uids)
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = engine.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
+    with record_logits(engine, uids) as (rows, slot_of), (
+        recorded_quant_matmul() if check_plain else contextlib.nullcontext([])
+    ) as seen:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
     steps = engine.decode_steps
     check(len(done) == n_requests and all(r.done for r in done), f"int{bits}: all served")
     check(all(len(r.generated) == max_new for r in done), f"int{bits}: token counts")
     vocab = arch.config.vocab
     check(all(0 <= t < vocab for r in done for t in r.generated), f"int{bits}: tokens in vocab")
-    n_qdots = QDOTS_PER_LAYER * arch.config.n_layers
-    check(counts["quant_matmul"] == n_qdots * steps, f"int{bits}: quant_matmul launches")
+    check(counts["quant_matmul"] == qdots * steps, f"int{bits}: quant_matmul launches")
     check(counts["flash_attention"] == 0, f"int{bits}: decode launches no flash attention")
     by_uid = {r.uid: r.generated for r in done}
     if n_requests > 9:
         check(by_uid[0] == by_uid[9], "requests 0 and 9 (one prompt, two waves) differ")
+    how = ""
+    if check_plain:
+        again = lm_requests(n_requests, max_new, vocab, max_prompt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        redo = engine.run(again)
+        torch.cuda.synchronize()
+        how = f" (the timed pass, nothing recorded; the checked pass {wall:.3f} s)"
+        wall = time.perf_counter() - t0
+        check(engine.decode_steps == 2 * steps, f"int{bits}: the timed pass took other steps")
+        check({r.uid: r.generated for r in redo} == by_uid,
+              f"int{bits}: the timed pass served other tokens")
     toks = sum(len(r.generated) for r in done)
     prompt_toks = sum(len(r.prompt) for r in reqs)
     first = {r.uid: r.generated[0] for r in done}
     print(
         f"lm decode int{bits}: {arch.name} full width, {n_requests} requests ({prompt_toks} "
         f"prompt tokens, prefilled token by token), {toks} generated; {steps} decode steps in "
-        f"{wall:.3f} s = {1e3 * wall / steps:.3f} ms/step, {toks / wall:.1f} generated tok/s, "
-        f"{(toks + prompt_toks) / wall:.1f} tok/s with prefill; req0 {by_uid[0][:6]}...; "
+        f"{wall:.3f} s{how} = {1e3 * wall / steps:.3f} ms/step, {toks / wall:.1f} generated "
+        f"tok/s, {(toks + prompt_toks) / wall:.1f} tok/s with prefill; req0 {by_uid[0][:6]}...; "
         f"{len(set(first.values()))} distinct first tokens over "
         f"{len({tuple(r.prompt.tolist()) for r in reqs})} distinct prompts"
+        f"{f'; on {smi}' if smi else ''}"
     )
+    if check_plain:
+        check(len(seen) == counts["quant_matmul"], f"int{bits}: recorded launches != counted")
+        err = check_recorded_qm(seen, f"{arch.name} int{bits} serving")
+        print(
+            f"lm decode int{bits}: {arch.name}'s {len(seen)} quant_matmul launches = {qdots} x "
+            f"{steps}, each within qm_tol_k of plain (max_abs_err {err:.3e})"
+        )
+        del seen
     if uids:
         check_against_serial(engine, reqs, by_uid, rows, slot_of)
     if bits == 8:  # where one decode step's time goes (after the counts were read)
-        print(f"lm decode step split: {device_split(lambda: engine._decode(engine.last_token))}")
+        split = device_split(lambda: engine._decode(engine.last_token))
+        print(f"lm decode step split ({arch.name}): {split}{f'; on {smi}' if smi else ''}")
     return counts
 
 
@@ -1247,6 +1321,22 @@ def phase_lm_prefill(arch, qparams) -> dict:
     return counts
 
 
+def card_cpu_agree(got, want, what, tol: float = 0.05) -> tuple[float, int]:
+    """Card logits against CPU logits at bf16 compute: the kernels round in
+    other places than the plain versions, so within 5 % of max |logit|
+    (tests/test_torch_lm_serve.py) and the same greedy token wherever the
+    top-2 margin is clear of that.  Returns (error / max |logit|, decided)."""
+    got, want = got.float().cpu(), want.float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(err <= tol * scale, f"{what}: card vs CPU max err {err} > {tol} x {scale}")
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol * scale
+    same = got.argmax(-1)[decided] == want.argmax(-1)[decided]
+    check(bool(same.all()), f"{what}: greedy token differs where the margin is clear")
+    return err / scale, int(decided.sum())
+
+
 def phase_lm_card_vs_cpu(arch) -> None:
     """Full widths, 2 layers: the card (kernels) against the CPU (plain)."""
     cfg = dataclasses.replace(arch.config, n_layers=2)
@@ -1255,27 +1345,12 @@ def phase_lm_card_vs_cpu(arch) -> None:
     params_gpu = tree_map(
         lambda _, t: t.to(DEVICE) if isinstance(t, (torch.Tensor, QTensor)) else t, params_cpu
     )
-    # bf16 compute: the kernels round in other places than the plain
-    # versions; hold logits to 5 % of max |logit| (tests/test_torch_lm_serve.py)
-    tol = 0.05
-
-    def agree(got, want, what):
-        got, want = got.float().cpu(), want.float()
-        scale = float(want.abs().max())
-        err = float((got - want).abs().max())
-        check(err <= tol * scale, f"{what}: card vs CPU max err {err} > {tol} x {scale}")
-        top2 = want.topk(2, dim=-1).values
-        decided = (top2[..., 0] - top2[..., 1]) > 2 * tol * scale
-        same = got.argmax(-1)[decided] == want.argmax(-1)[decided]
-        check(bool(same.all()), f"{what}: greedy token differs where the margin is clear")
-        return err / scale, int(decided.sum())
-
     tok = torch.tensor([[17], [cfg.vocab - 7]])
     cur = torch.zeros(2, dtype=torch.int32)
     caches = tfm.cache_init(cfg, 2, 8, DEVICE)
     lg, _ = tfm.decode_step(cfg, params_gpu, caches, tok.to(DEVICE), cur.to(DEVICE))
     lc, _ = tfm.decode_step(cfg, params_cpu, tfm.cache_init(cfg, 2, 8, device="cpu"), tok, cur)
-    d_err, d_n = agree(lg, lc, "decode_step")
+    d_err, d_n = card_cpu_agree(lg, lc, "decode_step")
     tokens = torch.from_numpy(np.random.default_rng(13).integers(0, cfg.vocab, (1, 4096)))
     kernels.reset_launch_counts()
     pg, _ = tfm.prefill(cfg, params_gpu, tokens.to(DEVICE))
@@ -1283,7 +1358,7 @@ def phase_lm_card_vs_cpu(arch) -> None:
     check(kernels.launch_counts()["flash_attention"] == 2, "2-layer prefill launches flash twice")
     check(kernels.launch_counts()["quant_matmul"] == 2 * QDOTS_PER_LAYER, "2-layer prefill qdots")
     pc, _ = tfm.prefill(cfg, params_cpu, tokens)
-    p_err, p_n = agree(pg, pc, "prefill")
+    p_err, p_n = card_cpu_agree(pg, pc, "prefill")
     print(
         f"lm card vs CPU (full width, 2 layers, int8): decode_step max err {d_err:.3e} of max "
         f"|logit| ({d_n}/2 greedy tokens decided, equal); prefill S=4096 {p_err:.3e} "
@@ -1721,6 +1796,15 @@ def phase_dse_refine(dse) -> dict:
 QS_ACC_FLOOR = 0.90
 QS_EPOCHS = 8
 CARD_VS_CPU_TOL = 1e-5  # tests/test_torch_cuda.py: loss relative, parameters / max |w|
+# An SSD's gradients through exp(cs_i - cs_j) of chunk cumsums differ between
+# two f32 orders by more than 1e-5 of max |g| (reduced jamba card vs CPU on an
+# H100: 3.9e-5; dense configs ~1e-6), so SSM configs hold gradients to the
+# 1e-4 at which tests/test_torch_lm_train.py holds the port to JAX on the CPU.
+# The witness: the same step on the CPU in f64.  The CPU's own f32 gradients
+# lie 1.5e-5 (mamba2) and 4.1e-5 (jamba) of max |g| from it, so f32 cannot do
+# better; the card's must lie no more than SSM_F64_RATIO times as far.
+SSM_GRAD_TOL = 1e-4
+SSM_F64_RATIO = 4.0
 
 
 def quickstart_setup():
@@ -2530,7 +2614,8 @@ def loop_optimizer():
 def matmul_params(arch, cfg) -> float:
     """The parameters one token multiplies by: every 2-D block weight, the
     routed experts' at top_k / n_experts, the head (the tied embedding or
-    ``lm_head``); not norms, biases or the input embedding's lookup."""
+    ``lm_head``); not norms, biases, the SSD's depthwise conv or the input
+    embedding's lookup."""
     n = 0.0
     for path, spec in tree_leaves(arch.template(cfg)):
         shape = spec.shape
@@ -2538,7 +2623,7 @@ def matmul_params(arch, cfg) -> float:
             n += math.prod(shape) if cfg.tie_embeddings else 0
         elif path == "lm_head":
             n += math.prod(shape)
-        elif path.startswith("blocks/") and len(shape) >= 3:
+        elif path.startswith("blocks/") and len(shape) >= 3 and not path.endswith("/conv_w"):
             share = 1.0
             if "/moe/w_" in path:
                 share = cfg.moe.top_k / cfg.moe.n_experts
@@ -2548,10 +2633,23 @@ def matmul_params(arch, cfg) -> float:
 
 def model_flops_per_token(arch, cfg, seq: int) -> float:
     """Model FLOPs of one token's forward and backward: 6 x ``matmul_params``
-    plus attention's scores and values, 12 x layers x seq x heads x d_head
-    (PaLM's model FLOPs; the causal half not taken off; remat's recompute
-    not counted)."""
-    return 6 * matmul_params(arch, cfg) + 12 * cfg.n_layers * seq * cfg.n_heads * cfg.d_head
+    plus attention's scores and values, 12 x attention layers x seq x heads
+    x d_head (PaLM's model FLOPs; the causal half not taken off; remat's
+    recompute not counted), plus 3 x the SSD's forward products per token
+    and SSM layer: 2 (chunk x G x N + chunk x H x P + 2 H x P x N), the
+    intra-chunk scores and outputs, the chunk states and the inter-chunk
+    outputs (the chunk is min(cfg.ssm.chunk, seq))."""
+    pattern = tfm.layer_pattern(cfg)
+    groups = tfm.n_groups(cfg)
+    n_attn = groups * sum(k.mixer == "attn" for k in pattern)
+    flops = 6 * matmul_params(arch, cfg) + 12 * n_attn * seq * cfg.n_heads * cfg.d_head
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        ch = min(s.chunk, seq)
+        hp = s.n_heads * s.head_dim
+        fwd = 2 * (ch * s.n_groups * s.d_state + ch * hp + 2 * hp * s.d_state)
+        flops += 3 * fwd * groups * sum(k.mixer == "ssm" for k in pattern)
+    return flops
 
 
 def route_card_vs_cpu(cfg, params, tokens) -> str:
@@ -2630,6 +2728,19 @@ def phase_lm_train_full(name: str, smi: str) -> dict:
     data = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
     batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in next(data).items()}
                for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    if arch.family == "vlm":  # input_template's split: 128 patches (an 8 x 16 grid) + 128 text
+        n_vis = min(arch.n_vision_tokens, TRAIN_SEQ // 2)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        pos3 = vlm_positions3(TRAIN_BATCH, 8, n_vis // 8, TRAIN_SEQ)
+        batches = [
+            {"tokens": b["tokens"][:, n_vis:], "targets": b["targets"][:, n_vis:],
+             "vision_embeds": torch.randn(TRAIN_BATCH, n_vis, cfg.d_model, device=DEVICE,
+                                          generator=gen).to(torch.bfloat16),
+             "positions3": pos3}
+            for b in batches
+        ]
+        want = {k: s for k, (s, _) in arch.input_template(shape, cfg).items()}
+        check({k: tuple(v.shape) for k, v in batches[0].items()} == want, f"{name}: batch shapes")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     reset_counts()
@@ -2647,7 +2758,7 @@ def phase_lm_train_full(name: str, smi: str) -> dict:
     check(sum(counts.values()) == 0, f"{name}: the train step launched a kernel: {counts}")
     timed = secs[TRAIN_WARMUP:]
     step_s = statistics.mean(timed)
-    tokens = TRAIN_SEQ * TRAIN_BATCH
+    tokens = TRAIN_SEQ * TRAIN_BATCH  # positions through the model (patches included)
     flops = model_flops_per_token(arch, cfg, TRAIN_SEQ) * tokens
     print(
         f"lm train {name}: full width ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
@@ -2728,15 +2839,54 @@ def phase_lm_train_loop(smi: str) -> dict:
     return counts
 
 
-def phase_lm_train_card_vs_cpu() -> None:
+def f64_step(arch, cfg, shape, params, batch) -> None:
+    """The reduced train step on the CPU with every float32 of the program
+    run as float64: the parameters and the compute dtype f64 and
+    ``torch.float32`` itself patched to ``torch.float64`` for the call, so
+    the casts to f32 in the model cast to f64.  The caller's spy on
+    ``clip_by_global_norm`` reads its gradients."""
+    f64 = torch.float64
+    p = tree_map(lambda _, t: t.to(f64, copy=True), params)
+    opt = loop_optimizer()
+    st = opt.init([t for _, t in tree_leaves(p)])
+    c64 = dataclasses.replace(cfg, compute_dtype=f64)
+    step = build_train_step(arch, shape, None, c64, optimizer=opt).jitted
+    with mock.patch.object(torch, "float32", f64):
+        step(p, st, batch)
+
+
+def f64_witness(params, seen) -> str:
+    """The card's (``seen[0]``) and the CPU's (``seen[1]``) f32 gradients
+    against the CPU's f64 ones (``seen[2]``), leaf by leaf as max |error| /
+    max |g|: the card's worst must be within SSM_F64_RATIO of the CPU's."""
+    g_card, g_cpu, g64 = seen
+    check(all(g.dtype == torch.float64 for g in g64), "f64 witness: a gradient is not f64")
+    names = [n for n, _ in tree_leaves(params)]
+    card = sorted(((rel_err(a, w), n) for a, w, n in zip(g_card, g64, names)), reverse=True)
+    cpu = sorted(((rel_err(a, w), n) for a, w, n in zip(g_cpu, g64, names)), reverse=True)
+    check(card[0][0] <= SSM_F64_RATIO * cpu[0][0],
+          f"f64 witness: the card's f32 gradients {card[0][0]:.3e} of max |g| from f64, the "
+          f"CPU's {cpu[0][0]:.3e}")
+    top = lambda errs: ", ".join(f"{n} {e:.3e}" for e, n in errs[:3])
+    return (
+        f"gradients against the CPU's f64 step, max |error| / max |g| of the worst leaves: "
+        f"card f32 {top(card)}; CPU f32 {top(cpu)} (ratio of the worst "
+        f"{card[0][0] / cpu[0][0]:.3f}, limit {SSM_F64_RATIO})"
+    )
+
+
+def phase_lm_train_card_vs_cpu(names=("stablelm-1.6b", "qwen2-moe-a2.7b")) -> None:
     """One reduced-config train step at f32 compute on the card and on the
-    CPU from the same parameters and batch (stablelm; qwen2-moe with shared
-    experts), held stage by stage to CARD_VS_CPU_TOL: the loss, each
+    CPU from the same parameters and batch (phase 13: stablelm; qwen2-moe
+    with shared experts; phase 14: mamba2, jamba, qwen2-vl with patch
+    embeddings), held stage by stage to CARD_VS_CPU_TOL (SSM configs'
+    gradients to SSM_GRAD_TOL, and both f32 gradients against an f64 step on
+    the CPU, :func:`f64_witness`): the loss, each
     gradient leaf (read where the step clips them) and the AdamW update
     from the CPU's clipped gradients on both devices; the composed step's
-    parameters printed."""
+    parameters printed; a MoE config's layer-0 routing card == CPU."""
     real = opt_mod.clip_by_global_norm
-    for name in ("stablelm-1.6b", "qwen2-moe-a2.7b"):
+    for name in names:
         arch = get_arch(name)
         cfg = dataclasses.replace(arch.reduced_config, compute_dtype=torch.float32)
         shape = ShapeSpec("train", 64, 4, "train")
@@ -2756,10 +2906,15 @@ def phase_lm_train_card_vs_cpu() -> None:
                 step = build_train_step(arch, shape, None, cfg, optimizer=opt).jitted
                 p, _, m = step(p, st, {k: v.to(dev) for k, v in batch.items()})
                 out[dev] = (float(m["loss"]), [t.cpu() for _, t in tree_leaves(p)])
+            if cfg.ssm is not None:
+                f64_step(arch, cfg, shape, params, batch)
         (lg, pg), (lc, pc) = out[DEVICE], out["cpu"]
         check(abs(lg - lc) <= CARD_VS_CPU_TOL * abs(lc), f"{name}: train loss card {lg} vs CPU {lc}")
-        g_err = max(rel_err(a, b) for a, b in zip(*seen))
-        check(g_err <= CARD_VS_CPU_TOL, f"{name}: gradients card vs CPU {g_err:.3e} of max |g|")
+        g_err = max(rel_err(a, b) for a, b in zip(seen[0], seen[1]))
+        g_tol = SSM_GRAD_TOL if cfg.ssm is not None else CARD_VS_CPU_TOL
+        check(g_err <= g_tol, f"{name}: gradients card vs CPU {g_err:.3e} of max |g|")
+        if cfg.ssm is not None:
+            print(f"lm train card vs CPU ({name} reduced): {f64_witness(params, seen)}")
         clipped, _ = real(seen[1], 1.0)
         leaves = [t for _, t in tree_leaves(params)]
         updated = {}
@@ -2771,10 +2926,16 @@ def phase_lm_train_card_vs_cpu() -> None:
         u_err = max(rel_err(a, b) for a, b in zip(updated[DEVICE], updated["cpu"]))
         check(u_err <= CARD_VS_CPU_TOL, f"{name}: AdamW update card vs CPU {u_err:.3e} of max |w|")
         composed = max(rel_err(a, b) for a, b in zip(pg, pc))
+        if cfg.moe is not None:
+            p_card = tree_map(lambda _, t: t.to(DEVICE), params)
+            tokens = batch["tokens"][:, : cfg.moe.seq_chunk].to(DEVICE)
+            route = route_card_vs_cpu(cfg, p_card, tokens)
+            print(f"lm train card vs CPU ({name} reduced): {route}")
         print(
             f"lm train card vs CPU ({name} reduced, f32 compute, seq 64 x batch 4): loss "
-            f"{lg:.8f} vs {lc:.8f}; gradients within {g_err:.3e} of max |g|, the AdamW update "
-            f"from the same gradients within {u_err:.3e} of max |w| (limit {CARD_VS_CPU_TOL}); the "
+            f"{lg:.8f} vs {lc:.8f}; gradients within {g_err:.3e} of max |g| (limit {g_tol}), the "
+            f"AdamW update from the same gradients within {u_err:.3e} of max |w| (limit "
+            f"{CARD_VS_CPU_TOL}); the "
             f"composed step's parameters within {composed:.3e} of max |w|"
         )
 
@@ -2838,6 +2999,341 @@ def phase_lm_serve_moe(smi: str) -> dict:
     del engine, seen
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the SSM, hybrid and VLM LMs at full width
+# ---------------------------------------------------------------------------
+
+SSM_ARCH, HYBRID_ARCH, VLM_ARCH = "mamba2-780m", "jamba-v0.1-52b", "qwen2-vl-2b"
+# the SSD against the token-by-token recurrence:
+# tests/test_models.py::test_ssd_scan_matches_naive_recurrence's limit
+SSD_TOL = 2e-3
+SSD_PREFILL = 512  # two SSD chunks of 256: the inter-chunk recurrence runs
+LONG_PREFILL = 4096
+# phase 14's served prompts: 4-12 tokens (admission prefills token by token,
+# one decode step a token, so the prompts set most of a run's steps)
+SHORT_PROMPT = 12
+
+
+def qm_tol_k(K: int, want: torch.Tensor) -> dict:
+    """Phase 2's bf16 tolerance with its atol widened to the f32 summation
+    bound of K terms at the output's scale, K x 2^-24 x max |want|.  The
+    tensor cores accumulate bf16 products less exactly than f32 FFMA, and
+    the gap grows with K: scripts/quant_matmul_accumulation_check.py on an
+    H100 puts the kernel and cuBLAS's own bf16 GEMM (f32 out) at the same
+    error against f64, 1.150e-05 of max |y| at K = 14336 (f32 FFMA 1.8e-6),
+    where a near-zero output then misses atol 1e-5.  A dropped 64-deep K
+    block (~0.09 at K = 8192 for unit activations) still lies ~30x outside."""
+    atol = max(QM_TOL["atol"], K * 2.0**-24 * float(want.abs().max()))
+    return dict(rtol=QM_TOL["rtol"], atol=atol)
+
+
+def check_recorded_qm(seen, what: str) -> float:
+    """Each recorded ``quant_matmul`` launch against ``quant_matmul_ref`` to
+    :func:`qm_tol_k`.  The launches of one weight are checked in one plain
+    call over their rows stacked (the plain version's rows are independent
+    of each other); returns the max abs error."""
+    groups: dict = {}
+    for x, q, scale, bits, out in seen:
+        groups.setdefault((q.data_ptr(), tuple(q.shape), bits), []).append((x, q, scale, out))
+    err = 0.0
+    for (_, _, bits), items in groups.items():
+        x = torch.cat([i[0] for i in items])
+        out = torch.cat([i[3] for i in items])
+        q, scale = items[0][1], items[0][2]
+        want = quant_matmul_ref(x, q, scale, bits, out.dtype)
+        K, N = q.shape[0], scale.shape[0]
+        shape = f"{len(items)} launches, [{x.shape[0]},{K}]x[{K},{N}]"
+        tol = qm_tol_k(q.shape[0], want)
+        err = max(err, close(out, want, tol, f"{what}: quant_matmul int{bits} {shape}"))
+    return err
+
+
+def vlm_positions3(B: int, rows: int, cols: int, S: int) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE positions [3, B, S] of a rows x cols patch grid
+    followed by text: patch (r, c) at (t, h, w) = (0, r, c), the text from
+    the largest position + 1 on all three components."""
+    n_vis = rows * cols
+    r, c = torch.arange(n_vis) // cols, torch.arange(n_vis) % cols
+    vis = torch.stack([torch.zeros(n_vis, dtype=torch.int64), r, c])
+    text = (max(rows, cols) + torch.arange(S - n_vis)).expand(3, -1)
+    pos = torch.cat([vis, text], dim=1)[:, None].expand(3, B, S)
+    return pos.to(torch.int32).contiguous().to(DEVICE)
+
+
+@contextlib.contextmanager
+def recorded_flash_attention():
+    """Every ``flash_attention`` launch made through ``flash_attend`` while
+    the block runs: (q, k, v, keyword arguments, out) in [B, H, S, D]."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    seen, real = [], fa_ops.flash_attention
+
+    def record(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        seen.append((q.clone(), k.clone(), v.clone(), kw, out.clone()))
+        return out
+
+    with mock.patch.object(fa_ops, "flash_attention", record):
+        yield seen
+
+
+def check_recorded_fa(seen, what: str) -> tuple[float, dict]:
+    """Each recorded ``flash_attention`` launch against
+    ``flash_attention_ref`` (query head h on kv head h // (Hq / Hk)) to
+    FA_TOL.  The first launch of each shape also against planted faults,
+    each of which must fall outside: a 2x scale, no causal mask, query
+    head h on kv head h % Hk, a zero output.  Returns the max abs error and
+    the tolerance used by the kernel, then by each fault, per shape."""
+    err, used = 0.0, {}
+    for q, k, v, kw, out in seen:
+        rep = q.shape[1] // k.shape[1]
+        kr, vr = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+        want = flash_attention_ref(q, kr, vr, **kw)
+        shape = f"{list(q.shape)} kv heads {k.shape[1]}"
+        err = max(err, close(out, want, FA_TOL, f"{what}: flash_attention {shape}"))
+        if shape in used:
+            continue
+        scale = kw.get("scale") or q.shape[-1] ** -0.5
+        faults = {
+            "scale x2": flash_attention_ref(q, kr, vr, **{**kw, "scale": 2 * scale}),
+            "no causal mask": flash_attention_ref(q, kr, vr, **{**kw, "causal": False}),
+            "kv head h % Hk": flash_attention_ref(
+                q, k.repeat(1, rep, 1, 1), v.repeat(1, rep, 1, 1), **kw),
+            "zero output": torch.zeros_like(want),
+        }
+        used[shape] = {"kernel": tol_used(out, want, FA_TOL)}
+        for fault, wrong in faults.items():
+            used[shape][fault] = tol_used(wrong, want, FA_TOL)
+            check(used[shape][fault] > 1, f"{what}: planted fault {fault} passes the tolerance")
+    return err, used
+
+
+def timed_prefill(arch, cfg, qparams, batch, flash: int, qdots: int, what: str, smi: str) -> dict:
+    """One prefill through the registry's ``prefill_fn`` with every kernel
+    launch recorded: its launches counted, each ``quant_matmul`` launch held
+    to plain at :func:`qm_tol_k` and each ``flash_attention`` launch at
+    FA_TOL (:func:`check_recorded_fa`).  Then the same prefill again, warm
+    and with nothing recorded, timed; then its device split."""
+    prefill = arch.prefill_fn(cfg)
+    S = batch["tokens"].shape[1]
+    if "vision_embeds" in batch:
+        S += batch["vision_embeds"].shape[1]
+    with recorded_quant_matmul() as seen_qm, recorded_flash_attention() as seen_fa:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(qparams, batch)
+        torch.cuda.synchronize()
+        checked_s = time.perf_counter() - t0
+        counts = read_counts()
+    check(counts["flash_attention"] == flash == len(seen_fa),
+          f"{what}: {flash} flash_attention launches")
+    check(counts["quant_matmul"] == qdots == len(seen_qm), f"{what}: {qdots} quant_matmul launches")
+    check(logits.shape == (1, 1, cfg.vocab), f"{what}: logits shape")
+    check(bool(torch.isfinite(logits).all()), f"{what}: logits finite")
+    for pos, c in caches.items():
+        for name, t in c.items():
+            check(bool(torch.isfinite(t.float()).all()), f"{what}: cache {pos}/{name} finite")
+    del caches
+    qm_err = check_recorded_qm(seen_qm, what)
+    fa_err, fa_used = check_recorded_fa(seen_fa, what)
+    del seen_qm, seen_fa
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(qparams, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fa = (
+        f"{flash} flash_attention launches each within FA_TOL of plain (max_abs_err "
+        f"{fa_err:.3e}; tolerance used by the kernel, then by each planted fault (> 1 fails): "
+        f"{json.dumps({k: {f: round(u, 4) for f, u in d.items()} for k, d in fa_used.items()})})"
+    ) if flash else "no flash_attention"
+    print(
+        f"{what}: S={S} at full width (int8) in {wall:.3f} s warm with nothing recorded "
+        f"({S / wall:.1f} tok/s; the checked pass before it {checked_s:.3f} s, the first call at "
+        f"this size, every launch recorded); {qdots} quant_matmul launches each within qm_tol_k "
+        f"of plain (max_abs_err {qm_err:.3e}), {fa}; on {smi}"
+    )
+    split = device_split(lambda: prefill(qparams, batch), n=2, top=6, width=60)
+    print(f"{what} split: {split}; on {smi}")
+    return counts
+
+
+def phase_ssm_prefill(arch, qparams, smi: str) -> dict:
+    """mamba2-780m: one 4096-token int8 prefill (16 SSD chunks), timed;
+    2 quant_matmul launches a layer, no attention."""
+    cfg = arch.config
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(0, cfg.vocab, (1, LONG_PREFILL)))
+    return timed_prefill(arch, cfg, qparams, {"tokens": tokens.to(DEVICE)}, 0,
+                         2 * cfg.n_layers, "ssm prefill", smi)
+
+
+def phase_ssm_prefill_vs_decode(arch, params, smi: str) -> None:
+    """mamba2-780m at full width and f32 compute (float weights): a
+    512-token prefill (two SSD chunks) against 512 token-by-token decode
+    steps: every layer's final state and conv state and the next logits
+    within SSD_TOL of max |value| (layer by layer).  The decode steps replay
+    one CUDA graph of ``decode_step`` (the same kernels; eagerly at batch 1
+    a step is host-bound, ~42 ms on an H100 for ~1 ms of device work)."""
+    cfg = dataclasses.replace(arch.config, compute_dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(15).integers(0, cfg.vocab, (1, SSD_PREFILL)))
+    tokens = tokens.to(DEVICE)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, caches = tfm.prefill(cfg, params, tokens)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        dec = tfm.cache_init(cfg, 1, 1, DEVICE)
+        tok = torch.zeros_like(tokens[:, :1])
+        cur = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # one eager step before the capture
+            tfm.decode_step(cfg, params, dec, tok, cur)
+        torch.cuda.current_stream().wait_stream(side)
+        for _, t in tree_leaves(dec):
+            t.zero_()  # undo that step (decode writes the caches in place)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step_logits, _ = tfm.decode_step(cfg, params, dec, tok, cur)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(SSD_PREFILL):
+            tok.copy_(tokens[:, i : i + 1])
+            graph.replay()
+            cur += 1
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+    errs = {}
+    for name in ("state", "conv"):
+        got, want = dec["pos0"][name], caches["pos0"][name]
+        check(got.shape == want.shape, f"ssd {name} shapes {got.shape} vs {want.shape}")
+        scale = want.abs().amax(dim=tuple(range(1, want.dim())))
+        errs[name] = ((got - want).abs().amax(dim=tuple(range(1, want.dim()))) / scale).tolist()
+    errs["logits"] = [float((step_logits - logits).abs().max() / logits.abs().max())]
+    worst = {k: max(v) for k, v in errs.items()}
+    check(all(w <= SSD_TOL for w in worst.values()), f"ssd prefill vs decode: {worst}")
+    check(int(step_logits.argmax()) == int(logits.argmax()), "ssd prefill vs decode: next token")
+    print(
+        f"ssm prefill vs decode ({arch.name}, {cfg.n_layers} layers, f32): a {SSD_PREFILL}-token "
+        f"prefill ({t_prefill:.3f} s) against {SSD_PREFILL} decode steps replayed from a CUDA "
+        f"graph ({t_decode:.3f} s, {1e3 * t_decode / SSD_PREFILL:.3f} ms a step): max err / max |value| over the layers "
+        f"{json.dumps({k: float(f'{w:.3e}') for k, w in worst.items()})} (limit {SSD_TOL}), the "
+        f"same next token; on {smi}"
+    )
+
+
+def moe_prefill_bytes(cfg, S: int) -> dict[str, float]:
+    """The MoE's transient device bytes in one block of an S-token prefill
+    (B = 1): the experts cast to the compute dtype (what ``_moe_chunk``
+    holds per chunk), and per chunk the one-hot dispatch and combine, the
+    expert inputs, the two hidden products and their product."""
+    m = cfg.moe
+    chunk = min(m.seq_chunk, S)
+    cap = mlp_mod._capacity(m, chunk)
+    b = 2  # bf16
+    return {
+        "experts_cast": 3 * m.n_experts * m.d_model * m.d_ff_expert * b,
+        "dispatch_combine": 2 * chunk * m.n_experts * cap * b,
+        "expert_in_out": 2 * m.n_experts * cap * m.d_model * b,
+        "hidden": 3 * m.n_experts * cap * m.d_ff_expert * b,
+        "chunks": S // chunk,
+    }
+
+
+def phase_hybrid(smi: str) -> dict:
+    """jamba-v0.1-52b at full width, depth cut to one pattern group (1
+    attention + 7 SSD layers, MoE 16 x top 2 on the even positions): int8
+    serving of 8 requests (30 quantized products a step from the tree), a
+    4096-token int8 prefill with one flash_attention launch."""
+    arch = get_arch(HYBRID_ARCH)
+    cfg = dataclasses.replace(arch.config, n_layers=len(tfm.layer_pattern(arch.config)))
+    arch = dataclasses.replace(arch, config=cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = arch.init_params(torch.Generator(device=DEVICE).manual_seed(0))
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    n_experts = sum(t.numel() for p, t in tree_leaves(params) if "/moe/w_" in p)
+    qparams = quantize_tree(params, lm_policy(8))
+    del params
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    moe = moe_prefill_bytes(cfg, LONG_PREFILL)
+    transient = sum(v for k, v in moe.items() if k != "chunks")
+    free = torch.cuda.mem_get_info()[0]
+    print(
+        f"hybrid model: {arch.name} at full width, one pattern group ({cfg.n_layers} of "
+        f"{get_arch(HYBRID_ARCH).config.n_layers} layers), "
+        f"{n_params} f32 parameters ({n_experts} in the experts, 4-D leaves kept float), "
+        f"int8 block weights: {held / 2**30:.3f} GiB on the card "
+        f"({time.perf_counter() - t0:.2f} s); "
+        f"the MoE's transient bytes in one block of a {LONG_PREFILL}-token prefill "
+        f"{json.dumps({k: (v if k == 'chunks' else round(v / 2**30, 4)) for k, v in moe.items()})} "
+        f"GiB = {transient / 2**30:.3f} GiB per chunk beside {free / 2**30:.3f} GiB free: "
+        f"{'fits' if transient < free else 'does not fit'}; on {smi}"
+    )
+    check(transient < free, "hybrid: the MoE's prefill transients do not fit beside the engine")
+    served = phase_lm_decode(arch, qparams, 8, 8, 4, 30, check_plain=True,
+                             max_prompt=SHORT_PROMPT, smi=smi)
+    counts = collections.Counter(served)
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(0, cfg.vocab, (1, LONG_PREFILL)))
+    counts.update(timed_prefill(arch, cfg, qparams, {"tokens": tokens.to(DEVICE)}, 1, 30,
+                                "hybrid prefill", smi))
+    print(f"hybrid: peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"(max_memory_allocated); on {smi}")
+    del qparams
+    torch.cuda.empty_cache()
+    return dict(counts)
+
+
+def phase_vlm(smi: str) -> dict:
+    """qwen2-vl-2b at full width (28 layers): a 4096-position int8 prefill
+    of 256 patch embeddings (a 16 x 16 grid) and 3840 text tokens (28
+    flash_attention, 28 x 7 quant_matmul launches); the same prefill at 2
+    layers card == CPU; int8 serving of 8 requests."""
+    arch = get_arch(VLM_ARCH)
+    cfg = arch.config
+    params = arch.init_params(torch.Generator(device=DEVICE).manual_seed(0))
+    qparams = quantize_tree(params, lm_policy(8))
+    n_vis = arch.n_vision_tokens
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    batch = {
+        "tokens": torch.from_numpy(
+            np.random.default_rng(17).integers(0, cfg.vocab, (1, LONG_PREFILL - n_vis))).to(DEVICE),
+        "vision_embeds": torch.randn(1, n_vis, cfg.d_model, device=DEVICE, generator=gen).to(
+            torch.bfloat16
+        ),
+        "positions3": vlm_positions3(1, 16, 16, LONG_PREFILL),
+    }
+    counts = collections.Counter(timed_prefill(arch, cfg, qparams, batch, cfg.n_layers,
+                                               QDOTS_PER_LAYER * cfg.n_layers, "vlm prefill", smi))
+    counts.update(phase_lm_decode(arch, qparams, 8, 8, 4, QDOTS_PER_LAYER * cfg.n_layers,
+                                  check_plain=True, max_prompt=SHORT_PROMPT, smi=smi))
+    del params, qparams
+    torch.cuda.empty_cache()
+    # 2 layers at full width, card (kernels) against CPU (plain), as phase 8
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p_cpu = quantize_tree(arch.init_params(torch.Generator().manual_seed(1), cfg2), lm_policy(8))
+    p_gpu = tree_map(
+        lambda _, t: t.to(DEVICE) if isinstance(t, (torch.Tensor, QTensor)) else t, p_cpu
+    )
+    kernels.reset_launch_counts()
+    lg, _ = tfm.prefill(cfg2, p_gpu, batch["tokens"], vision_embeds=batch["vision_embeds"],
+                        pos3=batch["positions3"])
+    torch.cuda.synchronize()
+    check(kernels.launch_counts()["flash_attention"] == 2, "vlm 2-layer prefill: flash twice")
+    cpu = {k: v.cpu() for k, v in batch.items()}
+    lc, _ = tfm.prefill(cfg2, p_cpu, cpu["tokens"], vision_embeds=cpu["vision_embeds"],
+                        pos3=cpu["positions3"])
+    err, n = card_cpu_agree(lg, lc, "vlm prefill")
+    print(
+        f"vlm card vs CPU (full width, 2 layers, int8): prefill of {n_vis} patches + "
+        f"{LONG_PREFILL - n_vis} text tokens {err:.3e} of max |logit| ({n}/1 decided, equal)"
+    )
+    return dict(counts)
 
 
 def main() -> int:
@@ -2913,13 +3409,14 @@ def main() -> int:
     )
 
     launches = dict.fromkeys(build.KERNELS, 0)
+    lm_qdots = QDOTS_PER_LAYER * arch.config.n_layers
     serve_results: dict = {}
     for name, phase in [
         ("run_int", lambda: phase_run_int(net, qparams, qparams_cpu)),
         ("eval_int", lambda: phase_eval_int(net, qparams)),
         ("serve", lambda: phase_serve(net, qparams, serve_results)),
-        ("lm_decode_int8", lambda: phase_lm_decode(arch, lm_params, 8, 16, 16)),
-        ("lm_decode_int4", lambda: phase_lm_decode(arch, lm_params, 4, 4, 8)),
+        ("lm_decode_int8", lambda: phase_lm_decode(arch, lm_params, 8, 16, 16, lm_qdots)),
+        ("lm_decode_int4", lambda: phase_lm_decode(arch, lm_params, 4, 4, 8, lm_qdots)),
         ("lm_prefill", lambda: phase_lm_prefill(arch, lm_int8)),
     ]:
         # each phase reads the counts right after driving the main path,
@@ -3015,6 +3512,54 @@ def main() -> int:
             launches[k] += v
     phase_lm_train_card_vs_cpu()
     print(f"phase 13 took {time.perf_counter() - t0:.3f} s; the script so far "
+          f"{time.perf_counter() - t_start:.3f} s")
+
+    t0 = time.perf_counter()
+    ssm = get_arch(SSM_ARCH)
+    ssm_params = ssm.init_params(torch.Generator(device=DEVICE).manual_seed(0))
+    ssm_int8 = quantize_tree(ssm_params, lm_policy(8))
+    ssm_qdots = 2 * ssm.config.n_layers  # in_proj, out_proj
+    print(
+        f"ssm model: {ssm.name} at full width ({ssm.config.n_layers} layers, d_model "
+        f"{ssm.config.d_model}, d_state {ssm.config.ssm.d_state}, {ssm.config.ssm.n_heads} heads), "
+        f"{sum(t.numel() for _, t in tree_leaves(ssm_params))} f32 parameters; on {smi}"
+    )
+    for name, phase in [
+        ("ssm_decode_int8", lambda: phase_lm_decode(ssm, ssm_params, 8, 16, 8, ssm_qdots,
+                                                    check_plain=True, max_prompt=SHORT_PROMPT,
+                                                    smi=smi)),
+        ("ssm_decode_int4", lambda: phase_lm_decode(ssm, ssm_params, 4, 4, 8, ssm_qdots,
+                                                    check_plain=True, max_prompt=SHORT_PROMPT,
+                                                    smi=smi)),
+        ("ssm_prefill", lambda: phase_ssm_prefill(ssm, ssm_int8, smi)),
+    ]:
+        reset_counts()
+        t1 = time.perf_counter()
+        counts = phase()
+        print(f"launches[{name}]: {counts} ({time.perf_counter() - t1:.3f} s)")
+        for k, v in counts.items():
+            launches[k] += v
+    t1 = time.perf_counter()
+    phase_ssm_prefill_vs_decode(ssm, ssm_params, smi)
+    print(f"ssm prefill vs decode took {time.perf_counter() - t1:.3f} s")
+    del ssm_params, ssm_int8
+    torch.cuda.empty_cache()
+    for name, phase in [
+        ("ssm_train", lambda: phase_lm_train_full(SSM_ARCH, smi)),
+        ("hybrid", lambda: phase_hybrid(smi)),
+        ("vlm", lambda: phase_vlm(smi)),
+        ("vlm_train", lambda: phase_lm_train_full(VLM_ARCH, smi)),
+    ]:
+        reset_counts()
+        t1 = time.perf_counter()
+        counts = phase()
+        print(f"launches[{name}]: {counts} ({time.perf_counter() - t1:.3f} s)")
+        for k, v in counts.items():
+            launches[k] += v
+    t1 = time.perf_counter()
+    phase_lm_train_card_vs_cpu((SSM_ARCH, HYBRID_ARCH, VLM_ARCH))
+    print(f"14e card vs CPU took {time.perf_counter() - t1:.3f} s")
+    print(f"phase 14 took {time.perf_counter() - t0:.3f} s; the script so far "
           f"{time.perf_counter() - t_start:.3f} s")
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was never launched on the main path")

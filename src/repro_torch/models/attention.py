@@ -68,10 +68,10 @@ def mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float = 10_000.0, se
     dim = x.shape[-1]
     if sum(sections) != dim // 2:
         raise ValueError(f"M-RoPE sections {sections} must sum to dim/2 = {dim // 2}")
-    angles = [_rope_angles(positions3[i], dim, theta) for i in range(3)]
+    sin3, cos3 = _rope_angles(positions3, dim, theta)  # [3, B, S, dim/2], one pass for t, h, w
     bounds = (0, sections[0], sections[0] + sections[1], dim // 2)
-    sin = torch.cat([angles[i][0][..., bounds[i] : bounds[i + 1]] for i in range(3)], dim=-1)
-    cos = torch.cat([angles[i][1][..., bounds[i] : bounds[i + 1]] for i in range(3)], dim=-1)
+    sin = torch.cat([sin3[i, ..., bounds[i] : bounds[i + 1]] for i in range(3)], dim=-1)
+    cos = torch.cat([cos3[i, ..., bounds[i] : bounds[i + 1]] for i in range(3)], dim=-1)
     return _apply_rotary(x, sin[..., None, :], cos[..., None, :])
 
 

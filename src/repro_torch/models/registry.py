@@ -5,9 +5,8 @@ config with its reduced variant, its parameter and input templates, real
 init, its loss / prefill / decode functions and its cache template.
 Templates are torch terms: ``{name: (shape, dtype)}`` with torch dtypes,
 as :func:`~repro_torch.models.transformer.cache_template` gives them.
-Configs register themselves on import from ``repro_torch.configs``; only
-the families whose blocks are ported load: the four dense configs and the
-two MoE configs.  The XLA sharding helpers (``param_pspecs``,
+Configs register themselves on import from ``repro_torch.configs``: the
+dense, MoE, SSM, hybrid and VLM configs (Whisper is not ported).  The XLA sharding helpers (``param_pspecs``,
 ``input_pspecs``, ``cache_pspecs``) have no counterpart here (ROADMAP
 Queue 1 #6).
 """
@@ -49,6 +48,9 @@ _PORTED_CONFIGS = (
     "gemma2_27b",
     "granite_moe_1b",
     "qwen2_moe_a2_7b",
+    "mamba2_780m",
+    "jamba_v01_52b",
+    "qwen2_vl_2b",
 )
 
 _REGISTRY: dict[str, "Arch"] = {}
@@ -83,7 +85,13 @@ class Arch:
 
     def prefill_fn(self, cfg=None) -> Callable:
         cfg = cfg or self.config
-        return lambda params, batch: tfm.prefill(cfg, params, batch["tokens"])
+        return lambda params, batch: tfm.prefill(
+            cfg,
+            params,
+            batch["tokens"],
+            vision_embeds=batch.get("vision_embeds"),
+            pos3=batch.get("positions3"),
+        )
 
     def decode_fn(self, cfg=None) -> Callable:
         cfg = cfg or self.config
@@ -93,25 +101,39 @@ class Arch:
 
     # -- inputs ------------------------------------------------------------
     def input_template(self, shape: ShapeSpec, cfg=None) -> dict:
-        """``{name: (shape, dtype)}`` of every model input of this (arch x shape) cell."""
+        """``{name: (shape, dtype)}`` of every model input of this (arch x shape) cell.
+
+        The VLM's frontend is a stub: it gets precomputed bf16 patch
+        embeddings (``n_vision_tokens``, at most half the sequence) before
+        the text tokens, and int32 M-RoPE positions [3, B, S]."""
+        cfg = cfg or self.config
         B, S = shape.global_batch, shape.seq_len
         i32 = torch.int32
-        if shape.kind in ("train", "prefill"):
-            t = {"tokens": ((B, S), i32)}
-            if shape.kind == "train":
-                t["targets"] = ((B, S), i32)
-            return t
-        return {"tokens": ((B, 1), i32), "cur_len": ((B,), i32)}
+        if shape.kind not in ("train", "prefill"):
+            return {"tokens": ((B, 1), i32), "cur_len": ((B,), i32)}
+        n_vis = min(self.n_vision_tokens, S // 2) if self.family == "vlm" else 0
+        t = {"tokens": ((B, S - n_vis), i32)}
+        if shape.kind == "train":
+            t["targets"] = ((B, S - n_vis), i32)
+        if n_vis:
+            t["vision_embeds"] = ((B, n_vis, cfg.d_model), torch.bfloat16)
+            t["positions3"] = ((3, B, S), i32)
+        return t
 
     def input_concrete(self, gen: torch.Generator, shape: ShapeSpec, cfg=None, device=None) -> dict:
         """Random realised inputs from ``gen`` (on its device unless ``device``
-        is given): tokens uniform over the vocab, ``cur_len`` half the sequence."""
+        is given): int inputs uniform over the vocab (``positions3`` too, as
+        in JAX), ``cur_len`` half the sequence, float inputs standard normal
+        drawn in f32 and cast."""
         cfg = cfg or self.config
         device = torch.device(device) if device is not None else gen.device
         out = {}
         for k, (s, dt) in self.input_template(shape, cfg).items():
             if k == "cur_len":
                 out[k] = torch.full(s, shape.seq_len // 2, dtype=dt, device=device)
+            elif dt.is_floating_point:
+                x = torch.randn(s, generator=gen, dtype=torch.float32, device=gen.device)
+                out[k] = x.to(device=device, dtype=dt)
             else:
                 x = torch.randint(0, cfg.vocab, s, generator=gen, dtype=dt, device=gen.device)
                 out[k] = x.to(device)

@@ -1,14 +1,16 @@
-"""The decoder LM of the dense and MoE families: training, prefill and decode.
+"""The unified decoder LM: dense, MoE, SSM, hybrid and VLM families.
 
 Port of ``repro/models/transformer.py``.  A model is a repeating *pattern*
-of blocks (gemma2: alternating local / global attention); parameters of
-each pattern position are stacked over the repeat-group axis, and the JAX
+of blocks (jamba: 1 attention + 7 SSD mixers per period, MoE on every 2nd
+layer; gemma2: alternating local / global attention); parameters of each
+pattern position are stacked over the repeat-group axis, and the JAX
 ``lax.scan`` over groups becomes a Python loop that indexes the stacked
 leaves.
 
 Three execution modes share one block implementation:
   * train    -- full-sequence, no cache (:func:`forward`, :func:`lm_loss`)
-  * prefill  -- full-sequence, emits exact-length KV caches
+  * prefill  -- full-sequence, emits exact-length KV caches and the SSM
+                blocks' conv / state caches
   * decode   -- one token against preallocated caches, written in place
 
 Train mode runs the plain attention on every device, as JAX trains through
@@ -18,15 +20,14 @@ tokens and more launches the forward-only ``flash_attention`` kernel on
 the card.  ``remat="block"`` recomputes each repeat group in the backward
 pass (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``).
 
-SSM / hybrid blocks and M-RoPE / vision blocks raise
-``NotImplementedError`` (ROADMAP Queue 1 #5).
+The VLM takes precomputed patch embeddings (``vision_embeds``, prepended to
+the token embeddings) and M-RoPE positions ``pos3`` [3, B, S] (t, h, w).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -36,6 +37,13 @@ from repro_torch.core.precision import QTensor, qdot, tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import AttnMask, KVCache
 from repro_torch.models.common import dense, rms_norm
+from repro_torch.models.mamba2 import (
+    SSMConfig,
+    ssm_apply,
+    ssm_cache_template,
+    ssm_decode_step,
+    ssm_template,
+)
 from repro_torch.models.mlp import (
     MLPConfig,
     MoEConfig,
@@ -58,8 +66,6 @@ __all__ = [
     "cache_template",
     "cache_init",
 ]
-
-_TODO = "is not ported yet (ROADMAP Queue 1 #5)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +96,7 @@ class ModelConfig:
     qkv_bias: bool = False  # qwen2 family
     moe: MoEConfig | None = None
     moe_period: int = 1
-    ssm: Any = None  # SSM blocks are not ported; kept so configs carry the same fields
+    ssm: SSMConfig | None = None
     attn_period: int = 0  # hybrid: 0 = all-attention; k = attn every k-th; -1 = none
     remat: str = "none"  # none | block; training only, no effect on prefill / decode
     compute_dtype: torch.dtype = torch.bfloat16
@@ -142,13 +148,6 @@ def n_groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // len(layer_pattern(cfg))
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.mrope:
-        raise NotImplementedError(f"M-RoPE / vision blocks {_TODO}")
-    if any(kind.mixer != "attn" for kind in layer_pattern(cfg)):
-        raise NotImplementedError(f"SSM blocks ({cfg.family}) {_TODO}")
-
-
 # --------------------------------------------------------------------------
 # Templates
 # --------------------------------------------------------------------------
@@ -171,7 +170,11 @@ def _attn_template(cfg: ModelConfig) -> dict:
 
 
 def _block_template(cfg: ModelConfig, kind: BlockKind) -> dict:
-    t: dict = {"norm1": dense(cfg.d_model, init="ones"), "attn": _attn_template(cfg)}
+    t: dict = {"norm1": dense(cfg.d_model, init="ones")}
+    if kind.mixer == "attn":
+        t["attn"] = _attn_template(cfg)
+    else:
+        t["ssm"] = ssm_template(cfg.ssm)
     has_ff = kind.moe or cfg.d_ff > 0
     if has_ff:
         t["norm2"] = dense(cfg.d_model, init="ones")
@@ -192,7 +195,6 @@ def _stack(template, n: int):
 
 
 def model_template(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
     pattern = layer_pattern(cfg)
     ng = n_groups(cfg)
     t: dict = {
@@ -210,7 +212,7 @@ def model_template(cfg: ModelConfig) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _attn_apply(cfg, kind, p, x, positions, mode, cache):
+def _attn_apply(cfg, kind, p, x, positions, pos3, mode, cache):
     B, S, _ = x.shape
     q = qdot(x, p["wq"])
     k = qdot(x, p["wk"])
@@ -231,6 +233,8 @@ def _attn_apply(cfg, kind, p, x, positions, mode, cache):
 
     def apply_rope(t):
         if rot == t.shape[-1]:
+            if cfg.mrope:
+                return attn_lib.mrope(t, pos3, cfg.rope_theta, cfg.mrope_sections)
             return attn_lib.rope(t, positions, cfg.rope_theta)
         t_rot = attn_lib.rope(t[..., :rot], positions, cfg.rope_theta)
         return torch.cat([t_rot, t[..., rot:]], dim=-1)
@@ -271,10 +275,21 @@ def _attn_apply(cfg, kind, p, x, positions, mode, cache):
     return qdot(out, p["wo"]), new_cache
 
 
-def _block_apply(cfg, kind, p, x, positions, mode, cache):
+def _block_apply(cfg, kind, p, x, positions, pos3, mode, cache):
     """Pre-norm block. Returns (x, new_cache, aux_loss)."""
     h = rms_norm(x, p["norm1"])
-    mix, new_cache = _attn_apply(cfg, kind, p["attn"], h, positions, mode, cache)
+    if kind.mixer == "attn":
+        mix, new_cache = _attn_apply(cfg, kind, p["attn"], h, positions, pos3, mode, cache)
+    elif mode == "decode":
+        mix, new = ssm_decode_step(cfg.ssm, p["ssm"], cache, h)
+        for name, t in new.items():  # in place, as the KV caches are written
+            cache[name].copy_(t)
+        new_cache = cache
+    else:
+        mix, state, conv_state = ssm_apply(cfg.ssm, p["ssm"], h)
+        new_cache = None
+        if mode == "prefill":
+            new_cache = {"conv": conv_state.to(torch.float32), "state": state}
     if cfg.sandwich_norm:
         mix = rms_norm(mix, p["post_norm1"])
     x = x + mix
@@ -297,12 +312,23 @@ def _block_apply(cfg, kind, p, x, positions, mode, cache):
 # --------------------------------------------------------------------------
 
 
-def _embed_tokens(cfg, params, tokens):
+def _embed_tokens(cfg, params, tokens, vision_embeds=None):
     # index first, then cast: the same values as casting the whole table first
     h = params["embed"][tokens].to(cfg.compute_dtype)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model**0.5, dtype=cfg.compute_dtype, device=h.device)
+    if vision_embeds is not None:
+        # VLM: precomputed patch embeddings (frontend stub) are prepended
+        h = torch.cat([vision_embeds.to(cfg.compute_dtype), h], dim=1)
     return h
+
+
+def _default_pos3(cfg, h, pos3):
+    """M-RoPE positions: ``pos3`` as given, else every component the arange."""
+    if not cfg.mrope or pos3 is not None:
+        return pos3
+    B, S = h.shape[:2]
+    return torch.arange(S, device=h.device)[None, None, :].expand(3, B, S)
 
 
 def _logits(cfg, params, h):
@@ -328,7 +354,7 @@ def _groups(tree, n: int) -> list:
     return [tree_map(lambda _, s: s[g], split) for g in range(n)]
 
 
-def _scan_blocks(cfg, params, h, positions, mode, caches):
+def _scan_blocks(cfg, params, h, positions, pos3, mode, caches):
     """Loop over repeat groups; within a group, pattern positions unroll.
 
     Returns ``(h, caches, aux)``: decode updates ``caches`` in place and
@@ -351,7 +377,7 @@ def _scan_blocks(cfg, params, h, positions, mode, caches):
             for i, kind in enumerate(pattern):
                 cache_i = None if group_caches is None else group_caches[f"pos{i}"]
                 h, new_cache, aux = _block_apply(
-                    cfg, kind, block_params[f"pos{i}"], h, positions, mode, cache_i
+                    cfg, kind, block_params[f"pos{i}"], h, positions, pos3, mode, cache_i
                 )
                 aux_g = aux_g + aux
                 new[f"pos{i}"].append(new_cache)
@@ -373,13 +399,15 @@ def _scan_blocks(cfg, params, h, positions, mode, caches):
     return h, stacked, aux_total
 
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, positions=None):
-    """Training forward: tokens [B, S] -> (logits [B, S, V] f32, aux_loss)."""
-    _check_supported(cfg)
-    h = _embed_tokens(cfg, params, tokens)
+def forward(
+    cfg: ModelConfig, params, tokens: torch.Tensor, *, positions=None, pos3=None, vision_embeds=None
+):
+    """Training forward: tokens [B, S] -> (logits [B, S(+vis), V] f32, aux_loss)."""
+    h = _embed_tokens(cfg, params, tokens, vision_embeds)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
-    h, _, aux = _scan_blocks(cfg, params, h, positions, "train", None)
+    pos3 = _default_pos3(cfg, h, pos3)
+    h, _, aux = _scan_blocks(cfg, params, h, positions, pos3, "train", None)
     return _logits(cfg, params, h), aux
 
 
@@ -404,61 +432,70 @@ def _chunked_ce(cfg: ModelConfig, params, h: torch.Tensor, targets: torch.Tensor
 
 
 def lm_loss(cfg: ModelConfig, params, batch: dict):
-    """Next-token cross-entropy (+ MoE aux). batch: tokens / targets [B, S].
+    """Next-token cross-entropy (+ MoE aux). batch: tokens / targets [B, S],
+    and for the VLM optionally ``vision_embeds`` and ``positions3``.
 
     Returns ``(ce + aux, {"ce": ce, "aux": aux})``.
     """
-    _check_supported(cfg)
-    h = _embed_tokens(cfg, params, batch["tokens"])
+    h = _embed_tokens(cfg, params, batch["tokens"], batch.get("vision_embeds"))
     positions = torch.arange(h.shape[1], device=h.device)
-    h, _, aux = _scan_blocks(cfg, params, h, positions, "train", None)
+    pos3 = _default_pos3(cfg, h, batch.get("positions3"))
+    h, _, aux = _scan_blocks(cfg, params, h, positions, pos3, "train", None)
     h = rms_norm(h, params["final_norm"])
     targets = batch["targets"]
-    h = h[:, -targets.shape[1] :, :]
+    h = h[:, -targets.shape[1] :, :]  # VLM: the loss over the text tail
     ce = _chunked_ce(cfg, params, h, targets)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor):
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *, pos3=None, vision_embeds=None):
     """Full-context forward that also returns per-layer caches.
 
-    tokens [B, S] -> (logits [B, 1, V] of the last position, caches with
-    exact-length K/V [groups, B, S, Hk, D]).
+    tokens [B, S] (after ``vision_embeds`` [B, n_vis, D] where given) ->
+    (logits [B, 1, V] of the last position, caches: exact-length K/V
+    [groups, B, S, Hk, D]; SSM ``conv`` [groups, B, d_conv-1, conv_dim] and
+    ``state`` [groups, B, H, P, N], f32).
     """
-    _check_supported(cfg)
-    h = _embed_tokens(cfg, params, tokens)
+    h = _embed_tokens(cfg, params, tokens, vision_embeds)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
-    h, caches, _ = _scan_blocks(cfg, params, h, positions, "prefill", None)
+    pos3 = _default_pos3(cfg, h, pos3)
+    h, caches, _ = _scan_blocks(cfg, params, h, positions, pos3, "prefill", None)
     return _logits(cfg, params, h[:, -1:, :]), caches
 
 
 def decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor, cur_len: torch.Tensor):
     """One-token decode. tokens [B, 1]; cur_len [B] current context length.
 
-    Appends each slot's K/V to ``caches`` in place; returns (logits [B, 1, V], caches).
+    Appends each slot's K/V and advances each SSM block's conv / state in
+    ``caches`` in place; returns (logits [B, 1, V], caches).
     """
-    _check_supported(cfg)
     h = _embed_tokens(cfg, params, tokens)
     positions = cur_len[:, None]  # [B, 1]
-    h, caches, _ = _scan_blocks(cfg, params, h, positions, "decode", caches)
+    pos3 = positions[None].expand(3, *positions.shape) if cfg.mrope else None
+    h, caches, _ = _scan_blocks(cfg, params, h, positions, pos3, "decode", caches)
     return _logits(cfg, params, h), caches
 
 
 def cache_template(cfg: ModelConfig, batch: int, max_len: int):
-    """{pos: {name: (shape, dtype)}} of the stacked decode caches."""
-    _check_supported(cfg)
+    """{pos: {name: (shape, dtype)}} of the stacked decode caches: K/V and
+    length for attention blocks, f32 conv / state for SSM blocks."""
     ng = n_groups(cfg)
     kv_dtype = torch.int8 if cfg.kv_cache_bits == 8 else cfg.compute_dtype
-    one = KVCache.template(batch, max_len, cfg.n_kv_heads, cfg.d_head, kv_dtype)
+
+    def one(kind):
+        if kind.mixer == "attn":
+            return KVCache.template(batch, max_len, cfg.n_kv_heads, cfg.d_head, kv_dtype)
+        return ssm_cache_template(cfg.ssm, batch)
+
     return {
-        f"pos{i}": {name: ((ng, *shape), dt) for name, (shape, dt) in one.items()}
-        for i in range(len(layer_pattern(cfg)))
+        f"pos{i}": {name: ((ng, *shape), dt) for name, (shape, dt) in one(kind).items()}
+        for i, kind in enumerate(layer_pattern(cfg))
     }
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Zeroed KV caches on ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    """Zeroed decode caches on ``device`` (``cuda`` unless the caller asks for the CPU)."""
     device = resolve_device(device)
     return {
         pos: {name: torch.zeros(shape, dtype=dt, device=device) for name, (shape, dt) in c.items()}

@@ -913,13 +913,22 @@ def test_sharded_engine_on_the_card_matches_serial(cuda):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["stablelm-1.6b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize(
+    "name", ["stablelm-1.6b", "qwen2-moe-a2.7b", "mamba2-780m", "jamba-v0.1-52b", "qwen2-vl-2b"]
+)
 def test_one_lm_train_step_on_the_card_matches_the_cpu(cuda, name):
-    """build_train_step at f32 compute (qwen2-moe: shared experts) from the
+    """build_train_step at f32 compute (qwen2-moe: shared experts; qwen2-vl:
+    the input template's patch embeddings and positions) from the
     same parameters and batch, held stage by stage: the loss within 1e-5
     relative, every gradient leaf (read where the step clips them) within
     1e-5 of its max |g|, and the AdamW update from the same gradients
-    within 1e-5 of each leaf's max |w|."""
+    within 1e-5 of each leaf's max |w|.  Configs with SSD blocks hold the
+    gradients to 1e-4, the port-vs-JAX limit of test_torch_lm_train.py:
+    the SSD's exp of chunk-cumsum differences spreads f32 reordering past
+    1e-5 of max |g| between two orders (the reduced jamba card vs CPU on
+    an H100: 3.9e-5).  For them the witness is the same step on the CPU
+    with every float32 run as float64: the card's f32 gradients may lie no
+    more than 4x as far from it as the CPU's f32 gradients do."""
     import dataclasses
     from unittest import mock
 
@@ -951,8 +960,26 @@ def test_one_lm_train_step_on_the_card_matches_the_cpu(cuda, name):
         lg, lc = float(run(cuda)), float(run("cpu"))
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     g_card, g_cpu = seen
+    g_tol = 1e-4 if cfg.ssm is not None else 1e-5
     for a, b in zip(g_card, g_cpu):
-        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        assert float((a - b).abs().max()) <= g_tol * float(b.abs().max())
+    if cfg.ssm is not None:
+        f64 = torch.float64
+        p = tree_map(lambda _, t: t.to(f64, copy=True), params)
+        opt = topt.adamw(3e-4)
+        c64 = dataclasses.replace(cfg, compute_dtype=f64)
+        step = steps.build_train_step(arch, shape, None, c64, optimizer=opt).jitted
+        with mock.patch.object(topt, "clip_by_global_norm", spy), \
+                mock.patch.object(torch, "float32", f64):
+            step(p, opt.init([t for _, t in tree_leaves(p)]), batch)
+        g64 = seen[2]
+        assert all(g.dtype == f64 for g in g64)
+        worst = [
+            max(float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for a, w in zip(g, g64))
+            for g in (g_card, g_cpu)
+        ]
+        assert worst[0] <= 4 * worst[1], worst
     clipped, _ = real(g_cpu, 1.0)
     leaves = [t for _, t in tree_leaves(params)]
     updated = []
@@ -995,3 +1022,82 @@ def test_moe_routing_on_the_card_matches_the_cpu(cuda):
     assert (gc[1, :16] > 0).nonzero()[:, 1].reshape(16, 8).tolist() == [list(range(0, 16, 2))] * 16
     torch.testing.assert_close(gg.cpu(), gc, rtol=1e-6, atol=1e-7)
     assert abs(float(auxg) - float(auxc)) <= 1e-6 * float(auxc)
+
+
+# ---------------------------------------------------------------------------
+# SSM, hybrid and VLM LMs
+# ---------------------------------------------------------------------------
+
+
+def _family(cuda_dev, name, bits=8):
+    """A reduced config at f32 compute, int8 block weights on the CPU and on the card."""
+    import dataclasses
+
+    from repro_torch.core.precision import PrecisionPolicy, QTensor, quantize_tree, tree_map
+    from repro_torch.launch.serve import QUANT_RULES
+    from repro_torch.models.registry import get_arch
+
+    arch = get_arch(name)
+    cfg = dataclasses.replace(arch.reduced_config, compute_dtype=torch.float32)
+    params = arch.init_params(torch.Generator().manual_seed(0), cfg)
+    qp = quantize_tree(params, PrecisionPolicy(rules=((QUANT_RULES[0], bits),)))
+    qp_gpu = tree_map(lambda _, t: t.to(cuda_dev) if isinstance(t, (torch.Tensor, QTensor)) else t, qp)
+    return dataclasses.replace(arch, reduced_config=cfg), cfg, qp, qp_gpu
+
+
+def _caches_close(got, want):
+    for pos, c in want.items():
+        for name, w in c.items():
+            g = got[pos][name].cpu()
+            assert g.dtype == w.dtype, (pos, name)
+            torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=1e-4 * max(1.0, float(w.float().abs().max())))
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "jamba-v0.1-52b", "qwen2-vl-2b"])
+def test_family_decode_and_prefill_on_the_card_match_the_cpu(cuda, name):
+    """Three decode steps (SSM caches written in place on the card) and a
+    4096-token prefill (jamba: one flash launch; qwen2-vl: 256 patch
+    embeddings, two), card (kernels) against CPU (plain) at f32 compute:
+    logits within 1e-4 of max |logit|, every cache leaf within 1e-4."""
+    from repro_torch import kernels
+    from repro_torch.models import transformer as tt
+
+    arch, cfg, qp, qp_gpu = _family(cuda, name)
+    cg, cc = tt.cache_init(cfg, 2, 8, cuda), tt.cache_init(cfg, 2, 8, device="cpu")
+    cur = torch.tensor([0, 3], dtype=torch.int32)
+    for t in ([3, 77], [5, 1], [9, 400]):
+        tok = torch.tensor(t)[:, None]
+        lg, _ = tt.decode_step(cfg, qp_gpu, cg, tok.to(cuda), cur.to(cuda))
+        lc, _ = tt.decode_step(cfg, qp, cc, tok, cur)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4 * float(lc.abs().max()))
+        cur += 1
+    _caches_close(cg, cc)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (1, 4096)))}
+    if arch.family == "vlm":
+        batch["tokens"] = batch["tokens"][:, 256:]
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal((1, 256, cfg.d_model)).astype(np.float32))
+    kernels.reset_launch_counts()
+    pg, kg = arch.prefill_fn(cfg)(qp_gpu, {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    n_attn = sum(k.mixer == "attn" for k in tt.layer_pattern(cfg)) * tt.n_groups(cfg)
+    assert kernels.launch_counts()["flash_attention"] == n_attn
+    pc, kc = arch.prefill_fn(cfg)(qp, batch)
+    torch.testing.assert_close(pg.cpu(), pc, rtol=0, atol=1e-4 * float(pc.abs().max()))
+    _caches_close(kg, kc)
+
+
+def test_ssm_serve_engine_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    arch, _, qp, _ = _family(cuda, "mamba2-780m")
+    prompts = [[1, 2, 3, 4, 5], [7], [8, 9, 10], [1, 2, 3, 4, 5]]
+
+    def serve(device):
+        eng = ServeEngine(arch, qp, max_batch=2, max_len=32, device=device)
+        done = eng.run([Request(uid=i, prompt=np.array(p), max_new_tokens=6) for i, p in enumerate(prompts)])
+        return {r.uid: r.generated for r in done}
+
+    gpu, cpu = serve(cuda), serve("cpu")
+    assert gpu == cpu
+    assert gpu[0] == gpu[3]
