@@ -16,7 +16,8 @@ result line):
    ``sparse_accum`` on binary, graded, over-budget and unsorted lists, timed
    at E = 2048 and 25600 beside the event encoder), ``quant_matmul``
    (int8 and int4) to the bf16 tolerance of ``tests/test_kernels.py``,
-   ``flash_attention`` to one bf16 ulp (and in f32 to 1e-4), with planted
+   also at the wide route's longest K (jamba's [4096,8192]x[8192,4096] and
+   [4096,14336]x[14336,4096]), ``flash_attention`` to one bf16 ulp (and in f32 to 1e-4), with planted
    faults shown to fail that tolerance, the two tensor-core kernels shown to
    give identical bits across launches and ``quant_matmul``'s rows not to
    depend on M -- timed (device time per call, torch.profiler) beside its
@@ -143,13 +144,25 @@ result line):
    stage within 1e-5 (SSM gradients 1e-4, and each f32 gradient of an SSM
    config against an f64 step on the CPU: the card's within 4x the CPU's
    distance).  Every ``quant_matmul`` launch of phase 14 is held to its
-   plain version, its atol widened with K (``qm_tol_k``), and every
-   ``flash_attention`` launch to its plain version at FA_TOL, with planted
-   faults outside it;
-15. a ``kernels`` JSON line (launches on phases 3-7 and 9-14, times,
+   plain version at QM_TOL, and every ``flash_attention`` launch to its
+   plain version at FA_TOL, with planted faults outside it;
+15. whisper-medium at full width (24 + 24 layers, random weights from a
+   seeded generator, int8 block weights): (a) 4 clips x 4096 frames
+   through ``build_prefill_step`` and 32 greedy steps of
+   ``build_decode_step``, every ``quant_matmul`` launch at QM_TOL and every
+   non-causal ``flash_attention`` launch at FA_TOL with planted faults (a
+   causal mask applied among them), then the same traffic timed warm and
+   unrecorded with its busy shares, and request 0 alone (B = 1) decoding
+   the same tokens; (b) one clip of 32768 frames, each flash launch checked
+   on 4 query blocks of 256 rows, 16 decode steps against the 3.2 GB cross
+   cache, both timed warm; (c) a train step at 4096 frames + 448 tokens
+   (AdamW; ms a step, peak memory, the model-FLOPs share from
+   ``structural.model_flops``); (d) the reduced step card vs CPU;
+16. a ``kernels`` JSON line (launches on phases 3-7 and 9-15, times,
    bounds); phases 3-5 and 9-12 also print the SNN kernels' launches by
-   size;
-16. the result line.
+   size; phase 2 also times non-causal ``flash_attention`` at
+   [1,16,4096,64] and [1,16,32768,64] beside SDPA and the bound;
+17. the result line.
 """
 
 from __future__ import annotations
@@ -223,10 +236,11 @@ from repro_torch.core.snn_layer import (  # noqa: E402
 )
 from repro_torch.data.snn_datasets import SpikeDataset, mnist_like, raster_tensor  # noqa: E402
 from repro_torch.data.tokens import SyntheticTokens  # noqa: E402
+from repro_torch.distributed import structural  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attend  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.lif_scan.lif_scan import lif_scan  # noqa: E402
 from repro_torch.kernels.lif_scan.ref import lif_scan_ref  # noqa: E402
 from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul  # noqa: E402
@@ -241,7 +255,11 @@ from repro_torch.kernels.sparse_accum.ref import sparse_accum_ref  # noqa: E402
 from repro_torch.kernels.sparse_accum.sparse_accum import sparse_accum  # noqa: E402
 from repro_torch.launch import serve_snn  # noqa: E402
 from repro_torch.launch.serve import QUANT_RULES  # noqa: E402
-from repro_torch.launch.steps import build_train_step  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    build_decode_step,
+    build_prefill_step,
+    build_train_step,
+)
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import mlp as mlp_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -618,11 +636,15 @@ def close(got: torch.Tensor, want: torch.Tensor, tol: dict, what: str) -> float:
 # w_up, w_down of stablelm-1.6b (d_model 2048, d_ff 5632)
 LM_QDOTS = [(4, 2048, 2048), (2, 2048, 5632), (1, 5632, 2048)]
 QDOTS_PER_LAYER = sum(n for n, _, _ in LM_QDOTS)
+# the wide route's longest chains on the main path: jamba's 4096-token
+# prefill (out_proj K = 8192, the experts' w_down K = 14336), int8
+LONG_K_WIDE = [(4096, 8192, 4096), (4096, 14336, 4096)]
 
 
 def check_quant_matmul(gen, n_layers: int) -> dict:
     """int8 and int4 at every full-width shape of the LM path -- decode
-    (M = max_batch = 8) and prefill (M = 4096) -- and one ragged shape; each
+    (M = max_batch = 8) and prefill (M = 4096) -- and one ragged shape, and
+    int8 at the wide route's longest K (``LONG_K_WIDE``); each
     main-path shape timed (decode shapes with weights cold in L2), and the
     kernel time of one decode step and of one prefill derived from those
     times and the launch counts."""
@@ -640,6 +662,18 @@ def check_quant_matmul(gen, n_layers: int) -> dict:
             torch.cuda.synchronize()
             err = max(err, close(got, want, QM_TOL, f"quant_matmul int{bits} [{M},{K}]x[{K},{N}]"))
             cases[(bits, M, K, N)] = (x, qt)
+    long_k = []
+    for M, K, N in LONG_K_WIDE:
+        w = torch.randn(K, N, device=dev, generator=gen) * K**-0.5
+        x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+        qt = quantize_weight(w, 8)
+        got = quant_matmul(x, qt.q, qt.scale, bits=8)
+        want = quant_matmul_ref(x, qt.q, qt.scale, 8, torch.bfloat16)
+        torch.cuda.synchronize()
+        err = max(err, close(got, want, QM_TOL, f"quant_matmul int8 [{M},{K}]x[{K},{N}]"))
+        long_k.append(f"[{M},{K}]x[{K},{N}] {tol_used(got, want, QM_TOL):.4f}")
+        cases[(8, M, K, N)] = (x, qt)
+    print(f"quant_matmul int8 at the wide route's longest K, share of QM_TOL used: {', '.join(long_k)}")
     # the same call twice gives the same bits (no float atomics, a fixed
     # order of the split-K sum); a wide call's rows do not depend on M
     # (phase 7 needs it of the layer-0 K/V cache)
@@ -655,8 +689,9 @@ def check_quant_matmul(gen, n_layers: int) -> dict:
             check(same, f"quant_matmul {shape}: rows of M = 256 differ from M = 4096's")
     torch.cuda.synchronize()
     print(
-        "quant_matmul: two launches bit-identical at the 6 main-path shapes, int8 and int4; "
-        "at the 3 prefill shapes the rows of M = 256 equal the first 256 of M = 4096 bit for bit"
+        "quant_matmul: two launches bit-identical at the 6 main-path shapes, int8 and int4, and "
+        "at the 2 long-K shapes; at the 5 prefill shapes the rows of M = 256 equal the first "
+        "256 of M = 4096 bit for bit"
     )
     rows = {}
     for M, K, N in shapes[:-1]:
@@ -808,6 +843,23 @@ def check_flash_attention(gen, n_layers: int) -> dict:
         f"{n_layers * row['ms']:.4f} ms, library {n_layers * row['library_ms']:.4f} ms, "
         f"bound {n_layers * b_ms:.4f} ms"
     )
+    # Whisper's encoder: non-causal, 16 heads, D = 64, at 4096 and 32768 frames
+    for S, reps in ((4096, dict(reps=7, inner=3)), (32_768, dict(reps=3, inner=1))):
+        q, k, v = mk(1, 16, S, 64), mk(1, 16, S, 64), mk(1, 16, S, 64)
+        nc_ops = 4 * 16 * S * S * 64
+        nc_ms, nc_by = bound(4 * q.numel() * 2, nc_ops, BF16_TC_FLOPS)
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=False), **reps)
+        lib = time_ms(lambda: sdpa(q, k, v, is_causal=False), **reps)
+        # the plain version materialises 16 x S^2 f32 scores: 1.07 GB at 4096, 69 GB at 32768
+        plain = (f"{time_ms(lambda: flash_attention_ref(q, k, v, causal=False), reps=3, inner=2):.5f}"
+                 if S <= 4096 else "not measured (its 69 GB of scores do not fit)")
+        print(
+            f"kernel flash_attention [1,16,{S},64] bf16 non-causal: {ms:.5f} ms "
+            f"({nc_ops / ms / 1e9:.1f} TFLOP/s, {nc_ms / ms:.4f} of the bound), plain {plain} ms, "
+            f"library {lib:.5f} ms (scaled_dot_product_attention, is_causal=False), bound "
+            f"{nc_ms:.5f} ms ({nc_by})"
+        )
+        del q, k, v
     return row
 
 
@@ -1196,7 +1248,7 @@ def phase_lm_decode(
         err = check_recorded_qm(seen, f"{arch.name} int{bits} serving")
         print(
             f"lm decode int{bits}: {arch.name}'s {len(seen)} quant_matmul launches = {qdots} x "
-            f"{steps}, each within qm_tol_k of plain (max_abs_err {err:.3e})"
+            f"{steps}, each within QM_TOL of plain (max_abs_err {err:.3e})"
         )
         del seen
     if uids:
@@ -2884,7 +2936,8 @@ def phase_lm_train_card_vs_cpu(names=("stablelm-1.6b", "qwen2-moe-a2.7b")) -> No
     the CPU, :func:`f64_witness`): the loss, each
     gradient leaf (read where the step clips them) and the AdamW update
     from the CPU's clipped gradients on both devices; the composed step's
-    parameters printed; a MoE config's layer-0 routing card == CPU."""
+    parameters printed; a MoE config's layer-0 routing card == CPU.  Phase
+    15d: whisper-medium (audio frames in its batch)."""
     real = opt_mod.clip_by_global_norm
     for name in names:
         arch = get_arch(name)
@@ -2906,14 +2959,15 @@ def phase_lm_train_card_vs_cpu(names=("stablelm-1.6b", "qwen2-moe-a2.7b")) -> No
                 step = build_train_step(arch, shape, None, cfg, optimizer=opt).jitted
                 p, _, m = step(p, st, {k: v.to(dev) for k, v in batch.items()})
                 out[dev] = (float(m["loss"]), [t.cpu() for _, t in tree_leaves(p)])
-            if cfg.ssm is not None:
+            if getattr(cfg, "ssm", None) is not None:
                 f64_step(arch, cfg, shape, params, batch)
         (lg, pg), (lc, pc) = out[DEVICE], out["cpu"]
         check(abs(lg - lc) <= CARD_VS_CPU_TOL * abs(lc), f"{name}: train loss card {lg} vs CPU {lc}")
         g_err = max(rel_err(a, b) for a, b in zip(seen[0], seen[1]))
-        g_tol = SSM_GRAD_TOL if cfg.ssm is not None else CARD_VS_CPU_TOL
+        ssm = getattr(cfg, "ssm", None) is not None
+        g_tol = SSM_GRAD_TOL if ssm else CARD_VS_CPU_TOL
         check(g_err <= g_tol, f"{name}: gradients card vs CPU {g_err:.3e} of max |g|")
-        if cfg.ssm is not None:
+        if ssm:
             print(f"lm train card vs CPU ({name} reduced): {f64_witness(params, seen)}")
         clipped, _ = real(seen[1], 1.0)
         leaves = [t for _, t in tree_leaves(params)]
@@ -2926,7 +2980,7 @@ def phase_lm_train_card_vs_cpu(names=("stablelm-1.6b", "qwen2-moe-a2.7b")) -> No
         u_err = max(rel_err(a, b) for a, b in zip(updated[DEVICE], updated["cpu"]))
         check(u_err <= CARD_VS_CPU_TOL, f"{name}: AdamW update card vs CPU {u_err:.3e} of max |w|")
         composed = max(rel_err(a, b) for a, b in zip(pg, pc))
-        if cfg.moe is not None:
+        if getattr(cfg, "moe", None) is not None:
             p_card = tree_map(lambda _, t: t.to(DEVICE), params)
             tokens = batch["tokens"][:, : cfg.moe.seq_chunk].to(DEVICE)
             route = route_card_vs_cpu(cfg, p_card, tokens)
@@ -3016,22 +3070,9 @@ LONG_PREFILL = 4096
 SHORT_PROMPT = 12
 
 
-def qm_tol_k(K: int, want: torch.Tensor) -> dict:
-    """Phase 2's bf16 tolerance with its atol widened to the f32 summation
-    bound of K terms at the output's scale, K x 2^-24 x max |want|.  The
-    tensor cores accumulate bf16 products less exactly than f32 FFMA, and
-    the gap grows with K: scripts/quant_matmul_accumulation_check.py on an
-    H100 puts the kernel and cuBLAS's own bf16 GEMM (f32 out) at the same
-    error against f64, 1.150e-05 of max |y| at K = 14336 (f32 FFMA 1.8e-6),
-    where a near-zero output then misses atol 1e-5.  A dropped 64-deep K
-    block (~0.09 at K = 8192 for unit activations) still lies ~30x outside."""
-    atol = max(QM_TOL["atol"], K * 2.0**-24 * float(want.abs().max()))
-    return dict(rtol=QM_TOL["rtol"], atol=atol)
-
-
 def check_recorded_qm(seen, what: str) -> float:
-    """Each recorded ``quant_matmul`` launch against ``quant_matmul_ref`` to
-    :func:`qm_tol_k`.  The launches of one weight are checked in one plain
+    """Each recorded ``quant_matmul`` launch against ``quant_matmul_ref`` at
+    QM_TOL.  The launches of one weight are checked in one plain
     call over their rows stacked (the plain version's rows are independent
     of each other); returns the max abs error."""
     groups: dict = {}
@@ -3045,8 +3086,7 @@ def check_recorded_qm(seen, what: str) -> float:
         want = quant_matmul_ref(x, q, scale, bits, out.dtype)
         K, N = q.shape[0], scale.shape[0]
         shape = f"{len(items)} launches, [{x.shape[0]},{K}]x[{K},{N}]"
-        tol = qm_tol_k(q.shape[0], want)
-        err = max(err, close(out, want, tol, f"{what}: quant_matmul int{bits} {shape}"))
+        err = max(err, close(out, want, QM_TOL, f"{what}: quant_matmul int{bits} {shape}"))
     return err
 
 
@@ -3083,8 +3123,9 @@ def check_recorded_fa(seen, what: str) -> tuple[float, dict]:
     """Each recorded ``flash_attention`` launch against
     ``flash_attention_ref`` (query head h on kv head h // (Hq / Hk)) to
     FA_TOL.  The first launch of each shape also against planted faults,
-    each of which must fall outside: a 2x scale, no causal mask, query
-    head h on kv head h % Hk, a zero output.  Returns the max abs error and
+    each of which must fall outside: a 2x scale, the causal mask dropped
+    (or, on a bidirectional launch, applied), query head h on kv head h %
+    Hk (grouped-query launches), a zero output.  Returns the max abs error and
     the tolerance used by the kernel, then by each fault, per shape."""
     err, used = 0.0, {}
     for q, k, v, kw, out in seen:
@@ -3096,13 +3137,15 @@ def check_recorded_fa(seen, what: str) -> tuple[float, dict]:
         if shape in used:
             continue
         scale = kw.get("scale") or q.shape[-1] ** -0.5
-        faults = {
-            "scale x2": flash_attention_ref(q, kr, vr, **{**kw, "scale": 2 * scale}),
-            "no causal mask": flash_attention_ref(q, kr, vr, **{**kw, "causal": False}),
-            "kv head h % Hk": flash_attention_ref(
-                q, k.repeat(1, rep, 1, 1), v.repeat(1, rep, 1, 1), **kw),
-            "zero output": torch.zeros_like(want),
-        }
+        faults = {"scale x2": flash_attention_ref(q, kr, vr, **{**kw, "scale": 2 * scale})}
+        if kw.get("causal", True):
+            faults["no causal mask"] = flash_attention_ref(q, kr, vr, **{**kw, "causal": False})
+        else:  # a bidirectional launch (Whisper's encoder)
+            faults["causal mask applied"] = flash_attention_ref(q, kr, vr, **{**kw, "causal": True})
+        if rep > 1:
+            faults["kv head h % Hk"] = flash_attention_ref(
+                q, k.repeat(1, rep, 1, 1), v.repeat(1, rep, 1, 1), **kw)
+        faults["zero output"] = torch.zeros_like(want)
         used[shape] = {"kernel": tol_used(out, want, FA_TOL)}
         for fault, wrong in faults.items():
             used[shape][fault] = tol_used(wrong, want, FA_TOL)
@@ -3113,7 +3156,7 @@ def check_recorded_fa(seen, what: str) -> tuple[float, dict]:
 def timed_prefill(arch, cfg, qparams, batch, flash: int, qdots: int, what: str, smi: str) -> dict:
     """One prefill through the registry's ``prefill_fn`` with every kernel
     launch recorded: its launches counted, each ``quant_matmul`` launch held
-    to plain at :func:`qm_tol_k` and each ``flash_attention`` launch at
+    to plain at QM_TOL and each ``flash_attention`` launch at
     FA_TOL (:func:`check_recorded_fa`).  Then the same prefill again, warm
     and with nothing recorded, timed; then its device split."""
     prefill = arch.prefill_fn(cfg)
@@ -3153,7 +3196,7 @@ def timed_prefill(arch, cfg, qparams, batch, flash: int, qdots: int, what: str, 
     print(
         f"{what}: S={S} at full width (int8) in {wall:.3f} s warm with nothing recorded "
         f"({S / wall:.1f} tok/s; the checked pass before it {checked_s:.3f} s, the first call at "
-        f"this size, every launch recorded); {qdots} quant_matmul launches each within qm_tol_k "
+        f"this size, every launch recorded); {qdots} quant_matmul launches each within QM_TOL "
         f"of plain (max_abs_err {qm_err:.3e}), {fa}; on {smi}"
     )
     split = device_split(lambda: prefill(qparams, batch), n=2, top=6, width=60)
@@ -3334,6 +3377,373 @@ def phase_vlm(smi: str) -> dict:
         f"{LONG_PREFILL - n_vis} text tokens {err:.3e} of max |logit| ({n}/1 decided, equal)"
     )
     return dict(counts)
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: whisper-medium at full width
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-medium"
+# 15a: the prefill shape at 4096 frames with its batch cut from 32 to 4;
+# 15b: decode_32k's encoder context with its batch cut from 128 to 1 (at
+# 128 the cross caches alone would be ~412 GB); 15c: train_4k, batch 256 -> 1
+WHISPER_B, WHISPER_FRAMES, WHISPER_STEPS = 4, 4096, 32
+LONG_FRAMES, LONG_STEPS = 32_768, 16
+# a 32k launch's plain check: 4 query blocks of LONG_ROWS rows (the first,
+# the last, two between); rows are independent, so each block's plain
+# version against all of K and V is exact (the whole would take 69 GB)
+LONG_ROWS = 256
+# request 0 decoded alone (B = 1) against its row of the batched run
+# (scripts/whisper_batch_invariance.py finds where they part): every kernel
+# and every norm gives row 0 the same bits at B = 1 and 4, but
+# decode_attend's f32 einsums are cuBLAS batched GEMMs whose reduction
+# order depends on the batch (scores up to 2.1e-7 of max apart); where the
+# bf16 output then rounds otherwise, that one-ulp step compounds through 24
+# random layers: 4.5e-3 of max |logit| at step 1, 1.135e-2 at most over 32
+# steps.  The limit is under twice that reading and under the batched row's
+# smallest top-2 margin (5.3e-2), and every token must be the same.
+ALONE_TOL = 0.02
+
+
+def whisper_qdots(cfg) -> tuple[int, int]:
+    """``quant_matmul`` launches of one prefill (the encoder's wq wk wv wo
+    w_up w_down, every decoder layer's cross wk wv) and of one decode step
+    (a decoder layer's self wq wk wv wo, cross wq wo, w_up w_down)."""
+    return 6 * cfg.n_enc_layers + 2 * cfg.n_dec_layers, 8 * cfg.n_dec_layers
+
+
+def greedy(decode, qparams, caches, B: int, steps: int, rows: list | None = None) -> torch.Tensor:
+    """``steps`` greedy decode steps from token 0 (the self caches appended
+    in place); returns the tokens [B, steps] on the host, and appends each
+    step's logits of request 0 to ``rows``."""
+    tok = torch.zeros(B, 1, dtype=torch.int32, device=DEVICE)
+    cur = torch.zeros(B, dtype=torch.int32, device=DEVICE)
+    out = []
+    for _ in range(steps):
+        logits, caches = decode(qparams, caches, {"tokens": tok, "cur_len": cur})
+        if rows is not None:
+            rows.append(logits[0, -1].clone())
+        tok, cur = logits.argmax(-1).to(torch.int32), cur + 1
+        out.append(tok)
+    return torch.cat(out, dim=1).cpu()
+
+
+def whisper_steps(arch, S: int, B: int):
+    """The registry's prefill and decode steps at int8 (``QUANT_RULES``)."""
+    cfg, policy = arch.config, lm_policy(8)
+    prefill = build_prefill_step(arch, ShapeSpec("prefill", S, B, "prefill"), None, cfg, quant=policy)
+    decode = build_decode_step(arch, ShapeSpec("decode", S, B, "decode"), None, cfg, quant=policy)
+    return prefill.jitted, decode.jitted
+
+
+def phase_whisper_serve(arch, qparams, smi: str) -> dict:
+    """15a: 4 clips of 4096 frames through ``build_prefill_step`` (the
+    encoder's 24 non-causal ``flash_attention`` launches, the cross K/V of
+    24 decoder layers) and 32 greedy steps of ``build_decode_step``, every
+    launch recorded and held to its plain version (``quant_matmul`` at
+    QM_TOL, ``flash_attention`` at FA_TOL with planted faults, among them a
+    causal mask applied); then the same traffic timed warm with nothing
+    recorded, with its busy shares; then request 0 alone (B = 1) decodes the
+    same tokens."""
+    cfg = arch.config
+    prefill, decode = whisper_steps(arch, WHISPER_FRAMES, WHISPER_B)
+    shape = ShapeSpec("prefill", WHISPER_FRAMES, WHISPER_B, "prefill")
+    batch = arch.input_concrete(torch.Generator(device=DEVICE).manual_seed(3), shape, cfg)
+    per_prefill, per_step = whisper_qdots(cfg)
+    rows: list = []
+    with recorded_quant_matmul() as seen_qm, recorded_flash_attention() as seen_fa:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caches = prefill(qparams, batch)
+        tokens = greedy(decode, qparams, caches, WHISPER_B, WHISPER_STEPS, rows)
+        checked_s = time.perf_counter() - t0
+        counts = read_counts()
+    qdots = per_prefill + WHISPER_STEPS * per_step
+    check(counts["flash_attention"] == cfg.n_enc_layers == len(seen_fa), "whisper: flash launches")
+    check(counts["quant_matmul"] == qdots == len(seen_qm), f"whisper: {qdots} quant_matmul launches")
+    for q, _, _, kw, _ in seen_fa:
+        check(tuple(q.shape) == (WHISPER_B, cfg.n_heads, WHISPER_FRAMES, cfg.d_head)
+              and not kw["causal"] and kw["window"] is None and kw["softcap"] is None,
+              f"whisper: flash_attention launch {list(q.shape)} {kw}")
+    for part, c in caches.items():
+        for name, t in c.items():
+            check(bool(torch.isfinite(t.float()).all()), f"whisper: {part} cache {name} finite")
+    check(caches["self"]["len"].eq(WHISPER_STEPS).all().item(), "whisper: self cache lengths")
+    check(caches["cross"]["len"].eq(WHISPER_FRAMES).all().item(), "whisper: cross cache lengths")
+    check(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab, "whisper: tokens in vocab")
+    del caches
+    qm_err = check_recorded_qm(seen_qm, "whisper int8 serving")
+    fa_err, fa_used = check_recorded_fa(seen_fa, "whisper prefill")
+    del seen_qm, seen_fa
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches = prefill(qparams, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    again = greedy(decode, qparams, caches, WHISPER_B, WHISPER_STEPS)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0 - prefill_s
+    check(torch.equal(again, tokens), "whisper: the timed pass decoded other tokens")
+    last = {"tokens": again[:, -1:].to(device=DEVICE, dtype=torch.int32),
+            "cur_len": torch.full((WHISPER_B,), WHISPER_STEPS, dtype=torch.int32, device=DEVICE)}
+    split_decode = device_split(lambda: decode(qparams, caches, last), n=4)
+    del caches
+    split_prefill = device_split(lambda: prefill(qparams, batch), n=1, top=5, width=60)
+    # request 0 alone: the same tokens, its logits within ALONE_TOL
+    rows1: list = []
+    caches1 = prefill(qparams, {"audio_frames": batch["audio_frames"][:1]})
+    k4, k1 = prefill(qparams, batch)["cross"]["k"][:, 0].float(), caches1["cross"]["k"][:, 0].float()
+    cross_diff = float((k1 - k4).abs().max() / k4.abs().max())
+    cross_same = float((k1 == k4).float().mean())
+    del k4, k1
+    alone = greedy(decode, qparams, caches1, 1, WHISPER_STEPS, rows1)
+    check(torch.equal(alone[0], tokens[0]),
+          f"whisper: request 0 alone decoded {alone[0].tolist()}, batched {tokens[0].tolist()}")
+    err, margin = 0.0, math.inf
+    for g, w in zip(rows1, rows):
+        scale = float(w.abs().max())
+        err = max(err, float((g - w).abs().max()) / scale)
+        top2 = w.topk(2).values
+        margin = min(margin, float(top2[0] - top2[1]) / scale)
+    check(err <= ALONE_TOL, f"whisper: request 0 alone, logits {err:.3e} of max |logit| apart")
+    print(
+        f"whisper serve (15a): {arch.name} full width int8, {WHISPER_B} clips x {WHISPER_FRAMES} "
+        f"frames, {WHISPER_STEPS} greedy steps from token 0: prefill {prefill_s:.3f} s warm with "
+        f"nothing recorded, decode {1e3 * decode_s / WHISPER_STEPS:.3f} ms a step (the checked "
+        f"pass {checked_s:.3f} s in all); {counts['quant_matmul']} quant_matmul launches = "
+        f"{per_prefill} + {WHISPER_STEPS} x {per_step}, each within QM_TOL of plain (max_abs_err "
+        f"{qm_err:.3e}); {counts['flash_attention']} non-causal flash_attention launches "
+        f"[{WHISPER_B},{cfg.n_heads},{WHISPER_FRAMES},{cfg.d_head}] each within FA_TOL of plain "
+        f"(max_abs_err {fa_err:.3e}; tolerance used by the kernel, then by each planted fault (> 1 "
+        f"fails): {json.dumps({k: {f: round(u, 4) for f, u in d.items()} for k, d in fa_used.items()})}); "
+        f"request 0 alone (B = 1): the same {WHISPER_STEPS} tokens, logits within {err:.3e} of max "
+        f"|logit| (limit {ALONE_TOL}; the batched row's smallest top-2 margin {margin:.3e}), its "
+        f"cross K (every layer) {cross_diff:.3e} of max |K| "
+        f"from the batched run's, {cross_same:.4f} of the values bit-equal; req0 "
+        f"{tokens[0, :8].tolist()}...; on {smi}"
+    )
+    print(f"whisper serve (15a) prefill split: {split_prefill}; on {smi}")
+    print(f"whisper serve (15a) decode step split: {split_decode}; on {smi}")
+    return counts
+
+
+def fa_rows_ref(q, k, v, r0: int, n: int, *, causal: bool, scale: float) -> torch.Tensor:
+    """``flash_attention_ref``'s query rows [r0, r0 + n), each at its true
+    position (the causal fault's mask needs it), against all of K and V."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0 : r0 + n].float(), k.float()) * scale
+    if causal:
+        qp = torch.arange(r0, r0 + n, device=q.device)[:, None]
+        s = torch.where(qp >= torch.arange(k.shape[2], device=q.device)[None], s, NEG_INF)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+
+
+@contextlib.contextmanager
+def checked_launches(what: str):
+    """Each ``quant_matmul`` launch made through ``qdot`` held to its plain
+    version at QM_TOL as it is made, and each ``flash_attention`` launch
+    (non-causal, MHA) on LONG_ROWS-row query blocks at FA_TOL, the first
+    launch also against planted faults; nothing is kept (a 32k prefill's
+    recorded operands would not fit beside it).  As with the recorders,
+    launch counts reset inside the block count the checking wrappers."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.quant_matmul import quant_matmul as qm_module
+
+    stats = {"quant_matmul": 0, "qm_err": 0.0, "flash_attention": 0, "fa_err": 0.0, "fa_used": {}}
+    real_qm, real_fa = qm_module.quant_matmul, fa_ops.flash_attention
+
+    def qm(x, q, scale, *, bits, **kw):
+        out = real_qm(x, q, scale, bits=bits, **kw)
+        want = quant_matmul_ref(x, q, scale, bits, out.dtype)
+        shape = f"[{x.shape[0]},{x.shape[1]}]x[{q.shape[0]},{scale.shape[0]}]"
+        stats["qm_err"] = max(stats["qm_err"], close(out, want, QM_TOL, f"{what}: quant_matmul {shape}"))
+        stats["quant_matmul"] += 1
+        return out
+
+    def fa(q, k, v, **kw):
+        out = real_fa(q, k, v, **kw)
+        check(not kw["causal"] and q.shape[1] == k.shape[1], f"{what}: flash_attention {kw}")
+        S, scale = q.shape[2], kw.get("scale") or q.shape[-1] ** -0.5
+        first = stats["flash_attention"] == 0
+        used = stats["fa_used"].setdefault(f"{list(q.shape)} sampled rows", {}) if first else None
+        for r0 in sorted({0, S // 3 // LONG_ROWS * LONG_ROWS, 2 * S // 3 // LONG_ROWS * LONG_ROWS,
+                          S - LONG_ROWS}):
+            got = out[:, :, r0 : r0 + LONG_ROWS]
+            want = flash_attention_ref(q[:, :, r0 : r0 + LONG_ROWS], k, v, causal=False, scale=scale)
+            rows = f"{list(q.shape)} rows [{r0}, {r0 + LONG_ROWS})"
+            stats["fa_err"] = max(stats["fa_err"], close(got, want, FA_TOL, f"{what}: {rows}"))
+            if first:  # each fault over the sampled rows, as over a whole output
+                faults = {
+                    "scale x2": fa_rows_ref(q, k, v, r0, LONG_ROWS, causal=False, scale=2 * scale),
+                    "causal mask applied": fa_rows_ref(q, k, v, r0, LONG_ROWS, causal=True, scale=scale),
+                    "zero output": torch.zeros_like(want),
+                }
+                for name, x in [("kernel", got), *faults.items()]:
+                    used[name] = max(used.get(name, 0.0), tol_used(x, want, FA_TOL))
+        for fault, u in (used or {}).items():
+            check(fault == "kernel" or u > 1, f"{what}: planted fault {fault} passes the tolerance")
+        stats["flash_attention"] += 1
+        return out
+
+    with mock.patch.object(qm_module, "quant_matmul", qm), mock.patch.object(fa_ops, "flash_attention", fa):
+        yield stats
+
+
+def phase_whisper_long(arch, qparams, smi: str) -> dict:
+    """15b: one clip of 32768 frames (decode_32k's encoder context): a
+    prefill whose 24 non-causal ``flash_attention`` launches at
+    [1,16,32768,64] are checked on sampled query blocks, then 16 decode
+    steps against the 3.2 GB cross cache (``decode_attend`` is plain, as in
+    JAX), every ``quant_matmul`` launch checked as it is made; then both
+    timed warm with nothing checked."""
+    cfg = arch.config
+    prefill, decode = whisper_steps(arch, LONG_FRAMES, 1)
+    shape = ShapeSpec("prefill", LONG_FRAMES, 1, "prefill")
+    batch = arch.input_concrete(torch.Generator(device=DEVICE).manual_seed(4), shape, cfg)
+    per_prefill, per_step = whisper_qdots(cfg)
+    with checked_launches("whisper 32k") as stats:
+        reset_counts()  # inside: the wrappers counted are the checking ones
+        caches = prefill(qparams, batch)
+        tokens = greedy(decode, qparams, caches, 1, LONG_STEPS)
+        counts = read_counts()
+    check(counts["flash_attention"] == cfg.n_enc_layers == stats["flash_attention"],
+          "whisper 32k: flash launches")
+    check(counts["quant_matmul"] == per_prefill + LONG_STEPS * per_step == stats["quant_matmul"],
+          "whisper 32k: quant_matmul launches")
+    cross = sum(t.numel() * t.element_size() for t in caches["cross"].values())
+    check(caches["cross"]["k"].shape == (cfg.n_dec_layers, 1, LONG_FRAMES, cfg.n_heads, cfg.d_head),
+          "whisper 32k: cross cache shape")
+    check(bool(torch.isfinite(caches["cross"]["k"].float()).all()), "whisper 32k: cross cache finite")
+    del caches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches = prefill(qparams, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    again = greedy(decode, qparams, caches, 1, LONG_STEPS)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0 - prefill_s
+    check(torch.equal(again, tokens), "whisper 32k: the timed pass decoded other tokens")
+    del caches
+    B, H, S, D = 1, cfg.n_heads, LONG_FRAMES, cfg.d_head
+    attn_flops = cfg.n_enc_layers * 4 * B * H * S * S * D
+    print(
+        f"whisper long (15b): 1 clip x {LONG_FRAMES} frames: prefill {prefill_s:.3f} s warm with "
+        f"nothing checked ({attn_flops / 1e12:.1f} TFLOP of non-causal attention = "
+        f"{attn_flops / prefill_s / 1e12:.1f} TFLOP/s over the whole prefill); {LONG_STEPS} decode "
+        f"steps against the {cross / 1e9:.3f} GB cross cache {1e3 * decode_s / LONG_STEPS:.3f} ms a "
+        f"step; {counts['flash_attention']} flash_attention launches [1,{H},{S},{D}] each within "
+        f"FA_TOL of plain on 4 blocks of {LONG_ROWS} query rows (max_abs_err {stats['fa_err']:.3e}; "
+        f"tolerance used by the kernel, then by each planted fault (> 1 fails): "
+        f"{json.dumps({k: {f: round(u, 4) for f, u in d.items()} for k, d in stats['fa_used'].items()})}); "
+        f"{counts['quant_matmul']} quant_matmul launches each within QM_TOL of plain (max_abs_err "
+        f"{stats['qm_err']:.3e}); tokens {tokens[0, :8].tolist()}...; on {smi}"
+    )
+    return counts
+
+
+def whisper_train_flops(cfg, S: int, T: int) -> float:
+    """The products one whisper train step executes at S frames and T
+    decoder tokens, counted from the shapes (backward twice the forward):
+    the encoder's projections and attention at S; the decoder's
+    projections, self-attention at T, cross K/V at S and cross-attention
+    T x S; the logits.  ``structural.model_flops`` (6 N D, D the frames)
+    counts the decoder at S and leaves attention out."""
+    d, f = cfg.d_model, cfg.d_ff
+    enc = S * 2 * (4 * d * d + 2 * d * f) + 4 * S * S * d
+    dec = T * 2 * (6 * d * d + 2 * d * f) + S * 2 * 2 * d * d + 4 * T * T * d + 4 * T * S * d
+    return 3 * (cfg.n_enc_layers * enc + cfg.n_dec_layers * dec + 2 * T * d * cfg.vocab)
+
+
+def phase_whisper_train(arch, params, smi: str) -> dict:
+    """15c: ``build_train_step`` at train_4k with its batch cut from 256 to 1
+    (4096 frames, 448 decoder tokens), AdamW on the f32 parameters, the
+    config's bf16 compute; one warm-up step, then 3 timed, on one batch: the
+    loss falls; ms a step, peak memory, the model-FLOPs share of the bf16
+    peak from ``structural.model_flops`` (JAX's 6 N D estimate, D the
+    frames); no kernel launched (JAX trains through none)."""
+    cfg = arch.config
+    shape = ShapeSpec("train", WHISPER_FRAMES, 1, "train")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw(3e-4)
+    state = opt.init([t for _, t in tree_leaves(params)])
+    step = build_train_step(arch, shape, None, cfg, optimizer=opt).jitted
+    batch = arch.input_concrete(torch.Generator(device=DEVICE).manual_seed(5), shape, cfg)
+    want = {k: s for k, (s, _) in arch.input_template(shape, cfg).items()}
+    check({k: tuple(v.shape) for k, v in batch.items()} == want, "whisper train: batch shapes")
+    reset_counts()
+    losses, secs = [], []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"whisper train: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"whisper train: the loss did not fall: {losses}")
+    check(sum(counts.values()) == 0, f"whisper train: the step launched a kernel: {counts}")
+    step_s = statistics.mean(secs[1:])
+    flops = structural.model_flops(arch, shape)
+    executed = whisper_train_flops(cfg, WHISPER_FRAMES, want["tokens"][1])
+    split = device_split(lambda: step(params, state, batch), n=1, top=6, width=80)
+    print(
+        f"whisper train (15c): {structural.param_count(arch)} f32 parameters, {WHISPER_FRAMES} "
+        f"frames + {want['tokens'][1]} decoder tokens x batch 1, AdamW; losses "
+        f"{[round(x, 6) for x in losses]}; steps (s) {[round(x, 4) for x in secs]}; timed mean "
+        f"{1e3 * step_s:.3f} ms a step; model FLOPs {flops:.4e} a step (structural.model_flops, "
+        f"6 N D over the frames) = {flops / step_s / 1e12:.2f} TFLOP/s, "
+        f"{flops / step_s / BF16_TC_FLOPS:.4f} of the dense bf16 peak; FLOPs executed "
+        f"{executed:.4e} (counted from the shapes, attention included, the decoder at its "
+        f"tokens) = {executed / step_s / BF16_TC_FLOPS:.4f} of that peak; peak memory "
+        f"{peak / 2**30:.3f} GiB (max_memory_allocated); on {smi}"
+    )
+    print(f"whisper train (15c) step split: {split}; on {smi}")
+    del state, step, metrics
+    return counts
+
+
+def phase_whisper(smi: str, launches: dict) -> None:
+    """Phase 15: whisper-medium at full width (random weights from a seeded
+    generator, int8 block weights for serving): 15a-c, each one's launches
+    added to ``launches``, then 15d."""
+    t0 = time.perf_counter()
+    whisper = get_arch(WHISPER_ARCH)
+    wh_params = whisper.init_params(torch.Generator(device=DEVICE).manual_seed(0))
+    wh_int8 = quantize_tree(wh_params, lm_policy(8))
+    torch.cuda.synchronize()
+    int8_bytes = sum(
+        sum(x.numel() * x.element_size() for x in ((t.q, t.scale) if isinstance(t, QTensor) else (t,)))
+        for _, t in tree_leaves(wh_int8)
+    )
+    wcfg = whisper.config
+    print(
+        f"whisper model: {whisper.name} at full width ({wcfg.n_enc_layers} + {wcfg.n_dec_layers} "
+        f"layers, d_model {wcfg.d_model}, {wcfg.n_heads} heads, d_ff {wcfg.d_ff}, vocab "
+        f"{wcfg.vocab}), {structural.param_count(whisper)} f32 parameters "
+        f"({structural.param_bytes(whisper) / 1e9:.3f} GB) from torch.Generator('cuda')."
+        f"manual_seed(0); int8 block weights + f32 embed / positions / norms "
+        f"{int8_bytes / 1e9:.3f} GB ({time.perf_counter() - t0:.2f} s); on {smi}"
+    )
+    for name, phase in [
+        ("whisper_serve", lambda: phase_whisper_serve(whisper, wh_int8, smi)),
+        ("whisper_long", lambda: phase_whisper_long(whisper, wh_int8, smi)),
+        ("whisper_train", lambda: phase_whisper_train(whisper, wh_params, smi)),
+    ]:
+        reset_counts()
+        t1 = time.perf_counter()
+        counts = phase()
+        print(f"launches[{name}]: {counts} ({time.perf_counter() - t1:.3f} s)")
+        for k, v in counts.items():
+            launches[k] += v
+    del wh_params, wh_int8
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    phase_lm_train_card_vs_cpu((WHISPER_ARCH,))
+    print(f"15d card vs CPU took {time.perf_counter() - t1:.3f} s")
+    print(f"phase 15 took {time.perf_counter() - t0:.3f} s; on {smi}")
 
 
 def main() -> int:
@@ -3561,6 +3971,10 @@ def main() -> int:
     print(f"14e card vs CPU took {time.perf_counter() - t1:.3f} s")
     print(f"phase 14 took {time.perf_counter() - t0:.3f} s; the script so far "
           f"{time.perf_counter() - t_start:.3f} s")
+
+    phase_whisper(smi, launches)
+    print(f"the script so far {time.perf_counter() - t_start:.3f} s")
+
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was never launched on the main path")
 

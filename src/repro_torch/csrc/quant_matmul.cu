@@ -44,13 +44,20 @@
 //     after another (load, widen, multiply), so a call costs a chain of
 //     latencies, 11-17 us against a 1.3-3.5 us byte bound.
 //   * wide (M > 64, prefill): wgmma m64n128k16 (two warpgroups, 128 x 128
-//     output tiles, BK 32), both operands read from shared memory through
-//     descriptors in the no-swizzle K-major layout, one wgmma batch per
-//     stage, no split.  A row's summation order depends on K only, so a
-//     row's result does not depend on M or on the other rows.  What holds it
-//     back: bringing x and the weights into shared memory, not the tensor
-//     cores -- dropping the wgmma instructions altogether (a timing-only
-//     ablation) left the time unchanged.
+//     output tiles, a ring of 4 stages of BK 32), both operands read from
+//     shared memory through descriptors in the no-swizzle K-major layout,
+//     one wgmma batch a stage, no split.  The tensor cores add bf16 products into
+//     their f32 fragment less exactly than f32 FADDs do, and the error grows
+//     with the chain (at K = 14336 cuBLAS's own bf16 GEMM is ~6x further
+//     from the f64 product than f32 FFMA), so every kPromoteStages stages
+//     the fragment is added into f32 sums with plain FADDs and zeroed: the
+//     promotion interval of CUTLASS's FP8 GEMMs.  The sums live in
+//     registers (half) and shared memory (each thread's own), so that two
+//     blocks still share an SM (see kAccRegs).  The
+//     fragment chains and the promotions depend on K only, so a row's result
+//     does not depend on M or on the other rows.  What holds it back: bringing x and the weights into
+//     shared memory, not the tensor cores -- dropping the wgmma instructions
+//     altogether (a timing-only ablation) left the time unchanged.
 // f32 activations (tests only) keep the first version's CUDA-core kernel:
 // bf16 tensor-core products would round an f32 x and miss its 1e-5
 // contract.  Rows whose 16-byte chunks are not aligned (K % 8 for x, N % 16
@@ -522,7 +529,19 @@ constexpr int kThreads = 256;
 constexpr int kXBytes = kBM * kBK * 2;  // per stage, 8 x 8 core matrices
 constexpr int kRawBytes = kBK * kBN;
 constexpr int kWBytes = kBN * kBK * 2;
-constexpr int kBytes = kStages * (kXBytes + kRawBytes) + 2 * kWBytes;
+// The promoted f32 sums of a thread's 64 fragment elements: the first
+// kAccRegs in registers, the rest in shared memory ([64 - kAccRegs][kThreads]).
+// All 64 in registers take 156 registers a thread and leave one block on an
+// SM (+40 % time); all in shared memory leave too little for the ring of
+// stages.  Half and half: 124 registers and 96 KB of shared memory, two
+// blocks an SM, as the unpromoted route had.
+constexpr int kAccRegs = 32;
+// K stages (of kBK) in one tensor-core chain before it is added into the
+// sums: 512 K.  scripts/quant_matmul_accumulation_check.py measures its error
+// and time; PERF.md records the sweep that chose it.
+constexpr int kPromoteStages = 16;
+constexpr int kAccBytes = (64 - kAccRegs) * kThreads * 4;
+constexpr int kBytes = kStages * (kXBytes + kRawBytes) + 2 * kWBytes + kAccBytes;
 
 // wgmma operand layout, K-major without swizzle: core matrices of 8 rows x
 // 8 bf16 (16 B a row, 128 B each), (row / 8, k / 8) at ((row / 8) * (kBK /
@@ -631,6 +650,10 @@ kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __
   unsigned char* xs = smem;                             // [kStages][kXBytes]
   int8_t* raw = reinterpret_cast<int8_t*>(xs + kStages * kXBytes);
   unsigned char* ws = reinterpret_cast<unsigned char*>(raw + kStages * kRawBytes);  // [2][...]
+  // this thread's promoted sums past kAccRegs, element i at
+  // acc_s[(i - kAccRegs) * kThreads]: no bank conflicts, and no other thread
+  // reads them, so no barrier
+  float* acc_s = reinterpret_cast<float*>(ws + 2 * kWBytes) + threadIdx.x;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, group = warp / 4;
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
   const int NB = kInt4 ? N / 2 : N, cb0 = kInt4 ? col0 / 2 : col0;
@@ -645,7 +668,11 @@ kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __
     cp_async_commit();
   };
 
-  float d[64] = {};
+  float d[64] = {};  // the tensor cores' chain of the current promotion interval
+  float acc_r[kAccRegs] = {};
+  int left = kPromoteStages;  // stages to the next promotion (no division)
+#pragma unroll
+  for (int i = kAccRegs; i < 64; ++i) acc_s[(i - kAccRegs) * kThreads] = 0.f;
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) issue(i);
   if (n_stages > 0) {
@@ -671,9 +698,22 @@ kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __
     }
     wgmma_wait<0>();
     fence_operands(d);
+    if (--left == 0 || s + 1 == n_stages) {
+      left = kPromoteStages;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        if (i < kAccRegs) {
+          acc_r[i] += d[i];
+        } else {
+          acc_s[(i - kAccRegs) * kThreads] += d[i];
+        }
+        d[i] = 0.f;
+      }
+    }
   }
 
-  // d[4j + 2h + e]: row 16 * (warp % 4) + lane / 4 + 8h, column 8j + 2 (lane % 4) + e
+  // element 4j + 2h + e: row 16 * (warp % 4) + lane / 4 + 8h, column 8j + 2 (lane % 4) + e
+  auto sum = [&](int i) { return i < kAccRegs ? acc_r[i] : acc_s[(i - kAccRegs) * kThreads]; };
   const int r = row0 + group * 64 + 16 * (warp % 4) + lane / 4;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
@@ -681,7 +721,7 @@ kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       store_pair(out, r + 8 * h, c, M, N,
-                 [&](int e) { return d[4 * j + 2 * h + e] * scale[c + e]; });
+                 [&](int e) { return sum(4 * j + 2 * h + e) * scale[c + e]; });
     }
   }
 }

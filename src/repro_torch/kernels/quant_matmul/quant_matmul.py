@@ -6,7 +6,8 @@ of two configurations that :func:`plan` picks from the shape alone: *skinny*
 (M <= 64, decode: ``mma.sync`` on 16 x 64 tiles, K split over blocks, the
 partial sums added in a fixed order) and *wide* (M > 64, prefill: ``wgmma``
 on 128 x 128 tiles, the whole K loop in the block, so a row's result does
-not depend on M).  f32 activations keep the first version's CUDA-core
+not depend on M; the tensor cores' f32 chain is promoted into f32 sums
+every 512 K).  f32 activations keep the first version's CUDA-core
 kernel.  The kernel masks ragged M, N and K itself, so unlike the JAX
 wrapper there is no shape-dependent fallback; int4 needs only an even N.
 

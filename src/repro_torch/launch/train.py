@@ -7,7 +7,9 @@ Trains the architecture's reduced config (``--full-config``: the full one)
 on one device, ``--device`` (default ``cuda``).  Resume is automatic from
 ``<run-dir>/ckpt``.  ``--production-mesh`` asks for JAX's 256 / 512-device
 mesh and refuses below that, as JAX does; training across several devices
-is not ported yet (ROADMAP Queue 1 #5).
+is not ported yet (ROADMAP Queue 1 #5).  ``TrainLoop`` feeds token batches
+only, as JAX's does, so whisper-medium (which trains on audio frames) takes
+``launch/steps.py::build_train_step`` instead.
 """
 
 from __future__ import annotations

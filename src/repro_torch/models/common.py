@@ -25,6 +25,7 @@ __all__ = [
     "params_from_numpy",
     "tree_leaves",
     "tree_unflatten",
+    "unstack",
     "rms_norm",
     "layer_norm",
 ]
@@ -67,6 +68,23 @@ def tree_unflatten(like, leaves):
     it = iter(leaves)
     values = {p: next(it) for p, _ in tree_leaves(like)}
     return tree_map(lambda p, _: values[p], like)
+
+
+def unstack(tree, n: int) -> list:
+    """Each of the ``n`` layers' (or repeat groups') slices of every stacked
+    leaf of ``tree`` (views, no copy; a stacked :class:`QTensor` by
+    :meth:`~QTensor.layer`): the port's counterpart of JAX's ``scan`` over
+    stacked parameters and caches.
+
+    Each leaf is unbound once: the backward of ``unbind`` stacks the
+    layers' gradients into the leaf's in one pass, where indexing ``t[g]``
+    per layer would give each layer a zero-filled gradient of the whole
+    stacked leaf to add up (JAX's scan writes each iteration's gradient
+    into its slice)."""
+    split = tree_map(
+        lambda _, t: [t.layer(g) for g in range(n)] if isinstance(t, QTensor) else t.unbind(0), tree
+    )
+    return [tree_map(lambda _, s: s[g], split) for g in range(n)]
 
 
 def materialize(gen: torch.Generator, template, device=None):

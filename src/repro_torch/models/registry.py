@@ -6,9 +6,11 @@ init, its loss / prefill / decode functions and its cache template.
 Templates are torch terms: ``{name: (shape, dtype)}`` with torch dtypes,
 as :func:`~repro_torch.models.transformer.cache_template` gives them.
 Configs register themselves on import from ``repro_torch.configs``: the
-dense, MoE, SSM, hybrid and VLM configs (Whisper is not ported).  The XLA sharding helpers (``param_pspecs``,
-``input_pspecs``, ``cache_pspecs``) have no counterpart here (ROADMAP
-Queue 1 #6).
+dense, MoE, SSM, hybrid and VLM configs of the decoder LM, and
+whisper-medium (``family="audio"``, a :class:`~.whisper.WhisperConfig`,
+whose handles go to ``models/whisper.py``).  The XLA sharding helpers
+(``param_pspecs``, ``input_pspecs``, ``cache_pspecs``) have no counterpart
+here (ROADMAP Queue 1 #6).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import torch
 from repro_torch.core.precision import tree_map
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
+from repro_torch.models import whisper as whs
+from repro_torch.models.whisper import WhisperConfig
 
 __all__ = ["ShapeSpec", "SHAPES", "Arch", "register", "get_arch", "list_archs"]
 
@@ -51,6 +55,7 @@ _PORTED_CONFIGS = (
     "mamba2_780m",
     "jamba_v01_52b",
     "qwen2_vl_2b",
+    "whisper_medium",
 )
 
 _REGISTRY: dict[str, "Arch"] = {}
@@ -59,8 +64,8 @@ _REGISTRY: dict[str, "Arch"] = {}
 @dataclasses.dataclass
 class Arch:
     name: str
-    family: str
-    config: Any  # ModelConfig
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    config: Any  # ModelConfig | WhisperConfig
     reduced_config: Any
     skip_shapes: tuple[str, ...] = ()
     skip_reason: str = ""
@@ -68,7 +73,10 @@ class Arch:
 
     # -- parameters ------------------------------------------------------
     def template(self, cfg=None):
-        return tfm.model_template(cfg or self.config)
+        cfg = cfg or self.config
+        if isinstance(cfg, WhisperConfig):
+            return whs.whisper_template(cfg)
+        return tfm.model_template(cfg)
 
     def abstract_params(self, cfg=None):
         """``{name: (shape, dtype)}`` of every parameter leaf (nested as the tree)."""
@@ -81,10 +89,14 @@ class Arch:
     # -- step functions ----------------------------------------------------
     def loss_fn(self, cfg=None) -> Callable:
         cfg = cfg or self.config
+        if isinstance(cfg, WhisperConfig):
+            return lambda params, batch: whs.whisper_loss(cfg, params, batch)
         return lambda params, batch: tfm.lm_loss(cfg, params, batch)
 
     def prefill_fn(self, cfg=None) -> Callable:
         cfg = cfg or self.config
+        if isinstance(cfg, WhisperConfig):
+            return lambda params, batch: whs.whisper_prefill(cfg, params, batch["audio_frames"])
         return lambda params, batch: tfm.prefill(
             cfg,
             params,
@@ -95,6 +107,10 @@ class Arch:
 
     def decode_fn(self, cfg=None) -> Callable:
         cfg = cfg or self.config
+        if isinstance(cfg, WhisperConfig):
+            return lambda params, caches, batch: whs.whisper_decode_step(
+                cfg, params, caches, batch["tokens"], batch["cur_len"]
+            )
         return lambda params, caches, batch: tfm.decode_step(
             cfg, params, caches, batch["tokens"], batch["cur_len"]
         )
@@ -103,12 +119,20 @@ class Arch:
     def input_template(self, shape: ShapeSpec, cfg=None) -> dict:
         """``{name: (shape, dtype)}`` of every model input of this (arch x shape) cell.
 
-        The VLM's frontend is a stub: it gets precomputed bf16 patch
+        Modality frontends are stubs.  The VLM gets precomputed bf16 patch
         embeddings (``n_vision_tokens``, at most half the sequence) before
-        the text tokens, and int32 M-RoPE positions [3, B, S]."""
+        the text tokens, and int32 M-RoPE positions [3, B, S].  Whisper gets
+        precomputed bf16 mel-frame embeddings [B, S, d_model] (train and
+        prefill) and decoder tokens of min(``dec_max_len``, S) (train)."""
         cfg = cfg or self.config
         B, S = shape.global_batch, shape.seq_len
         i32 = torch.int32
+        if isinstance(cfg, WhisperConfig) and shape.kind in ("train", "prefill"):
+            t = {"audio_frames": ((B, S, cfg.d_model), torch.bfloat16)}
+            if shape.kind == "train":
+                dec = min(cfg.dec_max_len, S)
+                t.update(tokens=((B, dec), i32), targets=((B, dec), i32))
+            return t
         if shape.kind not in ("train", "prefill"):
             return {"tokens": ((B, 1), i32), "cur_len": ((B,), i32)}
         n_vis = min(self.n_vision_tokens, S // 2) if self.family == "vlm" else 0
@@ -141,7 +165,10 @@ class Arch:
 
     # -- caches --------------------------------------------------------
     def cache_abstract(self, shape: ShapeSpec, cfg=None):
-        return tfm.cache_template(cfg or self.config, shape.global_batch, shape.seq_len)
+        cfg = cfg or self.config
+        if isinstance(cfg, WhisperConfig):
+            return whs.whisper_cache_template(cfg, shape.global_batch, shape.seq_len)
+        return tfm.cache_template(cfg, shape.global_batch, shape.seq_len)
 
 
 def register(arch: Arch) -> Arch:

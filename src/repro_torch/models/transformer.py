@@ -33,10 +33,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
-from repro_torch.core.precision import QTensor, qdot, tree_map
+from repro_torch.core.precision import qdot, tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import AttnMask, KVCache
-from repro_torch.models.common import dense, rms_norm
+from repro_torch.models.common import dense, rms_norm, unstack
 from repro_torch.models.mamba2 import (
     SSMConfig,
     ssm_apply,
@@ -340,20 +340,6 @@ def _logits(cfg, params, h):
     return logits
 
 
-def _groups(tree, n: int) -> list:
-    """Each of the ``n`` groups' slices of every stacked leaf (views, no copy).
-
-    Each leaf is unbound once: the backward of ``unbind`` stacks the
-    groups' gradients into the leaf's in one pass, where indexing ``t[g]``
-    per group would give each group a zero-filled gradient of the whole
-    stacked leaf to add up (JAX's scan writes each iteration's gradient
-    into its slice)."""
-    split = tree_map(
-        lambda _, t: [t.layer(g) for g in range(n)] if isinstance(t, QTensor) else t.unbind(0), tree
-    )
-    return [tree_map(lambda _, s: s[g], split) for g in range(n)]
-
-
 def _scan_blocks(cfg, params, h, positions, pos3, mode, caches):
     """Loop over repeat groups; within a group, pattern positions unroll.
 
@@ -367,8 +353,8 @@ def _scan_blocks(cfg, params, h, positions, pos3, mode, caches):
     ng = n_groups(cfg)
     new = {f"pos{i}": [] for i in range(len(pattern))}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    all_params = _groups(params["blocks"], ng)
-    all_caches = [None] * ng if caches is None else _groups(caches, ng)
+    all_params = unstack(params["blocks"], ng)
+    all_caches = [None] * ng if caches is None else unstack(caches, ng)
     for g in range(ng):
         block_params, group_caches = all_params[g], all_caches[g]
 

@@ -455,6 +455,28 @@ def test_quant_matmul_rows_do_not_depend_on_m_in_the_wide_regime(cuda, bits):
         assert torch.equal(_bits(part), _bits(full[:M]))
 
 
+@pytest.mark.parametrize("K", [8192, 14336])
+def test_quant_matmul_wide_route_at_long_k_within_the_bf16_tolerance(cuda, K):
+    """The wide route's longest chains on the main path (jamba's out_proj
+    and w_down) at the fixed tolerance of tests/test_kernels.py, unwidened:
+    the tensor cores' chain is promoted into f32 sums every few K stages,
+    so the error does not grow with K as one long chain's does."""
+    from repro_torch.core.precision import quantize_weight
+    from repro_torch.kernels.quant_matmul.quant_matmul import plan, quant_matmul
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+    M, N = 1024, 4096
+    assert plan(M, K, N).kind == "wide"
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    w = torch.randn(K, N, device=cuda, generator=gen) * K**-0.5
+    x = torch.randn(M, K, device=cuda, generator=gen).to(torch.bfloat16)
+    qt = quantize_weight(w, 8)
+    got = quant_matmul(x, qt.q, qt.scale, bits=8)
+    want = quant_matmul_ref(x, qt.q, qt.scale, 8, torch.bfloat16)  # f32 FFMA on the card
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_qm_tol(torch.bfloat16))
+
+
 def _fa_tol(dtype):
     # the kernel keeps scores, probabilities and the accumulator in f32 like
     # its plain version: bf16 outputs differ by at most one rounding of the
@@ -482,6 +504,10 @@ FA_CARD_CASES = [
     ((1, 2, 2, 333, 333, 32), dict(causal=True)),
     ((1, 2, 1, 257, 257, 96), dict(causal=True, softcap=20.0)),
     ((1, 2, 2, 520, 520, 128), dict(causal=True)),
+    # Whisper: the encoder's non-causal self-attention at S = 4096 (16 heads,
+    # D = 64) and the decoder's cross-attention, 448 queries on 4096 keys
+    ((1, 16, 16, 4096, 4096, 64), dict(causal=False)),
+    ((1, 16, 16, 448, 4096, 64), dict(causal=False)),
 ]
 
 
@@ -914,11 +940,13 @@ def test_sharded_engine_on_the_card_matches_serial(cuda):
 
 
 @pytest.mark.parametrize(
-    "name", ["stablelm-1.6b", "qwen2-moe-a2.7b", "mamba2-780m", "jamba-v0.1-52b", "qwen2-vl-2b"]
+    "name",
+    ["stablelm-1.6b", "qwen2-moe-a2.7b", "mamba2-780m", "jamba-v0.1-52b", "qwen2-vl-2b", "whisper-medium"],
 )
 def test_one_lm_train_step_on_the_card_matches_the_cpu(cuda, name):
     """build_train_step at f32 compute (qwen2-moe: shared experts; qwen2-vl:
-    the input template's patch embeddings and positions) from the
+    the input template's patch embeddings and positions; whisper: audio
+    frames, encoder and decoder) from the
     same parameters and batch, held stage by stage: the loss within 1e-5
     relative, every gradient leaf (read where the step clips them) within
     1e-5 of its max |g|, and the AdamW update from the same gradients
@@ -960,10 +988,11 @@ def test_one_lm_train_step_on_the_card_matches_the_cpu(cuda, name):
         lg, lc = float(run(cuda)), float(run("cpu"))
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     g_card, g_cpu = seen
-    g_tol = 1e-4 if cfg.ssm is not None else 1e-5
+    ssm = getattr(cfg, "ssm", None) is not None
+    g_tol = 1e-4 if ssm else 1e-5
     for a, b in zip(g_card, g_cpu):
         assert float((a - b).abs().max()) <= g_tol * float(b.abs().max())
-    if cfg.ssm is not None:
+    if ssm:
         f64 = torch.float64
         p = tree_map(lambda _, t: t.to(f64, copy=True), params)
         opt = topt.adamw(3e-4)
@@ -1085,6 +1114,31 @@ def test_family_decode_and_prefill_on_the_card_match_the_cpu(cuda, name):
     pc, kc = arch.prefill_fn(cfg)(qp, batch)
     torch.testing.assert_close(pg.cpu(), pc, rtol=0, atol=1e-4 * float(pc.abs().max()))
     _caches_close(kg, kc)
+
+
+def test_whisper_prefill_and_decode_on_the_card_match_the_cpu(cuda):
+    """whisper-medium reduced, f32 compute, int8 block weights: a prefill of
+    2 clips x 4096 frames (the encoder's 2 non-causal flash_attention
+    launches on the card) and 4 greedy decode steps (self caches appended
+    in place), card (kernels) against CPU (plain): the caches within 1e-4
+    of each leaf's max |value|, the logits within 1e-4 of max |logit|."""
+    from repro_torch import kernels
+
+    arch, cfg, qp, qp_gpu = _family(cuda, "whisper-medium")
+    frames = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 4096, cfg.d_model)).astype(np.float32))
+    kernels.reset_launch_counts()
+    cg = arch.prefill_fn(cfg)(qp_gpu, {"audio_frames": frames.to(cuda)})
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == cfg.n_enc_layers
+    cc = arch.prefill_fn(cfg)(qp, {"audio_frames": frames})
+    _caches_close(cg, cc)
+    tok, cur = torch.tensor([[0], [7]], dtype=torch.int32), torch.zeros(2, dtype=torch.int32)
+    for _ in range(4):
+        lg, cg = arch.decode_fn(cfg)(qp_gpu, cg, {"tokens": tok.to(cuda), "cur_len": cur.to(cuda)})
+        lc, cc = arch.decode_fn(cfg)(qp, cc, {"tokens": tok, "cur_len": cur})
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4 * float(lc.abs().max()))
+        tok, cur = lc.argmax(-1).to(torch.int32), cur + 1
+    _caches_close(cg, cc)
 
 
 def test_ssm_serve_engine_on_the_card_matches_the_cpu(cuda):
