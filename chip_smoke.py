@@ -158,11 +158,28 @@ result line):
    cache, both timed warm; (c) a train step at 4096 frames + 448 tokens
    (AdamW; ms a step, peak memory, the model-FLOPs share from
    ``structural.model_flops``); (d) the reduced step card vs CPU;
-16. a ``kernels`` JSON line (launches on phases 3-7 and 9-15, times,
+16. stablelm-1.6b at full width over a ("data", "model") mesh of four
+   shards of card 0 (``launch/mesh.py``; FSDP on data, TP on model, the
+   dense blocks sharded by ``models/sharded.py``): (a) three train steps at
+   seq 256 x batch 8 at f32 compute against one device (gradients at the
+   initial parameters within 1e-4 of max |g|, each loss and grad norm 1e-5,
+   the parameters after the steps 1e-3 of max |w|), then at the config's
+   bf16 compute timed against one device (ms a step, model-FLOPs share,
+   peak memory, the device split) and a ``bf16_gather`` step; (b) a 2 x 4096
+   int8 ``serve_optimized`` prefill, every ``quant_matmul`` and
+   ``flash_attention`` launch (local heads) held to plain with planted
+   faults, logits and caches against one device; (c) 16 greedy decode
+   steps over the batch- and kv-head-sharded caches, fed the one-device
+   tokens, each step's logits within 1e-2 of max and its token equal
+   wherever decided; (d) ``TrainLoop`` at ~100 M on (2, 2) with a failure,
+   its checkpoint resumed on (4, 1) within 1e-5 of (2, 2)'s losses; (e)
+   ``ring_allgather_matmul`` on four shards against ``x @ w``; (a)-(c) again
+   on distinct cards where there are two or four;
+17. a ``kernels`` JSON line (launches on phases 3-7 and 9-16, times,
    bounds); phases 3-5 and 9-12 also print the SNN kernels' launches by
    size; phase 2 also times non-causal ``flash_attention`` at
    [1,16,4096,64] and [1,16,32768,64] beside SDPA and the bound;
-17. the result line.
+18. the result line.
 """
 
 from __future__ import annotations
@@ -259,7 +276,13 @@ from repro_torch.launch.steps import (  # noqa: E402
     build_decode_step,
     build_prefill_step,
     build_train_step,
+    init_opt_state,
+    mesh_value_and_grad,
 )
+from repro_torch.launch.mesh import make_mesh as make_named_mesh  # noqa: E402
+from repro_torch.distributed.overlap import ring_allgather_matmul_shardmap  # noqa: E402
+from repro_torch.distributed.sharding import NamedSharding  # noqa: E402
+from repro_torch.distributed.spmd import Sharded, shard, shard_tree  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import mlp as mlp_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -3746,6 +3769,408 @@ def phase_whisper(smi: str, launches: dict) -> None:
     print(f"phase 15 took {time.perf_counter() - t0:.3f} s; on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dense LM over a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (2, 2)
+MESH_STEPS = 3  # train steps each side; the last two timed
+MESH_PREFILL_B, MESH_PREFILL_S = 2, 4096  # one sequence a data shard
+MESH_DECODE = 16
+# sharded against one-device bf16 logits (prefill and decode), of max |logit|:
+# the two add the row-parallel partials and the per-shard heads in other f32
+# orders, and bf16 activations turn a last-bit difference into an ulp
+MESH_LOGIT_TOL = 1e-2
+MESH_LIMITS = dict(loss=1e-5, grad=1e-4, param=1e-3)  # tests/test_torch_lm_mesh.py's, f32
+LOOP16_DIR = ROOT / "build" / "phase16"  # the mesh TrainLoop's checkpoints (git-ignored)
+LOOP16_STEPS, LOOP16_CKPT, LOOP16_FAIL, LOOP16_MORE = 20, 10, 15, 5
+RING_SHAPE = (2048, 8192, 2048)  # x [M, K] @ w [K, N], f32, K split over four shards
+
+
+def card_mesh2(shape, devices=None):
+    """A (data, model) mesh over ``devices`` (default: card 0 repeated)."""
+    n = shape[0] * shape[1]
+    return make_named_mesh(shape, devices or [DEVICE] * n)
+
+
+def leaf_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, on ``got``'s device."""
+    want = want.to(got.device)
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
+
+
+def mesh_steps(step, params, state, batches) -> tuple[list, list, list]:
+    """Run ``step`` over ``batches``: losses, grad norms and walls (s)."""
+    losses, norms, secs = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))  # the loop's sync
+        secs.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, secs
+
+
+def phase_mesh_train(mesh, smi: str) -> dict:
+    """16a: full-width stablelm-1.6b train steps (seq 256 x batch 8, the
+    loop's AdamW) on ``mesh`` against one device.  At f32 compute, the
+    limits of tests/test_torch_lm_mesh.py: gradients at the initial
+    parameters, then each step's loss and grad norm and the parameters after
+    MESH_STEPS steps.  At the config's bf16 compute, timed (ms a step,
+    tokens/s, model-FLOPs share, peak memory, sharded / one-device wall) with
+    the losses at the bf16 limit; then a ``bf16_gather`` step."""
+    arch = get_arch(LM_ARCH)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    data = SyntheticTokens(vocab=arch.config.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in next(data).items()}
+               for _ in range(MESH_STEPS)]
+    f32 = dataclasses.replace(arch.config, compute_dtype=torch.float32)
+    p_specs = arch.param_pspecs(mesh, f32)
+    b_specs = arch.input_pspecs(mesh, shape, f32)
+    init = lambda cfg: arch.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    reset_counts()
+    # one device, f32: gradients at the initial parameters, then the steps
+    params = init(f32)
+    leaves = [t.detach().requires_grad_(True) for _, t in tree_leaves(params)]
+    loss, _ = arch.loss_fn(f32)(tree_unflatten(params, leaves), batches[0])
+    g_one = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    del leaves, loss
+    opt = loop_optimizer()
+    state = opt.init([t for _, t in tree_leaves(params)])
+    step = build_train_step(arch, shape, None, f32, optimizer=opt).jitted
+    one = mesh_steps(step, params, state, batches)
+    p_one = [t.cpu() for _, t in tree_leaves(params)]
+    del params, state, step
+    torch.cuda.empty_cache()
+    # the mesh, f32
+    params = shard_tree(init(f32), p_specs, mesh)
+    placed = {k: shard(v, NamedSharding(mesh, b_specs[k])) for k, v in batches[0].items()}
+    _, _, g_mesh = mesh_value_and_grad(arch.loss_fn(f32), params, placed)
+    g_err = max(leaf_err(g.full(), w) for g, w in zip(g_mesh, g_one))
+    del g_mesh, g_one, placed
+    state = init_opt_state(opt, params)
+    step = build_train_step(arch, shape, mesh, f32, optimizer=opt).jitted
+    got = mesh_steps(step, params, state, batches)
+    p_err = max(leaf_err(t.full(), w) for (_, t), w in zip(tree_leaves(params), p_one))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got[0], one[0]))
+    gn_err = max(abs(a - b) / abs(b) for a, b in zip(got[1], one[1]))
+    check(g_err <= MESH_LIMITS["grad"], f"16a: gradients on the mesh {g_err:.3e} of max |g|")
+    check(loss_err <= MESH_LIMITS["loss"], f"16a: losses {got[0]} vs one device {one[0]}")
+    check(gn_err <= MESH_LIMITS["loss"], f"16a: grad norms {got[1]} vs one device {one[1]}")
+    check(p_err <= MESH_LIMITS["param"], f"16a: parameters after {MESH_STEPS} steps {p_err:.3e}")
+    del params, state, step, p_one
+    torch.cuda.empty_cache()
+    # the config's bf16 compute, timed, one device then the mesh
+    cfg = arch.config
+    walls, losses, peaks = {}, {}, {}
+    for where in ("one", "mesh"):
+        torch.cuda.reset_peak_memory_stats()
+        params = init(cfg)
+        if where == "mesh":
+            params = shard_tree(params, arch.param_pspecs(mesh, cfg), mesh)
+        state = init_opt_state(opt, params)
+        step = build_train_step(arch, shape, mesh if where == "mesh" else None, cfg, optimizer=opt).jitted
+        losses[where], _, secs = mesh_steps(step, params, state, batches)
+        walls[where] = statistics.mean(secs[1:])
+        peaks[where] = torch.cuda.max_memory_allocated()
+        if where == "mesh":
+            split = device_split(lambda: step(params, state, batches[-1]), n=2, top=8, width=80)
+        del params, state, step
+        torch.cuda.empty_cache()
+    bf_err = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["one"]))
+    check(bf_err <= 0.05, f"16a bf16: losses {losses['mesh']} vs one device {losses['one']}")
+    params = shard_tree(init(cfg), arch.param_pspecs(mesh, cfg), mesh)
+    state = init_opt_state(opt, params)
+    step = build_train_step(arch, shape, mesh, cfg, optimizer=opt, bf16_gather=True).jitted
+    g16 = mesh_steps(step, params, state, batches[:2])
+    del params, state, step
+    torch.cuda.empty_cache()
+    g16_err = abs(g16[0][0] - losses["one"][0]) / losses["one"][0]
+    check(g16_err <= 0.05, f"16a bf16_gather: loss {g16[0][0]} vs one device {losses['one'][0]}")
+    counts = read_counts()
+    check(sum(counts.values()) == 0, f"16a: a train step launched a kernel: {counts}")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops = model_flops_per_token(arch, cfg, TRAIN_SEQ) * tokens
+    print(
+        f"mesh train (16a) {LM_ARCH} full width on {mesh}: f32 compute -- gradients at the "
+        f"initial parameters {g_err:.3e} of max |g| (limit {MESH_LIMITS['grad']}), {MESH_STEPS} "
+        f"steps' losses {[round(x, 6) for x in got[0]]} vs one device "
+        f"{[round(x, 6) for x in one[0]]} ({loss_err:.3e} relative, limit {MESH_LIMITS['loss']}), "
+        f"grad norms {gn_err:.3e} relative, parameters after {MESH_STEPS} steps {p_err:.3e} of "
+        f"max |w| (limit {MESH_LIMITS['param']}); f32 steps (s) one device "
+        f"{[round(x, 4) for x in one[2]]}, mesh {[round(x, 4) for x in got[2]]}; on {smi}"
+    )
+    print(
+        f"mesh train (16a) bf16 compute (the config's), seq {TRAIN_SEQ} x batch {TRAIN_BATCH}: "
+        f"{1e3 * walls['mesh']:.3f} ms a step on the mesh vs {1e3 * walls['one']:.3f} ms on one "
+        f"device (sharded / one-device wall {walls['mesh'] / walls['one']:.3f}; mean of steps "
+        f"2-{MESH_STEPS}), {tokens / walls['mesh']:.1f} tokens/s, model FLOPs {flops:.4e} a step "
+        f"= {flops / walls['mesh'] / BF16_TC_FLOPS:.4f} of the dense bf16 peak on the mesh "
+        f"({flops / walls['one'] / BF16_TC_FLOPS:.4f} on one device); peak memory "
+        f"{peaks['mesh'] / 2**30:.3f} GiB on the mesh, {peaks['one'] / 2**30:.3f} GiB on one "
+        f"device; losses {[round(x, 5) for x in losses['mesh']]} vs "
+        f"{[round(x, 5) for x in losses['one']]} ({bf_err:.3e} relative, bf16 limit 0.05); "
+        f"bf16_gather step loss {g16[0][0]:.6f} ({g16_err:.3e} from one device), its second step "
+        f"{1e3 * g16[2][1]:.3f} ms; on {smi}"
+    )
+    print(f"mesh train (16a) step split on the mesh (bf16): {split}; on {smi}")
+    return counts
+
+
+def grow_caches(caches, extra: int):
+    """Prefill caches (exact length) with ``extra`` empty positions after
+    them, for decoding on (a sharded leaf grown shard by shard)."""
+
+    def grow(name, t):
+        if name.rsplit("/", 1)[-1] == "len":
+            return t
+        if isinstance(t, Sharded):
+            shards = [torch.cat([s, s.new_zeros((*s.shape[:2], extra, *s.shape[3:]))], dim=2)
+                      for s in t.shards]
+            return Sharded.from_local(shards, t.mesh, t.spec)
+        return torch.cat([t, t.new_zeros((*t.shape[:2], extra, *t.shape[3:]))], dim=2)
+
+    return tree_map(grow, caches)
+
+
+def serve_params_bf16_int8(arch):
+    """stablelm-1.6b's serve_optimized int8 tree: bf16 float leaves, the
+    block weights quantized (from a seeded generator)."""
+    params = arch.init_params(torch.Generator(device=DEVICE).manual_seed(0))
+    params = tree_map(lambda _, t: t.to(torch.bfloat16), params)
+    return quantize_tree(params, lm_policy(8))
+
+
+def logits_agree(got, want, what: str) -> tuple[float, int, int]:
+    """``got`` within MESH_LOGIT_TOL of max |want|, and its greedy token equal
+    wherever want's top-2 margin is wider than twice that.  Returns (error /
+    max, decided rows, rows whose tokens are equal)."""
+    got, want = got.float(), want.float().to(got.device)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    check(err <= MESH_LOGIT_TOL, f"{what}: logits {err:.3e} of max apart")
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * MESH_LOGIT_TOL * scale
+    same = got.argmax(-1) == want.argmax(-1)
+    check(bool(same[decided].all()), f"{what}: a decided greedy token differs")
+    return err, int(decided.sum()), int(same.sum())
+
+
+def phase_mesh_serve(mesh, smi: str) -> dict:
+    """16b-c: a 4096-token prefill of 2 sequences with serve_optimized int8
+    weights on ``mesh`` (every launch recorded and held to plain), its
+    logits and caches against one device, then 16 greedy decode steps over
+    the TP- and batch-sharded caches grown by 16 positions, fed the
+    one-device run's tokens (so that a near-tie cannot steer the two apart),
+    each step's logits and greedy token against one device."""
+    arch = get_arch(LM_ARCH)
+    cfg = arch.config
+    B, S, T = MESH_PREFILL_B, MESH_PREFILL_S, MESH_DECODE
+    qparams = serve_params_bf16_int8(arch)
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(0, cfg.vocab, (B, S))).to(DEVICE)
+    pshape = ShapeSpec("prefill", S, B, "prefill")
+    pre_one = build_prefill_step(arch, pshape, None, cfg, quant=lm_policy(8), serve_optimized=True)
+    pre_mesh = build_prefill_step(arch, pshape, mesh, cfg, quant=lm_policy(8), serve_optimized=True)
+    mparams = tree_map(lambda _, t: t, qparams)  # the mesh step rebinds its own tree's leaves
+    pre_one.jitted(qparams, {"tokens": tokens[:, :8]})  # warm-up (S < 4096: no flash launch)
+    with recorded_quant_matmul() as seen_qm, recorded_flash_attention() as seen_fa:
+        reset_counts()
+        logits, caches = pre_mesh.jitted(mparams, {"tokens": tokens})
+        torch.cuda.synchronize()
+        counts = read_counts()
+    L, n = cfg.n_layers, mesh.size
+    check(counts["flash_attention"] == L * n == len(seen_fa), f"16b: {L * n} flash launches")
+    check(counts["quant_matmul"] == QDOTS_PER_LAYER * L * n == len(seen_qm),
+          f"16b: {QDOTS_PER_LAYER * L * n} quant_matmul launches")
+    check(not isinstance(logits, Sharded) and logits.shape == (B, 1, cfg.vocab), "16b: logits")
+    qm_err = check_recorded_qm(seen_qm, "16b mesh prefill")
+    fa_err, fa_used = check_recorded_fa(seen_fa, "16b mesh prefill")
+    del seen_qm, seen_fa
+    torch.cuda.synchronize()
+    logits_one, caches_one = pre_one.jitted(qparams, {"tokens": tokens})
+    p_err, p_dec, p_same = logits_agree(logits, logits_one, "16b prefill")
+    c_err = max(
+        leaf_err(caches[pos][k].full(), caches_one[pos][k])
+        for pos in caches_one for k in ("k", "v")
+    )
+    check(c_err <= CACHE_TOL, f"16b: caches {c_err:.3e} of max apart")
+    check(all(torch.equal(caches[p]["len"].full(), caches_one[p]["len"]) for p in caches_one), "16b: len")
+    walls = {}
+    for where, fn, ps in (("one", pre_one.jitted, qparams), ("mesh", pre_mesh.jitted, mparams)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(ps, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls[where] = time.perf_counter() - t0
+    print(
+        f"mesh prefill (16b) {LM_ARCH} full width int8 serve_optimized on {mesh}: {B} x {S} "
+        f"tokens in {walls['mesh']:.3f} s warm with nothing recorded vs {walls['one']:.3f} s on one "
+        f"device ({walls['mesh'] / walls['one']:.3f}x); {counts['quant_matmul']} quant_matmul "
+        f"launches each within QM_TOL of plain (max_abs_err {qm_err:.3e}; the row-parallel ones "
+        f"with f32 partials), {counts['flash_attention']} flash_attention launches on local heads "
+        f"each within FA_TOL (max_abs_err {fa_err:.3e}; tolerance used, then by each planted "
+        f"fault: {json.dumps({k: {f: round(u, 4) for f, u in d.items()} for k, d in fa_used.items()})}); "
+        f"logits {p_err:.3e} of max from one device ({p_same}/{B} greedy tokens equal, {p_dec} "
+        f"decided), caches {c_err:.3e}; on {smi}"
+    )
+    # 16c: decode over the sharded caches
+    dshape = ShapeSpec("decode", S + T, B, "decode")
+    dec_one = build_decode_step(arch, dshape, None, cfg, quant=lm_policy(8), serve_optimized=True)
+    dec_mesh = build_decode_step(arch, dshape, mesh, cfg, quant=lm_policy(8), serve_optimized=True)
+    caches, caches_one = grow_caches(caches, T), grow_caches(caches_one, T)
+    tok = logits_one.argmax(-1).to(torch.int32)
+    cur = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
+    toks, outs_one = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(T):
+        lg, _ = dec_one.jitted(qparams, caches_one, {"tokens": tok, "cur_len": cur + t})
+        toks.append(tok)
+        tok = lg.argmax(-1).to(torch.int32)
+        outs_one.append(lg)
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t0) / T
+    reset_counts()
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(T):
+        lg, _ = dec_mesh.jitted(mparams, caches, {"tokens": toks[t], "cur_len": cur + t})
+        outs.append(lg)
+    torch.cuda.synchronize()
+    mesh_ms = 1e3 * (time.perf_counter() - t0) / T
+    dcounts = read_counts()
+    check(dcounts["quant_matmul"] == QDOTS_PER_LAYER * L * n * T, "16c: quant_matmul launches")
+    check(dcounts["flash_attention"] == 0, "16c: decode launches no flash attention")
+    d_err, d_dec, d_same = 0.0, 0, 0
+    for t, (a, b) in enumerate(zip(outs, outs_one)):
+        e, dd, ss = logits_agree(a, b, f"16c decode step {t}")
+        d_err, d_dec, d_same = max(d_err, e), d_dec + dd, d_same + ss
+    check(all(torch.equal(caches[p]["len"].full(), caches_one[p]["len"]) for p in caches_one), "16c: len")
+    print(
+        f"mesh decode (16c) {LM_ARCH} int8 on {mesh}: {T} greedy steps of {B} sequences against "
+        f"{S}-token caches sharded over batch and kv heads, {mesh_ms:.3f} ms a step vs "
+        f"{one_ms:.3f} ms on one device ({mesh_ms / one_ms:.3f}x); {d_same}/{B * T} greedy tokens "
+        f"equal to one device's ({d_dec} decided by a top-2 margin above "
+        f"{2 * MESH_LOGIT_TOL} of max), logits {d_err:.3e} of max apart; "
+        f"{dcounts['quant_matmul']} quant_matmul launches; on {smi}"
+    )
+    for k, v in dcounts.items():
+        counts[k] += v
+    del qparams, mparams, caches, caches_one, outs, outs_one
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_mesh_loop(smi: str) -> dict:
+    """16d: ``TrainLoop`` at the ~100 M config of phase 13 (f32 compute) on
+    a (2, 2) mesh of card 0: a failure injected at step 15, restored from the
+    checkpoint of step 10, to step 20; its checkpoint then resumes on (4, 1)
+    and, beside it, on (2, 2): the two runs' losses over the next 5 steps
+    within 1e-5 relative."""
+    arch = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(arch.reduced_config, **LM100M, compute_dtype=torch.float32)
+    shutil.rmtree(LOOP16_DIR, ignore_errors=True)
+
+    def make(shape, run_dir, **kw) -> TrainLoop:
+        loop = TrainLoop(LM_ARCH, TRAIN_SEQ, TRAIN_BATCH, card_mesh2(shape), str(LOOP16_DIR / run_dir),
+                         ckpt_every=LOOP16_CKPT, log_every=1, device=DEVICE, **kw)
+        loop.arch = dataclasses.replace(arch, reduced_config=cfg)
+        loop.cfg = cfg
+        return loop
+
+    losses = lambda path: {e["step"]: e["loss"] for e in map(json.loads, open(path)) if e["event"] == "step"}
+    reset_counts()
+    t0 = time.perf_counter()
+    out = make(MESH_SHAPE, "a", fail_at_step=LOOP16_FAIL).run(LOOP16_STEPS)
+    wall = time.perf_counter() - t0
+    shutil.copytree(LOOP16_DIR / "a" / "ckpt", LOOP16_DIR / "b" / "ckpt")
+    events = [json.loads(x) for x in open(out["metrics_path"])]
+    kinds = [(e["event"], e["step"]) for e in events if e["event"] != "straggler"]
+    restored = LOOP16_FAIL // LOOP16_CKPT * LOOP16_CKPT
+    check(out["failures"] == 1 and out["final_step"] == LOOP16_STEPS, f"16d: TrainLoop {out}")
+    check(("failure", LOOP16_FAIL) in kinds and ("restored", restored) in kinds, f"16d: events {kinds}")
+    end = LOOP16_STEPS + LOOP16_MORE
+    t0 = time.perf_counter()
+    on22 = make(MESH_SHAPE, "a").run(end)
+    on41 = make((4, 1), "b").run(end)
+    more_wall = time.perf_counter() - t0
+    a, b = losses(LOOP16_DIR / "a" / "metrics.jsonl"), losses(LOOP16_DIR / "b" / "metrics.jsonl")
+    errs = [abs(a[s] - b[s]) / abs(a[s]) for s in range(LOOP16_STEPS, end)]
+    check(on22["final_step"] == on41["final_step"] == end, "16d: the resumed runs' final steps")
+    check(("resume", LOOP16_STEPS) in [(e["event"], e["step"]) for e in map(json.loads, open(on41["metrics_path"]))],
+          "16d: the (4, 1) run did not resume from the (2, 2) checkpoint")
+    check(max(errs) <= MESH_LIMITS["loss"], f"16d: (4, 1) vs (2, 2) losses {errs}")
+    check(out["final_loss"] < out["first_loss"], f"16d: loss {out['first_loss']} -> {out['final_loss']}")
+    counts = read_counts()
+    print(
+        f"mesh loop (16d): TrainLoop at ~100 M (f32 compute) on a (2, 2) mesh of card 0, seq "
+        f"{TRAIN_SEQ} x batch {TRAIN_BATCH}: {LOOP16_STEPS} steps with a failure at {LOOP16_FAIL} "
+        f"restored at {restored} in {wall:.3f} s (loss {out['first_loss']:.6f} -> "
+        f"{out['final_loss']:.6f}); its step-{LOOP16_STEPS} checkpoint resumed on (4, 1) and on "
+        f"(2, 2) for {LOOP16_MORE} steps each ({more_wall:.3f} s): losses "
+        f"{[round(b[s], 6) for s in range(LOOP16_STEPS, end)]}, at most {max(errs):.3e} relative "
+        f"from (2, 2)'s (limit {MESH_LIMITS['loss']}); on {smi}"
+    )
+    shutil.rmtree(LOOP16_DIR, ignore_errors=True)
+    return counts
+
+
+def phase_mesh_ring(smi: str) -> None:
+    """16e: ``ring_allgather_matmul`` over the model axis of a (1, 4) mesh
+    of card 0 (W's K split into four shards passed round the ring on a side
+    stream) against the gathered f32 ``x @ w`` at rtol 1e-5 of max |y|."""
+    M, K, N = RING_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    x = torch.randn(M, K, device=DEVICE, generator=gen)
+    w = torch.randn(K, N, device=DEVICE, generator=gen)
+    ring = ring_allgather_matmul_shardmap(card_mesh2((1, 4)))
+    y, want = ring(x, w), x @ w
+    torch.cuda.synchronize()
+    err = float((y - want).abs().max() / want.abs().max())
+    check(err <= 1e-5, f"16e: ring all-gather matmul {err:.3e} of max from x @ w")
+    ring_ms, plain_ms = stream_ms(lambda: ring(x, w), reps=5, inner=2), stream_ms(lambda: x @ w, reps=5, inner=2)
+    print(
+        f"mesh ring (16e): ring_allgather_matmul [{M},{K}]x[{K},{N}] f32 over 4 shards of card 0 "
+        f"{err:.3e} of max from x @ w (limit 1e-5); {ring_ms:.3f} ms (the placement of x and W "
+        f"included) vs {plain_ms:.3f} ms for x @ w; on {smi}"
+    )
+
+
+def phase_mesh(smi: str, launches: dict) -> None:
+    """Phase 16: the dense LM over a (2, 2) mesh of four shards of card 0
+    (16a-e), then 16a-c on distinct cards where the machine has them."""
+    t0 = time.perf_counter()
+    mesh = card_mesh2(MESH_SHAPE)
+    for name, phase in [
+        ("mesh_train", lambda: phase_mesh_train(mesh, smi)),
+        ("mesh_serve", lambda: phase_mesh_serve(mesh, smi)),
+        ("mesh_loop", lambda: phase_mesh_loop(smi)),
+    ]:
+        t1 = time.perf_counter()
+        counts = phase()
+        print(f"launches[{name}]: {counts} ({time.perf_counter() - t1:.3f} s)")
+        for k, v in counts.items():
+            launches[k] += v
+    phase_mesh_ring(smi)
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"mesh on distinct cards: not run (this machine has {n} card); 16a-c ran on four "
+              f"shards of card 0 only")
+    for shape in [(1, 2)] + ([(2, 2)] if n >= 4 else []):
+        if n < 2:
+            break
+        cards = card_mesh2(shape, [f"cuda:{i}" for i in range(shape[0] * shape[1])])
+        for name, phase in [("cards_train", lambda: phase_mesh_train(cards, smi)),
+                            ("cards_serve", lambda: phase_mesh_serve(cards, smi))]:
+            counts = phase()
+            print(f"launches[{name} {shape}]: {counts}")
+            for k, v in counts.items():
+                launches[k] += v
+    print(f"phase 16 took {time.perf_counter() - t0:.3f} s; on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA card", file=sys.stderr)
@@ -3973,6 +4398,9 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.3f} s")
 
     phase_whisper(smi, launches)
+    print(f"the script so far {time.perf_counter() - t_start:.3f} s")
+
+    phase_mesh(smi, launches)
     print(f"the script so far {time.perf_counter() - t_start:.3f} s")
 
     for k, v in launches.items():

@@ -14,7 +14,9 @@ cores, as the kernel uses them); cuBLAS's f32 GEMM with TF32 off
 (``chip_smoke.QM_TOL``) the kernel's bf16 output uses against the plain
 version.  The same for the skinny (split-K ``mma.sync``) route at M = 8.
 Then the wide route's device time at [4096,2048]x[2048,5632] and
-[4096,14336]x[14336,4096].  Each line names the card and its power limit.
+[4096,14336]x[14336,4096], beside its plain version's (``quant_matmul_ref``)
+and the library's (``torch.matmul`` in bf16 of the dequantized weight, made
+beforehand).  Each line names the card and its power limit.
 """
 
 import subprocess
@@ -75,10 +77,15 @@ def main() -> int:
     for M, K, N in TIMED:
         x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
         qt = cs.quantize_weight(torch.randn(K, N, device="cuda", generator=gen) * K**-0.5, 8)
+        wd = cs.dequantize_weight(qt, torch.bfloat16)
         ms = cs.time_ms(lambda: cs.quant_matmul(x, qt.q, qt.scale, bits=8), reps=7, inner=3)
+        plain_ms = cs.time_ms(lambda: cs.quant_matmul_ref(x, qt.q, qt.scale, 8, torch.bfloat16),
+                              reps=3, inner=2)
+        library_ms = cs.time_ms(lambda: torch.matmul(x, wd), reps=7, inner=3)
         print(
             f"wide route [{M},{K}]x[{K},{N}] int8: {ms:.5f} device ms, "
-            f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s; on {smi}",
+            f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.5f} ms, library "
+            f"{library_ms:.5f} ms (torch.matmul, bf16); on {smi}",
             flush=True,
         )
     return 0

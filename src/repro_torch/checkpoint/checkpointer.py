@@ -11,6 +11,9 @@ Layout (one directory per step):
 Trees are nested dicts, lists, tuples and named tuples whose leaves are
 torch tensors, numpy arrays or Python scalars; every leaf crosses through
 numpy (a tensor on the card is copied to the host when the save is called).
+A leaf sharded over a mesh (``distributed/spmd.py``) is saved whole, so a
+checkpoint does not depend on the mesh that wrote it, as JAX's do not, and
+``restore(..., shardings=)`` places it on whatever mesh it is given.
 The port walks its trees itself, with the same leaf keys as the JAX
 version (dict keys, sequence indices and named-tuple fields joined by
 ``::``), so a checkpoint written by either package has the same layout.
@@ -33,6 +36,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.spmd import Sharded, shard
 
 __all__ = ["Checkpointer", "CheckpointCorruptError", "latest_step"]
 
@@ -76,6 +81,8 @@ def _leaf_paths(tree, prefix=()):
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, Sharded):
+        leaf = leaf.full("cpu")
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -204,14 +211,18 @@ class Checkpointer:
             shutil.rmtree(self.root / f"step_{s:08d}", ignore_errors=True)
 
     # --------------------------------------------------------------- restore
-    def restore(self, template, step: int | None = None):
+    def restore(self, template, step: int | None = None, shardings=None):
         """Rebuild ``template``'s tree from disk; returns ``(tree, user_state)``.
 
-        A leaf whose template is a tensor comes back as a tensor on the
-        template's device; every other leaf as a numpy array.  Every leaf is
-        checked against the CRC recorded at save time; a mismatch, or an
-        unreadable manifest or container, raises
-        :class:`CheckpointCorruptError`.
+        ``shardings``, a tree shaped as ``template`` with
+        :class:`~repro_torch.distributed.sharding.NamedSharding` (or None)
+        leaves, places each leaf on its mesh by its spec -- resharding a
+        checkpoint onto another mesh than the one that wrote it.  Otherwise
+        a leaf whose template is sharded comes back on the template's
+        sharding, a tensor template's as a tensor on its device, and every
+        other leaf as a numpy array.  Every leaf is checked against the CRC
+        recorded at save time; a mismatch, or an unreadable manifest or
+        container, raises :class:`CheckpointCorruptError`.
         """
         self.wait()
         step = step if step is not None else latest_step(self.root)
@@ -229,6 +240,9 @@ class Checkpointer:
                 f"({type(e).__name__}: {e}); refusing to restore"
             ) from e
         crcs = manifest.get("crc32", {})
+        placements = {} if shardings is None else {
+            _SEP.join(path): s for path, s in _leaf_paths(shardings)
+        }
 
         def load(key, like):
             if key not in arrays:
@@ -246,6 +260,11 @@ class Checkpointer:
                     "verification (content does not match what was saved); "
                     "refusing to restore"
                 )
+            sharding = placements.get(key)
+            if sharding is None and isinstance(like, Sharded):
+                sharding = like.sharding
+            if sharding is not None:
+                return shard(torch.from_numpy(np.array(leaf)), sharding)
             if isinstance(like, torch.Tensor):
                 return torch.from_numpy(np.array(leaf)).to(like.device)
             return leaf

@@ -3,9 +3,10 @@
 Port of ``repro/launch/steps.py``, shared by the training loop
 (``train/loop.py``, ``launch/train.py``) and the serving checks.  JAX
 returns jit-compiled steps with shardings and donated buffers; here a step
-is a plain function that runs eagerly on the device its tensors live on,
-and a :class:`StepBundle` carries it with its argument templates.  There is
-no ``StepBundle.lower``: nothing is traced or compiled.
+is a plain function that runs eagerly on the devices its tensors live on,
+and a :class:`StepBundle` carries it with its argument templates and, on a
+mesh, their partition specs.  There is no ``StepBundle.lower``: nothing is
+traced or compiled.
 
 The train step takes over the state it is given, as JAX's donation does:
 the parameter tree's leaves and the optimizer state's lists are rebound to
@@ -14,11 +15,17 @@ new one is made and a 1.6 B-parameter model never holds two copies of its
 weights and moments.  Pass copies to keep the old state.  The optimizer
 works on flat lists in ``models/common.py::tree_leaves`` order.
 
-A mesh naming more than one distinct device is refused: JAX's FSDP over
-its mesh has no port yet (ROADMAP Queue 1 #5).  JAX's knobs for its
-sharded layouts -- ``bf16_gather`` (cast before the FSDP gathers) and
-``shard_cache_seq`` (the cache's sequence over the data axis) -- have no
-counterpart on one device.
+``mesh``: ``None`` or a one-shard mesh runs on the device the tensors live
+on.  A named :class:`~repro_torch.distributed.sharding.Mesh` of several
+shards (``launch/mesh.py``; a ``core/shard.py`` ``DeviceMesh`` counts as
+(n, 1) over ("data", "model")) runs the dense family sharded
+(``models/sharded.py``): parameters and both AdamW moments placed by
+``param_pspecs`` (serving: ``serve_optimized``'s TP-only specs and
+``_quant_pspecs``), batches by ``input_pspecs`` and caches by
+``cache_pspecs``.  A leaf passed whole is placed on entry and the caller's
+tree is rebound to the placed leaf (JAX's ``in_shardings`` with donation).
+The other families, and ``shard_cache_seq``, raise under such a mesh
+(ROADMAP Queue 1 #5c).
 """
 
 from __future__ import annotations
@@ -31,16 +38,22 @@ import torch
 from repro_torch._device import full_f32_matmul
 from repro_torch.core.precision import PrecisionPolicy, QTensor, tree_map
 from repro_torch.core.shard import DeviceMesh
-from repro_torch.models.common import tree_unflatten
+from repro_torch.distributed.sharding import Mesh, P, axis_names_of
+from repro_torch.distributed.spmd import Sharded, all_reduce, place
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.common import tree_leaves, tree_unflatten
 from repro_torch.models.registry import Arch, ShapeSpec
+from repro_torch.models.sharded import check_dense
 from repro_torch.train import optimizer as opt_lib
 
-__all__ = ["StepBundle", "build_train_step", "build_prefill_step", "build_decode_step"]
-
-_MULTI_DEVICE = (
-    "{what} over {n} devices is not ported yet: JAX shards it over its mesh "
-    "(FSDP / TP), the port runs one device (ROADMAP Queue 1 #5)"
-)
+__all__ = [
+    "StepBundle",
+    "build_train_step",
+    "build_prefill_step",
+    "build_decode_step",
+    "init_opt_state",
+    "mesh_value_and_grad",
+]
 
 
 @dataclasses.dataclass
@@ -50,18 +63,24 @@ class StepBundle:
     ``jitted`` keeps JAX's field name; the function runs eagerly.
     ``abstract_args`` holds ``{name: (shape, dtype)}`` templates (a
     quantized leaf as a :class:`QTensor` of such pairs); the optimizer
-    state's is ``None``, since its lists follow the parameters.
+    state's is ``None``, since its lists follow the parameters.  On a mesh,
+    ``specs`` holds the partition specs of the same arguments (the
+    optimizer state's: the parameters', for each moment) and ``mesh`` the
+    mesh; both are ``None`` on one device.
     """
 
     jitted: Callable
     abstract_args: tuple
     name: str
+    specs: tuple | None = None
+    mesh: Mesh | None = None
 
 
-def check_one_device(mesh: DeviceMesh | None, what: str) -> None:
-    """Refuse a mesh that names more than one distinct device."""
-    if mesh is not None and len(set(mesh.devices)) > 1:
-        raise NotImplementedError(_MULTI_DEVICE.format(what=what, n=len(set(mesh.devices))))
+def as_mesh(mesh) -> Mesh | None:
+    """``None`` for one shard (the one-device code), else a named mesh."""
+    if isinstance(mesh, DeviceMesh):
+        mesh = make_mesh((mesh.n_shards, 1), mesh.devices)
+    return mesh if mesh is not None and mesh.size > 1 else None
 
 
 def _slots(tree):
@@ -73,16 +92,43 @@ def _slots(tree):
             yield tree, k
 
 
+def _place_into(tree: dict, specs, mesh: Mesh) -> None:
+    """Rebind every leaf of ``tree`` to its placement by ``specs``."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _place_into(v, specs[k], mesh)
+        elif v is not None:
+            tree[k] = place(v, specs[k], mesh)
+
+
+def _place_batch(batch: dict, specs: dict, mesh: Mesh) -> dict:
+    return {k: place(v, specs[k], mesh) for k, v in batch.items()}
+
+
+def _bf16(_, p):
+    """A floating leaf cast to bf16 (on a mesh: each shard, before any gather)."""
+    if isinstance(p, Sharded):
+        return p.map(lambda t: t.to(torch.bfloat16)) if p.dtype.is_floating_point else p
+    return p.to(torch.bfloat16) if p.is_floating_point() else p
+
+
+def _replica_axes(mesh: Mesh, spec: P) -> tuple[str, ...]:
+    """The mesh axes a leaf is replicated over (its gradient sums over them)."""
+    used = {a for e in spec for a in axis_names_of(e)}
+    return tuple(a for a in mesh.axis_names if a not in used)
+
+
 def build_train_step(
     arch: Arch,
     shape: ShapeSpec,
-    mesh: DeviceMesh | None = None,
+    mesh=None,
     cfg=None,
     *,
     lr: float = 3e-4,
     grad_clip: float = 1.0,
     optimizer: opt_lib.Optimizer | None = None,
     loss_fn: Callable | None = None,
+    bf16_gather: bool = False,
 ) -> StepBundle:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
@@ -91,13 +137,127 @@ def build_train_step(
     leaf -- the same functions and arithmetic as the whole-list calls, so
     the step equals JAX's to float rounding.  ``metrics`` are the loss
     function's (``ce``, ``aux``) plus ``loss`` and ``grad_norm``, tensors on
-    the device.  Float32 products run without TF32 whatever the caller set.
+    the (first) device.  Float32 products run without TF32 whatever the
+    caller set.  ``bf16_gather`` casts every floating leaf to bf16 at the
+    start of the loss, JAX's single cast site: on a mesh each shard is cast
+    before its FSDP gather, halving the gathered bytes.
+
+    On a mesh each leaf's shards get their gradients from autograd (the
+    FSDP gathers' backward reduce-scatters them); a leaf replicated over an
+    axis sums its replicas' gradients over that axis, its norm counts once
+    in the clip, and every replica takes the same update.
     """
-    check_one_device(mesh, "build_train_step")
+    mesh = as_mesh(mesh)
     cfg = cfg or arch.config
     loss_fn = loss_fn or arch.loss_fn(cfg)
     optimizer = optimizer or opt_lib.adamw(lr)
+    abs_params = arch.abstract_params(cfg)
+    abs_batch = arch.input_template(shape, cfg)
+    name = f"train:{arch.name}:{shape.name}"
+    if bf16_gather:
+        inner = loss_fn
 
+        def loss_fn(params, batch):  # noqa: F811
+            return inner(tree_map(_bf16, params), batch)
+
+    if mesh is None:
+        return StepBundle(_one_device_step(loss_fn, optimizer, grad_clip), (abs_params, None, abs_batch), name)
+
+    check_dense(cfg, "build_train_step", mesh.size)
+    p_specs = arch.param_pspecs(mesh, cfg)
+    b_specs = arch.input_pspecs(mesh, shape, cfg)
+    leaf_specs = [s for _, s in tree_leaves(p_specs)]
+
+    def train_step(params, opt_state, batch):
+        _place_into(params, p_specs, mesh)
+        fields = opt_state[1:]
+        for f in fields:
+            f[:] = [place(t, s, mesh) for t, s in zip(f, leaf_specs)]
+        slots = list(_slots(params))
+        with full_f32_matmul():
+            loss, metrics, grads = mesh_value_and_grad(
+                loss_fn, params, _place_batch(batch, b_specs, mesh)
+            )
+            with torch.no_grad():
+                gnorm = _global_norm(grads)
+                scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
+                steps, scales, new_step = {}, {}, None
+                for j, (d, k) in enumerate(slots):
+                    x, g = d[k], grads[j]
+                    per_shard = []
+                    for i, dev in enumerate(mesh.flat):
+                        if dev not in steps:
+                            steps[dev], scales[dev] = opt_state.step.to(dev), scale.to(dev)
+                        one = type(opt_state)(steps[dev], *([f[j].shards[i]] for f in fields))
+                        upd, new = optimizer.update([g.shards[i] * scales[dev]], one, [x.shards[i]])
+                        new_step = new.step if new_step is None else new_step
+                        p_new = opt_lib.apply_updates([x.shards[i]], upd)[0]
+                        per_shard.append((p_new, *(nf[0] for nf in new[1:])))
+                    grads[j] = None
+                    cols = list(zip(*per_shard))
+                    d[k] = Sharded(list(cols[0]), mesh, x.spec, x.shape)
+                    for f, col in zip(fields, cols[1:]):
+                        f[j] = Sharded(list(col), mesh, x.spec, x.shape)
+        metrics.update(loss=loss, grad_norm=gnorm)
+        return params, type(opt_state)(new_step, *fields), metrics
+
+    specs = (p_specs, p_specs, b_specs)
+    return StepBundle(train_step, (abs_params, None, abs_batch), name, specs, mesh)
+
+
+def init_opt_state(optimizer, params):
+    """``optimizer.init`` over a parameter tree's leaves (``tree_leaves``
+    order); sharded leaves are initialised shard by shard, so each moment is
+    laid out as its leaf and nothing is made whole."""
+    leaves = [t for _, t in tree_leaves(params)]
+    if not any(isinstance(x, Sharded) for x in leaves):
+        return optimizer.init(leaves)
+    mesh = leaves[0].mesh
+    per = [optimizer.init([x.shards[i] for x in leaves]) for i in range(mesh.size)]
+    fields = [
+        [Sharded([per[i][f][j] for i in range(mesh.size)], mesh, x.spec, x.shape) for j, x in enumerate(leaves)]
+        for f in range(1, len(per[0]))
+    ]
+    return type(per[0])(per[0].step, *fields)
+
+
+def mesh_value_and_grad(loss_fn, params, batch):
+    """``(loss, metrics, grads)`` of ``loss_fn`` at sharded ``params``
+    (detached): ``grads`` holds a :class:`Sharded` per leaf in
+    ``tree_leaves`` order, laid out as the leaf, each shard's gradient the
+    sum over the leaf's replicas (so every replica holds the whole
+    gradient of its block).  Float32 products at the caller's precision."""
+    leaves = [x.map(lambda t: t.detach().requires_grad_(True)) for _, x in tree_leaves(params)]
+    diff = tree_unflatten(params, leaves)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(diff, batch)
+        flat = [t for x in leaves for t in x.shards]
+        flat_grads = iter(torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True))
+    del diff, flat
+    grads = []
+    with torch.no_grad():
+        for x in leaves:
+            gs = [next(flat_grads) for _ in x.shards]
+            gs = all_reduce(gs, x.mesh, _replica_axes(x.mesh, x.spec))
+            grads.append(Sharded(gs, x.mesh, x.spec, x.shape))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, grads
+
+
+def _global_norm(grads: list) -> torch.Tensor:
+    """The L2 norm of sharded gradients, each block counted once (on the
+    first shard that holds it), summed in shard order on the first device."""
+    dev0 = grads[0].mesh.flat[0]
+    sq = torch.zeros((), dtype=torch.float32, device=dev0)
+    for g in grads:
+        rep = _replica_axes(g.mesh, g.spec)
+        for i, t in enumerate(g.shards):
+            if all(g.mesh.coord(i)[a] == 0 for a in rep):
+                sq = sq + torch.square(t.to(torch.float32)).sum().to(dev0)
+    return torch.sqrt(sq)
+
+
+def _one_device_step(loss_fn, optimizer, grad_clip):
     def train_step(params, opt_state, batch):
         slots = list(_slots(params))
         leaves = [d[k].detach().requires_grad_(True) for d, k in slots]
@@ -123,69 +283,131 @@ def build_train_step(
         metrics.update(loss=loss.detach(), grad_norm=gnorm)
         return params, type(opt_state)(step, *fields), metrics
 
-    abs_params = arch.abstract_params(cfg)
-    abs_batch = arch.input_template(shape, cfg)
-    return StepBundle(train_step, (abs_params, None, abs_batch), f"train:{arch.name}:{shape.name}")
+    return train_step
 
 
-def _serve_params(arch: Arch, cfg, quant: PrecisionPolicy | None, serve_optimized: bool):
-    """The serving side's parameter template: the training layout (f32), or
-    bf16 float leaves with ``serve_optimized``; a leaf ``quant`` quantizes
-    (2-D or stacked 3-D) as a QTensor of its int8 payload and f32 scale."""
+def _serve_params(arch: Arch, cfg, quant: PrecisionPolicy | None, serve_optimized: bool, mesh):
+    """The serving side's parameter template and, on a mesh, its specs.
+
+    The training layout (f32; FSDP + TP), or with ``serve_optimized`` bf16
+    float leaves sharded TP-only (replicated over data: a batch-sharded
+    decode then gathers no parameter); a leaf ``quant`` quantizes (2-D or
+    stacked 3-D) as a QTensor of its int8 payload and f32 scale, whose
+    specs ``_quant_pspecs`` aligns."""
     abs_params = arch.abstract_params(cfg)
+    p_specs = arch.param_pspecs(mesh, cfg) if mesh is not None else None
     if serve_optimized:
         abs_params = tree_map(
             lambda _, s: (s[0], torch.bfloat16) if s[1].is_floating_point else s, abs_params
         )
-    if quant is None:
-        return abs_params
+        if p_specs is not None:
+            p_specs = tree_map(lambda _, s: P(*(a if a == "model" else None for a in s)), p_specs)
+    if quant is not None:
 
-    def q(path, s):
-        shape, _ = s
-        bits = quant.bits_for(path)
-        if bits is None or bits >= 16 or len(shape) not in (2, 3):
-            return s
-        n = shape[-1] // 2 if bits == 4 else shape[-1]
+        def q(path, s):
+            shape, _ = s
+            bits = quant.bits_for(path)
+            if bits is None or bits >= 16 or len(shape) not in (2, 3):
+                return s
+            n = shape[-1] // 2 if bits == 4 else shape[-1]
+            return QTensor(
+                q=((*shape[:-1], n), torch.int8), scale=((*shape[:-2], shape[-1]), torch.float32),
+                bits=bits, shape=tuple(shape),
+            )
+
+        abs_params = tree_map(q, abs_params)
+    if p_specs is not None:
+        p_specs = _quant_pspecs(p_specs, abs_params)
+    return abs_params, p_specs
+
+
+def _quant_pspecs(p_specs, abs_params):
+    """Align a spec tree with a (possibly quantized) template: a QTensor
+    leaf's ``q`` keeps the weight's spec, its per-column ``scale`` takes the
+    spec's last axis."""
+    if isinstance(p_specs, dict):
+        return {k: _quant_pspecs(v, abs_params[k]) for k, v in p_specs.items()}
+    leaf = abs_params
+    if isinstance(leaf, QTensor):
+        last = p_specs[-1] if len(p_specs) else None
+        lead = tuple(p_specs[:-1]) if len(p_specs) else ()
+        n_scale = len(leaf.scale[0])
         return QTensor(
-            q=((*shape[:-1], n), torch.int8), scale=((*shape[:-2], shape[-1]), torch.float32),
-            bits=bits, shape=tuple(shape),
+            q=P(*lead, last), scale=P(*((None,) * (n_scale - 1)), last), bits=leaf.bits,
+            shape=leaf.shape,
         )
+    return p_specs
 
-    return tree_map(q, abs_params)
+
+def _serving(arch, shape, mesh, cfg, quant, serve_optimized, what):
+    mesh = as_mesh(mesh)
+    cfg = cfg or arch.config
+    abs_params, p_specs = _serve_params(arch, cfg, quant, serve_optimized, mesh)
+    if mesh is not None:
+        check_dense(cfg, what, mesh.size)
+    return mesh, cfg, abs_params, p_specs
 
 
 def build_prefill_step(
-    arch: Arch, shape: ShapeSpec, mesh: DeviceMesh | None = None, cfg=None, *,
+    arch: Arch, shape: ShapeSpec, mesh=None, cfg=None, *,
     quant: PrecisionPolicy | None = None, serve_optimized: bool = False,
 ) -> StepBundle:
     """``prefill(params, batch) -> (logits, caches)``; ``params`` quantized
-    by the caller where ``quant`` is given (its template says so)."""
-    check_one_device(mesh, "build_prefill_step")
-    cfg = cfg or arch.config
-    abs_params = _serve_params(arch, cfg, quant, serve_optimized)
-    abs_batch = arch.input_template(shape, cfg)
-    return StepBundle(
-        arch.prefill_fn(cfg), (abs_params, abs_batch), f"prefill:{arch.name}:{shape.name}"
+    by the caller where ``quant`` is given (its template says so).  On a
+    mesh the logits come back whole on the mesh's first device and the
+    caches sharded by ``cache_pspecs``."""
+    mesh, cfg, abs_params, p_specs = _serving(
+        arch, shape, mesh, cfg, quant, serve_optimized, "build_prefill_step"
     )
+    abs_batch = arch.input_template(shape, cfg)
+    name = f"prefill:{arch.name}:{shape.name}"
+    prefill = arch.prefill_fn(cfg)
+    if mesh is None:
+        return StepBundle(prefill, (abs_params, abs_batch), name)
+    b_specs = arch.input_pspecs(mesh, shape, cfg)
+
+    def step(params, batch):
+        _place_into(params, p_specs, mesh)
+        return prefill(params, _place_batch(batch, b_specs, mesh))
+
+    return StepBundle(step, (abs_params, abs_batch), name, (p_specs, b_specs), mesh)
 
 
 def build_decode_step(
     arch: Arch,
     shape: ShapeSpec,
-    mesh: DeviceMesh | None = None,
+    mesh=None,
     cfg=None,
     *,
     quant: PrecisionPolicy | None = None,
+    shard_cache_seq: bool = False,
     serve_optimized: bool = False,
 ) -> StepBundle:
     """``decode(params, caches, batch) -> (logits, caches)``: one new token
-    against a ``seq_len``-deep cache, written in place (JAX donates it)."""
-    check_one_device(mesh, "build_decode_step")
-    cfg = cfg or arch.config
-    abs_params = _serve_params(arch, cfg, quant, serve_optimized)
+    against a ``seq_len``-deep cache, written in place (JAX donates it).
+    ``shard_cache_seq`` (the cache's sequence over ``data``, the long_500k
+    layout) is a layout of several shards only: on one device it changes
+    nothing, on a mesh it is not ported yet (ROADMAP Queue 1 #5c)."""
+    mesh, cfg, abs_params, p_specs = _serving(
+        arch, shape, mesh, cfg, quant, serve_optimized, "build_decode_step"
+    )
     abs_cache = arch.cache_abstract(shape, cfg)
     abs_batch = arch.input_template(shape, cfg)
-    return StepBundle(
-        arch.decode_fn(cfg), (abs_params, abs_cache, abs_batch), f"decode:{arch.name}:{shape.name}"
-    )
+    name = f"decode:{arch.name}:{shape.name}"
+    decode = arch.decode_fn(cfg)
+    if mesh is None:
+        return StepBundle(decode, (abs_params, abs_cache, abs_batch), name)
+    if shard_cache_seq:
+        raise NotImplementedError(
+            "build_decode_step(shard_cache_seq=True) over a mesh is not ported yet: the "
+            "seq-sharded decode with a two-pass softmax (ROADMAP Queue 1 #5c)"
+        )
+    c_specs = arch.cache_pspecs(mesh, shape, cfg)
+    b_specs = arch.input_pspecs(mesh, shape, cfg)
 
+    def step(params, caches, batch):
+        _place_into(params, p_specs, mesh)
+        _place_into(caches, c_specs, mesh)
+        return decode(params, caches, _place_batch(batch, b_specs, mesh))
+
+    return StepBundle(step, (abs_params, abs_cache, abs_batch), name, (p_specs, c_specs, b_specs), mesh)

@@ -4,10 +4,12 @@
         --steps 200 --seq-len 256 --batch 8 --run-dir runs/stablelm [--device cpu]
 
 Trains the architecture's reduced config (``--full-config``: the full one)
-on one device, ``--device`` (default ``cuda``).  Resume is automatic from
-``<run-dir>/ckpt``.  ``--production-mesh`` asks for JAX's 256 / 512-device
-mesh and refuses below that, as JAX does; training across several devices
-is not ported yet (ROADMAP Queue 1 #5).  ``TrainLoop`` feeds token batches
+on the host mesh, every card of ``--device`` (default ``cuda``) as (n, 1)
+over ("data", "model"): one card, or the CPU, trains on that device.
+Resume is automatic from ``<run-dir>/ckpt``.  ``--production-mesh`` asks
+for JAX's 256 / 512-device mesh and refuses below that, as JAX does.  A
+family not yet sharded raises on a mesh of several devices (ROADMAP Queue
+1 #5c).  ``TrainLoop`` feeds token batches
 only, as JAX's does, so whisper-medium (which trains on audio frames) takes
 ``launch/steps.py::build_train_step`` instead.
 """
@@ -17,7 +19,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.train.loop import TrainLoop
 
 
@@ -36,9 +38,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    mesh = None
     if args.production_mesh:
         mesh = make_production_mesh(multi_pod=args.production_mesh == "multi")
+    else:
+        mesh = make_host_mesh(args.device)
 
     loop = TrainLoop(
         arch_name=args.arch,

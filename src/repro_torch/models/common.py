@@ -1,10 +1,20 @@
 """Parameter templates, norms and init helpers shared by the LM architectures.
 
 Port of ``repro/models/common.py``.  A *template* is a nested dict whose
-leaves are :class:`ParamSpec` (shape, dtype, init, scale); :func:`materialize`
-turns it into tensors from a ``torch.Generator``.  The sharding half of the
-JAX module (logical axes, ``shardings``) belongs to the multi-device port
-and is not here.
+leaves are :class:`ParamSpec` -- (shape, dtype, logical axes, init, scale)
+-- from which aligned trees derive:
+
+* ``abstract(template)``       -> ``(shape, dtype)`` leaves
+* ``materialize(gen, t)``      -> initialised tensors from a ``torch.Generator``
+* ``shardings(mesh, t)``       -> :class:`~repro_torch.distributed.sharding.NamedSharding` leaves
+* ``partition_specs(mesh, t)`` -> their :class:`~repro_torch.distributed.sharding.P`
+
+Sharding vocabulary (logical -> mesh axes), JAX's:
+  "fsdp"  -> the data axis (a pod axis stays replicated; gradients sum over it)
+  "tp"    -> the model axis (megatron column/row pairs, head/expert sharding)
+Batch dims of activations shard over ("pod", "data") when the pod axis exists.
+JAX's ``scan`` / ``unroll_scans`` serve its lower-and-compile dry run,
+which has no port yet (ROADMAP Queue 1 #6.5).
 """
 
 from __future__ import annotations
@@ -17,10 +27,20 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.precision import QTensor, tree_map
+from repro_torch.distributed.sharding import Mesh, NamedSharding, P
 
 __all__ = [
+    "FSDP",
+    "TP",
     "ParamSpec",
     "dense",
+    "scalar_array",
+    "abstract",
+    "logical_to_mesh",
+    "partition_spec",
+    "partition_specs",
+    "shardings",
+    "DTypePolicy",
     "materialize",
     "params_from_numpy",
     "tree_leaves",
@@ -31,16 +51,37 @@ __all__ = [
 ]
 
 
+# Logical axis names used inside templates; resolved against the mesh later.
+FSDP = "fsdp"
+TP = "tp"
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.float32
+    logical: tuple[str | None, ...] = ()
     init: str = "normal"  # normal | zeros | ones
     scale: float | None = None  # stddev; default 1/sqrt(fan_in)
 
+    def __post_init__(self):
+        if self.logical and len(self.logical) != len(self.shape):
+            raise ValueError(f"logical axes {self.logical} do not match shape {self.shape}")
 
-def dense(*shape, init="normal", scale=None, dtype=torch.float32) -> ParamSpec:
-    return ParamSpec(tuple(shape), dtype, init, scale)
+
+def dense(*shape, logical=(), init="normal", scale=None, dtype=torch.float32) -> ParamSpec:
+    return ParamSpec(
+        tuple(shape), dtype, tuple(logical) if logical else (None,) * len(shape), init, scale
+    )
+
+
+def scalar_array(value_init="zeros", dtype=torch.float32) -> ParamSpec:
+    return ParamSpec((), dtype, (), value_init)
+
+
+def abstract(template):
+    """``(shape, dtype)`` of every leaf (JAX's ``ShapeDtypeStruct`` leaves)."""
+    return tree_map(lambda _, s: (s.shape, s.dtype), template)
 
 
 def _fan_in(shape: tuple[int, ...]) -> int:
@@ -134,6 +175,50 @@ def params_from_numpy(tree, device="cuda"):
         return _tensor_from_numpy(tree, device)
 
     return carry(tree)
+
+
+def logical_to_mesh(mesh: Mesh) -> dict[str, str | tuple[str, ...] | None]:
+    """Map logical axis names onto whatever axes the mesh actually has."""
+    names = mesh.axis_names
+    return {
+        FSDP: "data" if "data" in names else None,
+        TP: "model" if "model" in names else None,
+        "batch": tuple(n for n in ("pod", "data") if n in names) or None,
+    }
+
+
+def partition_spec(spec: ParamSpec, table, mesh: Mesh | None = None) -> P:
+    """Resolve logical axes to mesh axes, dropping any assignment whose
+    dimension is not divisible by the mesh axis (e.g. qwen2-moe's 60
+    experts over a 16-way model axis fall back to replication on that dim)."""
+    axes = []
+    logical = spec.logical or (None,) * len(spec.shape)
+    for dim, a in zip(spec.shape, logical):
+        name = table.get(a) if a else None
+        if name is not None and mesh is not None:
+            names = name if isinstance(name, tuple) else (name,)
+            if dim % math.prod(mesh.shape[n] for n in names):
+                name = None
+        axes.append(name)
+    return P(*axes)
+
+
+def partition_specs(mesh: Mesh, template):
+    table = logical_to_mesh(mesh)
+    return tree_map(lambda _, s: partition_spec(s, table, mesh), template)
+
+
+def shardings(mesh: Mesh, template):
+    return tree_map(lambda _, s: NamedSharding(mesh, s), partition_specs(mesh, template))
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypePolicy:
+    params: torch.dtype = torch.float32
+    compute: torch.dtype = torch.bfloat16
+
+    def cast_in(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.compute)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6, *, plus_one: bool = False):

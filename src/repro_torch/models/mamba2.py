@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.core.precision import qdot
-from repro_torch.models.common import dense, rms_norm
+from repro_torch.models.common import FSDP, TP, dense, rms_norm
 
 __all__ = ["SSMConfig", "ssm_template", "ssm_apply", "ssm_decode_step", "ssm_cache_init"]
 
@@ -58,14 +58,14 @@ class SSMConfig:
 def ssm_template(cfg: SSMConfig) -> dict:
     d_in_proj = 2 * cfg.d_inner + 2 * cfg.n_groups * cfg.d_state + cfg.n_heads
     return {
-        "in_proj": dense(cfg.d_model, d_in_proj),
-        "conv_w": dense(cfg.d_conv, cfg.conv_dim, scale=0.5),
-        "conv_b": dense(cfg.conv_dim, init="zeros"),
-        "a_log": dense(cfg.n_heads, init="ones"),
-        "d_skip": dense(cfg.n_heads, init="ones"),
-        "dt_bias": dense(cfg.n_heads, init="zeros"),
-        "norm_w": dense(cfg.d_inner, init="ones"),
-        "out_proj": dense(cfg.d_inner, cfg.d_model),
+        "in_proj": dense(cfg.d_model, d_in_proj, logical=(FSDP, TP)),
+        "conv_w": dense(cfg.d_conv, cfg.conv_dim, logical=(None, TP), scale=0.5),
+        "conv_b": dense(cfg.conv_dim, logical=(TP,), init="zeros"),
+        "a_log": dense(cfg.n_heads, logical=(TP,), init="ones"),
+        "d_skip": dense(cfg.n_heads, logical=(TP,), init="ones"),
+        "dt_bias": dense(cfg.n_heads, logical=(TP,), init="zeros"),
+        "norm_w": dense(cfg.d_inner, logical=(TP,), init="ones"),
+        "out_proj": dense(cfg.d_inner, cfg.d_model, logical=(TP, FSDP)),
     }
 
 

@@ -10,8 +10,8 @@ Routing is equal to JAX's on every device: ``jax.lax.top_k`` breaks ties
 toward the lower expert, and ``torch.topk`` promises no tie order on the
 card, so the top k come from a stable descending sort.  The capacity
 positions are an f32 ``cumsum``, as in JAX (exact below 2^24 tokens a
-chunk).  ``shard_experts`` names a sharding axis only and changes nothing
-on one device.
+chunk).  ``shard_experts`` picks the experts' logical axes (``tp``,
+``fsdp`` or ``megatron``, JAX's) and changes nothing on one device.
 """
 
 from __future__ import annotations
@@ -23,9 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.precision import qdot
-from repro_torch.models.common import dense
+from repro_torch.models.common import FSDP, TP, dense
 
-__all__ = ["MLPConfig", "MoEConfig", "mlp_template", "mlp_apply", "moe_template", "moe_apply"]
+__all__ = [
+    "MLPConfig", "MoEConfig", "mlp_template", "mlp_hidden", "mlp_apply", "moe_template", "moe_apply",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,22 +53,26 @@ class MoEConfig:
 def mlp_template(cfg: MLPConfig) -> dict:
     t = {}
     if cfg.act == "swiglu":
-        t["w_gate"] = dense(cfg.d_model, cfg.d_ff)
-    t["w_up"] = dense(cfg.d_model, cfg.d_ff)
-    t["w_down"] = dense(cfg.d_ff, cfg.d_model)
+        t["w_gate"] = dense(cfg.d_model, cfg.d_ff, logical=(FSDP, TP))
+    t["w_up"] = dense(cfg.d_model, cfg.d_ff, logical=(FSDP, TP))
+    t["w_down"] = dense(cfg.d_ff, cfg.d_model, logical=(TP, FSDP))
     return t
 
 
-def mlp_apply(cfg: MLPConfig, params, x: torch.Tensor) -> torch.Tensor:
+def mlp_hidden(cfg: MLPConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """The activated hidden layer [..., d_ff]: elementwise over the columns
+    of ``w_gate`` / ``w_up``, so a column block of them gives its block."""
     if cfg.act == "swiglu":
-        h = F.silu(qdot(x, params["w_gate"])) * qdot(x, params["w_up"])
-    elif cfg.act == "sqrelu":
-        h = torch.square(F.relu(qdot(x, params["w_up"])))
-    elif cfg.act == "gelu":
-        h = F.gelu(qdot(x, params["w_up"]), approximate="tanh")
-    else:
-        raise ValueError(cfg.act)
-    return qdot(h, params["w_down"])
+        return F.silu(qdot(x, params["w_gate"])) * qdot(x, params["w_up"])
+    if cfg.act == "sqrelu":
+        return torch.square(F.relu(qdot(x, params["w_up"])))
+    if cfg.act == "gelu":
+        return F.gelu(qdot(x, params["w_up"]), approximate="tanh")
+    raise ValueError(cfg.act)
+
+
+def mlp_apply(cfg: MLPConfig, params, x: torch.Tensor) -> torch.Tensor:
+    return qdot(mlp_hidden(cfg, params, x), params["w_down"])
 
 
 # --------------------------------------------------------------------------
@@ -79,11 +85,18 @@ def _shared_cfg(cfg: MoEConfig) -> MLPConfig:
 
 
 def moe_template(cfg: MoEConfig) -> dict:
+    if cfg.shard_experts == "megatron":
+        # experts replicated; each expert's FFN dim is TP-sharded
+        gate_ax, down_ax = (None, None, TP), (None, TP, None)
+    else:
+        e_ax = TP if cfg.shard_experts == "tp" else FSDP
+        ff_ax = FSDP if cfg.shard_experts == "tp" else TP
+        gate_ax, down_ax = (e_ax, ff_ax, None), (e_ax, None, ff_ax)
     t = {
-        "router": dense(cfg.d_model, cfg.n_experts, scale=0.02),
-        "w_gate": dense(cfg.n_experts, cfg.d_model, cfg.d_ff_expert),
-        "w_up": dense(cfg.n_experts, cfg.d_model, cfg.d_ff_expert),
-        "w_down": dense(cfg.n_experts, cfg.d_ff_expert, cfg.d_model),
+        "router": dense(cfg.d_model, cfg.n_experts, logical=(FSDP, None), scale=0.02),
+        "w_gate": dense(cfg.n_experts, cfg.d_model, cfg.d_ff_expert, logical=gate_ax),
+        "w_up": dense(cfg.n_experts, cfg.d_model, cfg.d_ff_expert, logical=gate_ax),
+        "w_down": dense(cfg.n_experts, cfg.d_ff_expert, cfg.d_model, logical=down_ax),
     }
     if cfg.n_shared:
         t["shared"] = mlp_template(_shared_cfg(cfg))

@@ -8,20 +8,23 @@ as :func:`~repro_torch.models.transformer.cache_template` gives them.
 Configs register themselves on import from ``repro_torch.configs``: the
 dense, MoE, SSM, hybrid and VLM configs of the decoder LM, and
 whisper-medium (``family="audio"``, a :class:`~.whisper.WhisperConfig`,
-whose handles go to ``models/whisper.py``).  The XLA sharding helpers
-(``param_pspecs``, ``input_pspecs``, ``cache_pspecs``) have no counterpart
-here (ROADMAP Queue 1 #6).
+whose handles go to ``models/whisper.py``).  The sharding entry points
+(``param_pspecs``, ``param_shardings``, ``input_pspecs``, ``cache_pspecs``)
+are JAX's rule tables over the port's :class:`~repro_torch.distributed.
+sharding.Mesh` (any object with ``axis_names`` and a ``shape`` mapping
+will do), with JAX's fallbacks to replication.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.precision import tree_map
+from repro_torch.distributed.sharding import P
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whs
@@ -61,6 +64,26 @@ _PORTED_CONFIGS = (
 _REGISTRY: dict[str, "Arch"] = {}
 
 
+def _batch_axes(mesh, global_batch: int | None = None) -> Any:
+    """Batch sharding axes; falls back to replication when batch is too small
+    to divide them (e.g. long_500k's global_batch=1)."""
+    names = mesh.axis_names
+    axes = tuple(n for n in ("pod", "data") if n in names)
+    if not axes:
+        return None
+    if global_batch is not None:
+        size = math.prod(mesh.shape[a] for a in axes)
+        if global_batch % size:
+            # try the smaller prefix ("pod" alone), else replicate
+            for sub in (axes[:1], None):
+                if sub is None:
+                    return None
+                sub_size = math.prod(mesh.shape[a] for a in sub)
+                if global_batch % sub_size == 0 and global_batch >= sub_size:
+                    return sub
+    return axes
+
+
 @dataclasses.dataclass
 class Arch:
     name: str
@@ -80,11 +103,17 @@ class Arch:
 
     def abstract_params(self, cfg=None):
         """``{name: (shape, dtype)}`` of every parameter leaf (nested as the tree)."""
-        return tree_map(lambda _, s: (s.shape, s.dtype), self.template(cfg))
+        return common.abstract(self.template(cfg))
 
     def init_params(self, gen: torch.Generator, cfg=None, device=None):
         """Random parameters from ``gen`` (on its device unless ``device`` is given)."""
         return common.materialize(gen, self.template(cfg), device)
+
+    def param_shardings(self, mesh, cfg=None):
+        return common.shardings(mesh, self.template(cfg))
+
+    def param_pspecs(self, mesh, cfg=None):
+        return common.partition_specs(mesh, self.template(cfg))
 
     # -- step functions ----------------------------------------------------
     def loss_fn(self, cfg=None) -> Callable:
@@ -144,6 +173,16 @@ class Arch:
             t["positions3"] = ((3, B, S), i32)
         return t
 
+    def input_pspecs(self, mesh, shape: ShapeSpec, cfg=None) -> dict:
+        b = _batch_axes(mesh, shape.global_batch)
+        specs = {}
+        for k, (s, _) in self.input_template(shape, cfg).items():
+            if k == "positions3":
+                specs[k] = P(None, b, None)
+            else:
+                specs[k] = P(b, *(None,) * (len(s) - 1))
+        return specs
+
     def input_concrete(self, gen: torch.Generator, shape: ShapeSpec, cfg=None, device=None) -> dict:
         """Random realised inputs from ``gen`` (on its device unless ``device``
         is given): int inputs uniform over the vocab (``positions3`` too, as
@@ -169,6 +208,21 @@ class Arch:
         if isinstance(cfg, WhisperConfig):
             return whs.whisper_cache_template(cfg, shape.global_batch, shape.seq_len)
         return tfm.cache_template(cfg, shape.global_batch, shape.seq_len)
+
+    def cache_pspecs(self, mesh, shape: ShapeSpec, cfg=None, shard_seq: bool = False):
+        cfg = cfg or self.config
+        b = _batch_axes(mesh, shape.global_batch)
+        tp = "model" if "model" in mesh.axis_names else None
+        seq = "data" if shard_seq and "data" in mesh.axis_names else None
+        if tp is not None:
+            # explicit placements must divide exactly
+            n_kv = cfg.n_heads if isinstance(cfg, WhisperConfig) else cfg.n_kv_heads
+            if n_kv % mesh.shape["model"]:
+                tp = None
+        if isinstance(cfg, WhisperConfig):
+            kv = lambda s: {"k": P(None, b, s, tp, None), "v": P(None, b, s, tp, None), "len": P(None, b)}
+            return {"self": kv(None), "cross": kv(seq)}
+        return tfm.cache_specs(cfg, b, tp, seq)
 
 
 def register(arch: Arch) -> Arch:

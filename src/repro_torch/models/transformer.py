@@ -34,9 +34,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.core.precision import qdot, tree_map
+from repro_torch.distributed.sharding import P
+from repro_torch.distributed.spmd import is_sharded
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import AttnMask, KVCache
-from repro_torch.models.common import dense, rms_norm, unstack
+from repro_torch.models.common import FSDP, TP, dense, rms_norm, unstack
 from repro_torch.models.mamba2 import (
     SSMConfig,
     ssm_apply,
@@ -64,6 +66,7 @@ __all__ = [
     "prefill",
     "decode_step",
     "cache_template",
+    "cache_specs",
     "cache_init",
 ]
 
@@ -100,7 +103,7 @@ class ModelConfig:
     attn_period: int = 0  # hybrid: 0 = all-attention; k = attn every k-th; -1 = none
     remat: str = "none"  # none | block; training only, no effect on prefill / decode
     compute_dtype: torch.dtype = torch.bfloat16
-    shard_head_dim: bool = True  # sharding only; no effect on one device
+    shard_head_dim: bool = True  # FSDP-shard embed / lm_head's d_model axis; sharding only
     kv_cache_bits: int | None = None  # 8 = int8 KV cache
     kv_scale: float = 32.0
     gqa_flat: bool = False  # repeat KV heads to n_heads before prefill attention
@@ -157,15 +160,15 @@ def _attn_template(cfg: ModelConfig) -> dict:
     qdim = cfg.n_heads * cfg.d_head
     kvdim = cfg.n_kv_heads * cfg.d_head
     t = {
-        "wq": dense(cfg.d_model, qdim),
-        "wk": dense(cfg.d_model, kvdim),
-        "wv": dense(cfg.d_model, kvdim),
-        "wo": dense(qdim, cfg.d_model),
+        "wq": dense(cfg.d_model, qdim, logical=(FSDP, TP)),
+        "wk": dense(cfg.d_model, kvdim, logical=(FSDP, TP)),
+        "wv": dense(cfg.d_model, kvdim, logical=(FSDP, TP)),
+        "wo": dense(qdim, cfg.d_model, logical=(TP, FSDP)),
     }
     if cfg.qkv_bias:
-        t["bq"] = dense(qdim, init="zeros")
-        t["bk"] = dense(kvdim, init="zeros")
-        t["bv"] = dense(kvdim, init="zeros")
+        t["bq"] = dense(qdim, logical=(TP,), init="zeros")
+        t["bk"] = dense(kvdim, logical=(TP,), init="zeros")
+        t["bv"] = dense(kvdim, logical=(TP,), init="zeros")
     return t
 
 
@@ -190,20 +193,26 @@ def _block_template(cfg: ModelConfig, kind: BlockKind) -> dict:
 
 
 def _stack(template, n: int):
-    """Prepend the repeat-group axis to every leaf spec."""
-    return tree_map(lambda _, s: dataclasses.replace(s, shape=(n, *s.shape)), template)
+    """Prepend the repeat-group axis (unsharded) to every leaf spec."""
+    return tree_map(
+        lambda _, s: dataclasses.replace(
+            s, shape=(n, *s.shape), logical=(None, *(s.logical or (None,) * len(s.shape)))
+        ),
+        template,
+    )
 
 
 def model_template(cfg: ModelConfig) -> dict:
     pattern = layer_pattern(cfg)
     ng = n_groups(cfg)
+    d_axis = FSDP if cfg.shard_head_dim else None
     t: dict = {
-        "embed": dense(cfg.vocab, cfg.d_model, scale=0.02),
+        "embed": dense(cfg.vocab, cfg.d_model, logical=(TP, d_axis), scale=0.02),
         "final_norm": dense(cfg.d_model, init="ones"),
         "blocks": {f"pos{i}": _stack(_block_template(cfg, k), ng) for i, k in enumerate(pattern)},
     }
     if not cfg.tie_embeddings:
-        t["lm_head"] = dense(cfg.d_model, cfg.vocab, scale=0.02)
+        t["lm_head"] = dense(cfg.d_model, cfg.vocab, logical=(d_axis, TP), scale=0.02)
     return t
 
 
@@ -212,8 +221,9 @@ def model_template(cfg: ModelConfig) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _attn_apply(cfg, kind, p, x, positions, pos3, mode, cache):
-    B, S, _ = x.shape
+def _qkv(cfg, p, x):
+    """The Q / K / V projections [B, S, heads * d_head] (column blocks of
+    ``wq`` / ``wk`` / ``wv`` and their biases give the matching blocks)."""
     q = qdot(x, p["wq"])
     k = qdot(x, p["wk"])
     v = qdot(x, p["wv"])
@@ -221,6 +231,13 @@ def _attn_apply(cfg, kind, p, x, positions, pos3, mode, cache):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
+    return q, k, v
+
+
+def _attend(cfg, kind, q, k, v, positions, pos3, mode, cache):
+    """Rotary, attention and the cache over ``cfg``'s head counts:
+    q / k / v [B, S, heads * d_head] -> (out [B, S, n_heads * d_head], new_cache)."""
+    B, S, _ = q.shape
     q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
@@ -269,9 +286,13 @@ def _attn_apply(cfg, kind, p, x, positions, pos3, mode, cache):
             new_cache = {
                 "k": k.to(cfg.compute_dtype),
                 "v": v.to(cfg.compute_dtype),
-                "len": torch.full((B,), S, dtype=torch.int32, device=x.device),
+                "len": torch.full((B,), S, dtype=torch.int32, device=q.device),
             }
-    out = out.reshape(B, S, cfg.n_heads * cfg.d_head)
+    return out.reshape(B, S, cfg.n_heads * cfg.d_head), new_cache
+
+
+def _attn_apply(cfg, kind, p, x, positions, pos3, mode, cache):
+    out, new_cache = _attend(cfg, kind, *_qkv(cfg, p, x), positions, pos3, mode, cache)
     return qdot(out, p["wo"]), new_cache
 
 
@@ -331,13 +352,21 @@ def _default_pos3(cfg, h, pos3):
     return torch.arange(S, device=h.device)[None, None, :].expand(3, B, S)
 
 
-def _logits(cfg, params, h):
-    h = rms_norm(h, params["final_norm"])
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _head_logits(cfg, h, head):
+    """f32 logits of the (normed) ``h`` against ``head`` [D, V], softcapped;
+    a column block of ``head`` gives its block of the vocab."""
     logits = torch.matmul(h.to(torch.float32), head.to(torch.float32))
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def _head(cfg, params):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(cfg, params, h):
+    return _head_logits(cfg, rms_norm(h, params["final_norm"]), _head(cfg, params))
 
 
 def _scan_blocks(cfg, params, h, positions, pos3, mode, caches):
@@ -401,15 +430,12 @@ def _chunked_ce(cfg: ModelConfig, params, h: torch.Tensor, targets: torch.Tensor
     """Sequence-chunked cross-entropy: the f32 head matmul and log-softmax run
     per chunk of ``chunk`` positions, so the live logits stay [B, chunk, V]
     (JAX's scan over chunks)."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = _head(cfg, params)
     B, S, _ = h.shape
-    if S % chunk:
-        chunk = S  # one shot for odd smoke shapes
+    chunk = _ce_chunk(S, chunk)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, chunk):
-        logits = torch.matmul(h[:, i : i + chunk].to(torch.float32), head.to(torch.float32))
-        if cfg.logit_softcap is not None:
-            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        logits = _head_logits(cfg, h[:, i : i + chunk], head)
         logp = torch.log_softmax(logits, dim=-1)
         tc = targets[:, i : i + chunk].to(torch.int64)
         ll = torch.gather(logp, -1, tc[..., None])[..., 0]
@@ -417,12 +443,21 @@ def _chunked_ce(cfg: ModelConfig, params, h: torch.Tensor, targets: torch.Tensor
     return total / (B * S)
 
 
+def _ce_chunk(S: int, chunk: int) -> int:
+    return chunk if S % chunk == 0 else S  # one shot for odd smoke shapes
+
+
 def lm_loss(cfg: ModelConfig, params, batch: dict):
     """Next-token cross-entropy (+ MoE aux). batch: tokens / targets [B, S],
     and for the VLM optionally ``vision_embeds`` and ``positions3``.
 
-    Returns ``(ce + aux, {"ce": ce, "aux": aux})``.
+    Returns ``(ce + aux, {"ce": ce, "aux": aux})``.  Parameters placed on a
+    mesh (``distributed/spmd.py``) run sharded (``models/sharded.py``).
     """
+    if is_sharded(params["embed"]):
+        from repro_torch.models import sharded
+
+        return sharded.lm_loss(cfg, params, batch)
     h = _embed_tokens(cfg, params, batch["tokens"], batch.get("vision_embeds"))
     positions = torch.arange(h.shape[1], device=h.device)
     pos3 = _default_pos3(cfg, h, batch.get("positions3"))
@@ -440,8 +475,13 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *, pos3=None, vision
     tokens [B, S] (after ``vision_embeds`` [B, n_vis, D] where given) ->
     (logits [B, 1, V] of the last position, caches: exact-length K/V
     [groups, B, S, Hk, D]; SSM ``conv`` [groups, B, d_conv-1, conv_dim] and
-    ``state`` [groups, B, H, P, N], f32).
+    ``state`` [groups, B, H, P, N], f32).  Parameters placed on a mesh run
+    sharded: the logits come back whole, the caches by ``cache_pspecs``.
     """
+    if is_sharded(params["embed"]):
+        from repro_torch.models import sharded
+
+        return sharded.prefill(cfg, params, tokens)
     h = _embed_tokens(cfg, params, tokens, vision_embeds)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
@@ -454,8 +494,13 @@ def decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor, cur_len:
     """One-token decode. tokens [B, 1]; cur_len [B] current context length.
 
     Appends each slot's K/V and advances each SSM block's conv / state in
-    ``caches`` in place; returns (logits [B, 1, V], caches).
+    ``caches`` in place; returns (logits [B, 1, V], caches).  Parameters
+    placed on a mesh run sharded against caches sharded by ``cache_pspecs``.
     """
+    if is_sharded(params["embed"]):
+        from repro_torch.models import sharded
+
+        return sharded.decode_step(cfg, params, caches, tokens, cur_len)
     h = _embed_tokens(cfg, params, tokens)
     positions = cur_len[:, None]  # [B, 1]
     pos3 = positions[None].expand(3, *positions.shape) if cfg.mrope else None
@@ -478,6 +523,25 @@ def cache_template(cfg: ModelConfig, batch: int, max_len: int):
         f"pos{i}": {name: ((ng, *shape), dt) for name, (shape, dt) in one(kind).items()}
         for i, kind in enumerate(layer_pattern(cfg))
     }
+
+
+def cache_specs(cfg: ModelConfig, batch_axes, tp_axis, seq_axis=None):
+    """Partition specs matching :func:`cache_template`: K/V sharded [batch,
+    seq?, kv-heads], SSM conv / state over batch and channels / heads."""
+    out = {}
+    for i, kind in enumerate(layer_pattern(cfg)):
+        if kind.mixer == "attn":
+            out[f"pos{i}"] = {
+                "k": P(None, batch_axes, seq_axis, tp_axis, None),
+                "v": P(None, batch_axes, seq_axis, tp_axis, None),
+                "len": P(None, batch_axes),
+            }
+        else:
+            out[f"pos{i}"] = {
+                "conv": P(None, batch_axes, None, tp_axis),
+                "state": P(None, batch_axes, tp_axis, None, None),
+            }
+    return out
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):

@@ -13,9 +13,9 @@ is skipped (full-attention encoder).
 
 Layers are stacked over a leading axis, as in JAX; JAX's ``scan`` over
 them becomes a Python loop over :func:`~repro_torch.models.common.unstack`'s
-per-layer views.  JAX's ``constrain`` calls are dropped: without activation
-rules they do nothing, and the sharding rules are not ported (ROADMAP
-Queue 1 #6).  Attention from 4096 queries on goes through
+per-layer views.  JAX's ``constrain`` calls are dropped: on one device
+they do nothing, and Whisper has no sharded execution yet (ROADMAP Queue 1
+#5c).  Attention from 4096 queries on goes through
 ``attend_chunked`` (the ``flash_attention`` kernel on the card) outside
 training, and through the plain query-chunked code in training, as JAX
 trains through no Pallas kernel.  Decode appends each layer's K/V to the
@@ -32,7 +32,7 @@ import torch
 from repro_torch.core.precision import qdot, tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import AttnMask, KVCache
-from repro_torch.models.common import dense, layer_norm, unstack
+from repro_torch.models.common import FSDP, TP, dense, layer_norm, unstack
 from repro_torch.models.mlp import MLPConfig, mlp_apply, mlp_template
 
 __all__ = [
@@ -76,7 +76,12 @@ def _norm_t(d):
 
 def _attn_t(cfg: WhisperConfig) -> dict:
     d = cfg.d_model
-    return {"wq": dense(d, d), "wk": dense(d, d), "wv": dense(d, d), "wo": dense(d, d)}
+    return {
+        "wq": dense(d, d, logical=(FSDP, TP)),
+        "wk": dense(d, d, logical=(FSDP, TP)),
+        "wv": dense(d, d, logical=(FSDP, TP)),
+        "wo": dense(d, d, logical=(TP, FSDP)),
+    }
 
 
 def _enc_block_t(cfg):
@@ -100,14 +105,19 @@ def _dec_block_t(cfg):
 
 
 def _stack(template, n: int):
-    """Prepend the layer axis to every leaf spec."""
-    return tree_map(lambda _, s: dataclasses.replace(s, shape=(n, *s.shape)), template)
+    """Prepend the layer axis (unsharded) to every leaf spec."""
+    return tree_map(
+        lambda _, s: dataclasses.replace(
+            s, shape=(n, *s.shape), logical=(None, *(s.logical or (None,) * len(s.shape)))
+        ),
+        template,
+    )
 
 
 def whisper_template(cfg: WhisperConfig) -> dict:
     return {
-        "embed": dense(cfg.vocab, cfg.d_model, scale=0.02),
-        "dec_pos": dense(cfg.dec_max_len, cfg.d_model, scale=0.02),
+        "embed": dense(cfg.vocab, cfg.d_model, logical=(TP, FSDP), scale=0.02),
+        "dec_pos": dense(cfg.dec_max_len, cfg.d_model, logical=(None, FSDP), scale=0.02),
         "enc_blocks": _stack(_enc_block_t(cfg), cfg.n_enc_layers),
         "dec_blocks": _stack(_dec_block_t(cfg), cfg.n_dec_layers),
         "enc_norm": _norm_t(cfg.d_model),

@@ -1,7 +1,8 @@
 """Production training loop: checkpoint/restart, stragglers, metrics.
 
 Port of ``repro/train/loop.py``.  Drives any registered architecture end
-to end on one device (``cuda`` unless the caller asks for the CPU):
+to end on one device (``cuda`` unless the caller asks for the CPU), or the
+dense family over a named mesh (``launch/mesh.py``):
 
     loop = TrainLoop(arch_name, seq_len, global_batch, None, run_dir, ...)
     loop.run(total_steps)
@@ -17,9 +18,12 @@ Fault tolerance (JAX's model, the same events in ``metrics.jsonl``):
 * per-step wall times (the ``float(loss)`` sync included) feed a
   :class:`StragglerMonitor`; its actions are logged
 
-A ``mesh`` naming more than one distinct device raises
-``NotImplementedError``: JAX trains FSDP over its mesh, which has no port
-yet (ROADMAP Queue 1 #5).  ``None`` or a one-device mesh runs on ``device``.
+``mesh``: ``None`` or a one-shard mesh trains on ``device``.  A mesh of
+several shards trains FSDP + TP over it (``launch/steps.py``), inside
+``activation_rules(mesh)`` as JAX's loop does: the state is made on
+``device`` and placed by the first step; checkpoints hold whole leaves, so
+a run resumes on another mesh than the one that wrote them.  A family not
+yet sharded raises (ROADMAP Queue 1 #5c).
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ from repro_torch._device import resolve_device
 from repro_torch.checkpoint.checkpointer import Checkpointer, latest_step
 from repro_torch.data.tokens import SyntheticTokens
 from repro_torch.distributed.elastic import StragglerMonitor
-from repro_torch.launch.steps import build_train_step, check_one_device
+from repro_torch.distributed.sharding import activation_rules
+from repro_torch.launch.steps import as_mesh, build_train_step
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.registry import Arch, ShapeSpec, get_arch
 from repro_torch.train import optimizer as opt_lib
@@ -48,7 +53,7 @@ class TrainLoop:
     arch_name: str
     seq_len: int
     global_batch: int
-    mesh: object  # None or a one-device DeviceMesh
+    mesh: object  # None, a named Mesh (or a 1-D DeviceMesh)
     run_dir: str
     reduced: bool = True
     lr: float = 3e-4
@@ -59,7 +64,6 @@ class TrainLoop:
     device: str = "cuda"
 
     def __post_init__(self):
-        check_one_device(self.mesh, "TrainLoop")
         self._device = resolve_device(self.device)
         self.arch: Arch = get_arch(self.arch_name)
         self.cfg = self.arch.reduced_config if self.reduced else self.arch.config
@@ -69,6 +73,8 @@ class TrainLoop:
         self.ckpt = Checkpointer(self.run_path / "ckpt")
         self.monitor = StragglerMonitor()
         self._metrics_path = self.run_path / "metrics.jsonl"
+        # refuses, before any work, a family the mesh cannot run
+        self._build()
 
     # ------------------------------------------------------------------
     def _build(self):
@@ -93,6 +99,10 @@ class TrainLoop:
 
     # ------------------------------------------------------------------
     def run(self, total_steps: int) -> dict:
+        with activation_rules(as_mesh(self.mesh)):
+            return self._run(total_steps)
+
+    def _run(self, total_steps: int) -> dict:
         optimizer, train_step = self._build()
         data = self._data()
         params, opt_state = self._init_state(optimizer)

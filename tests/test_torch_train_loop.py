@@ -7,7 +7,7 @@ run in every loss and final parameter (bit for bit: the CPU is
 deterministic, and the checkpoint carries parameters, AdamW state and the
 data stream exactly); the ``metrics.jsonl`` events equal JAX's loop's for
 the same schedule (the straggler events, which read wall times, apart);
-the multi-device refusal and the launcher.
+the refusal of a family not sharded yet and the launcher.
 """
 
 import json
@@ -143,9 +143,12 @@ def test_more_than_three_failures_raise(tmp_path):
 
 
 def test_multi_device_mesh_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        _loop(tmp_path, mesh=make_mesh(2, devices=["cpu", "meta"]))
-    _loop(tmp_path, mesh=make_mesh(2, devices=["cpu", "cpu"]))  # one device, two shards
+    """A mesh of several shards trains the dense family sharded; a family
+    not sharded yet is refused at construction, naming its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="Queue 1 #5c"):
+        _loop(tmp_path, arch_name="granite-moe-1b-a400m", mesh=make_mesh(2, devices=["cpu", "cpu"]))
+    _loop(tmp_path, arch_name="granite-moe-1b-a400m", mesh=make_mesh(1, devices=["cpu"]))
+    _loop(tmp_path, mesh=make_mesh(2, devices=["cpu", "cpu"]))  # dense: data-parallel over two
 
 
 def test_default_device_is_the_card(tmp_path):
