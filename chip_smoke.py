@@ -170,16 +170,39 @@ result line):
    ``flash_attention`` launch (local heads) held to plain with planted
    faults, logits and caches against one device; (c) 16 greedy decode
    steps over the batch- and kv-head-sharded caches, fed the one-device
-   tokens, each step's logits within 1e-2 of max and its token equal
-   wherever decided; (d) ``TrainLoop`` at ~100 M on (2, 2) with a failure,
+   tokens, every launch held to plain, each step's logits within 1e-2 of
+   max and its token equal wherever decided; (d) ``TrainLoop`` at ~100 M on (2, 2) with a failure,
    its checkpoint resumed on (4, 1) within 1e-5 of (2, 2)'s losses; (e)
    ``ring_allgather_matmul`` on four shards against ``x @ w``; (a)-(c) again
    on distinct cards where there are two or four;
-17. a ``kernels`` JSON line (launches on phases 3-7 and 9-16, times,
+17. the MoE, SSM, hybrid and VLM LMs at full width over the (2, 2) mesh of
+   four shards of card 0 (``models/sharded_moe.py``, ``sharded_ssm.py``):
+   (a) granite-moe-1b-a400m, 24 layers, train steps at seq 256 x batch 8
+   under the ``"tp"`` expert layout at f32 against one device (phase 16a's
+   limits; parameters where AdamW's update is conditioned), its routing's
+   capacity drops and smallest top-k margin against one device's, bf16
+   steps timed with their device split, and the ``"fsdp"`` (experts over
+   data, tokens by all-to-all) and ``"megatron"`` layouts at f32 cut to 2
+   of 24 layers; (b) qwen2-moe-a2.7b, 24 layers, int8 ``serve_optimized``
+   (bf16 experts): one device first, then the same tree placed on the mesh,
+   a 2 x 4096 prefill and 16 greedy decode steps fed the one-device tokens,
+   every ``quant_matmul`` / ``flash_attention`` launch held to plain as it
+   is made (planted faults) and the kernels' counts equal to the launches
+   checked; (c) jamba-v0.1-52b at full width cut to one 8-layer group, the
+   same at f32 and at bf16 compute (the bf16 limits from one device's own
+   bf16-vs-f32 distance), with each shard's block of the model-split conv
+   cache against the one-device columns after the prefill and after the
+   decode; (d) mamba2-780m, 48 layers: an f32 train step against one
+   device, a bf16 step timed, a 2 x 512 int8 prefill and 16 decode steps
+   at f32 and bf16 compute, as (c); (e) qwen2-vl-2b, 28 layers: an f32 train step with patch
+   embeddings and M-RoPE positions against one device, a 2 x 4096 int8
+   prefill (256 patches a sequence); again on distinct cards where there
+   are two or four;
+18. a ``kernels`` JSON line (launches on phases 3-7 and 9-17, times,
    bounds); phases 3-5 and 9-12 also print the SNN kernels' launches by
    size; phase 2 also times non-causal ``flash_attention`` at
    [1,16,4096,64] and [1,16,32768,64] beside SDPA and the bound;
-18. the result line.
+19. the result line.
 """
 
 from __future__ import annotations
@@ -282,13 +305,14 @@ from repro_torch.launch.steps import (  # noqa: E402
 from repro_torch.launch.mesh import make_mesh as make_named_mesh  # noqa: E402
 from repro_torch.distributed.overlap import ring_allgather_matmul_shardmap  # noqa: E402
 from repro_torch.distributed.sharding import NamedSharding  # noqa: E402
-from repro_torch.distributed.spmd import Sharded, shard, shard_tree  # noqa: E402
+from repro_torch.distributed.spmd import Sharded, place, shard, shard_tree  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import mlp as mlp_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import AttnMask, attend  # noqa: E402
-from repro_torch.models.common import rms_norm, tree_leaves, tree_unflatten  # noqa: E402
+from repro_torch.models.common import materialize, rms_norm, tree_leaves, tree_unflatten  # noqa: E402
 from repro_torch.models.registry import ShapeSpec, get_arch  # noqa: E402
+from repro_torch.models.routing_probe import record_routing  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.faults import FaultInjector  # noqa: E402
 from repro_torch.serve.http import SNNHttpServer  # noqa: E402
@@ -3142,15 +3166,16 @@ def recorded_flash_attention():
         yield seen
 
 
-def check_recorded_fa(seen, what: str) -> tuple[float, dict]:
+def check_recorded_fa(seen, what: str, used: dict | None = None) -> tuple[float, dict]:
     """Each recorded ``flash_attention`` launch against
     ``flash_attention_ref`` (query head h on kv head h // (Hq / Hk)) to
     FA_TOL.  The first launch of each shape also against planted faults,
     each of which must fall outside: a 2x scale, the causal mask dropped
     (or, on a bidirectional launch, applied), query head h on kv head h %
     Hk (grouped-query launches), a zero output.  Returns the max abs error and
-    the tolerance used by the kernel, then by each fault, per shape."""
-    err, used = 0.0, {}
+    the tolerance used by the kernel, then by each fault, per shape (into
+    ``used`` where given: shapes already there are not faulted again)."""
+    err, used = 0.0, {} if used is None else used
     for q, k, v, kw, out in seen:
         rep = q.shape[1] // k.shape[1]
         kr, vr = (t.repeat_interleave(rep, dim=1) for t in (k, v))
@@ -3165,7 +3190,7 @@ def check_recorded_fa(seen, what: str) -> tuple[float, dict]:
             faults["no causal mask"] = flash_attention_ref(q, kr, vr, **{**kw, "causal": False})
         else:  # a bidirectional launch (Whisper's encoder)
             faults["causal mask applied"] = flash_attention_ref(q, kr, vr, **{**kw, "causal": True})
-        if rep > 1:
+        if rep > 1 and k.shape[1] > 1:  # with one kv head, h % Hk is h // (Hq / Hk)
             faults["kv head h % Hk"] = flash_attention_ref(
                 q, k.repeat(1, rep, 1, 1), v.repeat(1, rep, 1, 1), **kw)
         faults["zero output"] = torch.zeros_like(want)
@@ -3562,13 +3587,16 @@ def fa_rows_ref(q, k, v, r0: int, n: int, *, causal: bool, scale: float) -> torc
 
 
 @contextlib.contextmanager
-def checked_launches(what: str):
+def checked_launches(what: str, sampled: bool = True):
     """Each ``quant_matmul`` launch made through ``qdot`` held to its plain
-    version at QM_TOL as it is made, and each ``flash_attention`` launch
-    (non-causal, MHA) on LONG_ROWS-row query blocks at FA_TOL, the first
-    launch also against planted faults; nothing is kept (a 32k prefill's
-    recorded operands would not fit beside it).  As with the recorders,
-    launch counts reset inside the block count the checking wrappers."""
+    version at QM_TOL as it is made, and each ``flash_attention`` launch at
+    FA_TOL: with ``sampled`` (a 32k prefill: non-causal, MHA) on LONG_ROWS-row
+    query blocks, the first launch also against planted faults; else whole
+    (:func:`check_recorded_fa`, the first launch of each shape against its
+    planted faults).  Nothing is kept (a 32k prefill's recorded operands
+    would not fit beside it).  ``stats`` counts the launches checked, which
+    the caller holds equal to the kernels' own counts: launch counts reset
+    inside the block count the checking wrappers."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quant_matmul import quant_matmul as qm_module
 
@@ -3578,13 +3606,12 @@ def checked_launches(what: str):
     def qm(x, q, scale, *, bits, **kw):
         out = real_qm(x, q, scale, bits=bits, **kw)
         want = quant_matmul_ref(x, q, scale, bits, out.dtype)
-        shape = f"[{x.shape[0]},{x.shape[1]}]x[{q.shape[0]},{scale.shape[0]}]"
+        shape = f"[{x.shape[0]},{x.shape[1]}]x[{q.shape[0]},{scale.shape[0]}] -> {out.dtype}"
         stats["qm_err"] = max(stats["qm_err"], close(out, want, QM_TOL, f"{what}: quant_matmul {shape}"))
         stats["quant_matmul"] += 1
         return out
 
-    def fa(q, k, v, **kw):
-        out = real_fa(q, k, v, **kw)
+    def fa_rows(q, k, v, kw, out):
         check(not kw["causal"] and q.shape[1] == k.shape[1], f"{what}: flash_attention {kw}")
         S, scale = q.shape[2], kw.get("scale") or q.shape[-1] ** -0.5
         first = stats["flash_attention"] == 0
@@ -3605,6 +3632,14 @@ def checked_launches(what: str):
                     used[name] = max(used.get(name, 0.0), tol_used(x, want, FA_TOL))
         for fault, u in (used or {}).items():
             check(fault == "kernel" or u > 1, f"{what}: planted fault {fault} passes the tolerance")
+
+    def fa(q, k, v, **kw):
+        out = real_fa(q, k, v, **kw)
+        if sampled:
+            fa_rows(q, k, v, kw, out)
+        else:
+            err, _ = check_recorded_fa([(q, k, v, kw, out)], what, stats["fa_used"])
+            stats["fa_err"] = max(stats["fa_err"], err)
         stats["flash_attention"] += 1
         return out
 
@@ -3814,144 +3849,47 @@ def mesh_steps(step, params, state, batches) -> tuple[list, list, list]:
 
 def phase_mesh_train(mesh, smi: str) -> dict:
     """16a: full-width stablelm-1.6b train steps (seq 256 x batch 8, the
-    loop's AdamW) on ``mesh`` against one device.  At f32 compute, the
-    limits of tests/test_torch_lm_mesh.py: gradients at the initial
-    parameters, then each step's loss and grad norm and the parameters after
-    MESH_STEPS steps.  At the config's bf16 compute, timed (ms a step,
-    tokens/s, model-FLOPs share, peak memory, sharded / one-device wall) with
-    the losses at the bf16 limit; then a ``bf16_gather`` step."""
+    loop's AdamW) on ``mesh`` against one device: at f32 compute
+    (:func:`mesh_train_f32`, every parameter element held), then timed at
+    the config's bf16 (:func:`mesh_train_bf16`); then a ``bf16_gather``
+    step's loss against one device's."""
     arch = get_arch(LM_ARCH)
-    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
-    data = SyntheticTokens(vocab=arch.config.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
-    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in next(data).items()}
-               for _ in range(MESH_STEPS)]
-    f32 = dataclasses.replace(arch.config, compute_dtype=torch.float32)
-    p_specs = arch.param_pspecs(mesh, f32)
-    b_specs = arch.input_pspecs(mesh, shape, f32)
-    init = lambda cfg: arch.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg)
-    reset_counts()
-    # one device, f32: gradients at the initial parameters, then the steps
-    params = init(f32)
-    leaves = [t.detach().requires_grad_(True) for _, t in tree_leaves(params)]
-    loss, _ = arch.loss_fn(f32)(tree_unflatten(params, leaves), batches[0])
-    g_one = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
-    del leaves, loss
-    opt = loop_optimizer()
-    state = opt.init([t for _, t in tree_leaves(params)])
-    step = build_train_step(arch, shape, None, f32, optimizer=opt).jitted
-    one = mesh_steps(step, params, state, batches)
-    p_one = [t.cpu() for _, t in tree_leaves(params)]
-    del params, state, step
-    torch.cuda.empty_cache()
-    # the mesh, f32
-    params = shard_tree(init(f32), p_specs, mesh)
-    placed = {k: shard(v, NamedSharding(mesh, b_specs[k])) for k, v in batches[0].items()}
-    _, _, g_mesh = mesh_value_and_grad(arch.loss_fn(f32), params, placed)
-    g_err = max(leaf_err(g.full(), w) for g, w in zip(g_mesh, g_one))
-    del g_mesh, g_one, placed
-    state = init_opt_state(opt, params)
-    step = build_train_step(arch, shape, mesh, f32, optimizer=opt).jitted
-    got = mesh_steps(step, params, state, batches)
-    p_err = max(leaf_err(t.full(), w) for (_, t), w in zip(tree_leaves(params), p_one))
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got[0], one[0]))
-    gn_err = max(abs(a - b) / abs(b) for a, b in zip(got[1], one[1]))
-    check(g_err <= MESH_LIMITS["grad"], f"16a: gradients on the mesh {g_err:.3e} of max |g|")
-    check(loss_err <= MESH_LIMITS["loss"], f"16a: losses {got[0]} vs one device {one[0]}")
-    check(gn_err <= MESH_LIMITS["loss"], f"16a: grad norms {got[1]} vs one device {one[1]}")
-    check(p_err <= MESH_LIMITS["param"], f"16a: parameters after {MESH_STEPS} steps {p_err:.3e}")
-    del params, state, step, p_one
-    torch.cuda.empty_cache()
-    # the config's bf16 compute, timed, one device then the mesh
     cfg = arch.config
-    walls, losses, peaks = {}, {}, {}
-    for where in ("one", "mesh"):
-        torch.cuda.reset_peak_memory_stats()
-        params = init(cfg)
-        if where == "mesh":
-            params = shard_tree(params, arch.param_pspecs(mesh, cfg), mesh)
-        state = init_opt_state(opt, params)
-        step = build_train_step(arch, shape, mesh if where == "mesh" else None, cfg, optimizer=opt).jitted
-        losses[where], _, secs = mesh_steps(step, params, state, batches)
-        walls[where] = statistics.mean(secs[1:])
-        peaks[where] = torch.cuda.max_memory_allocated()
-        if where == "mesh":
-            split = device_split(lambda: step(params, state, batches[-1]), n=2, top=8, width=80)
-        del params, state, step
-        torch.cuda.empty_cache()
-    bf_err = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["one"]))
-    check(bf_err <= 0.05, f"16a bf16: losses {losses['mesh']} vs one device {losses['one']}")
-    params = shard_tree(init(cfg), arch.param_pspecs(mesh, cfg), mesh)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batches = train_batches(arch, cfg, MESH_STEPS)
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    reset_counts()
+    print(f"mesh train (16a) {LM_ARCH} full width on {mesh}, f32 compute: "
+          f"{mesh_train_f32(arch, f32, mesh, batches, '16a', hold_all=True)}; on {smi}")
+    one, text = mesh_train_bf16(arch, cfg, mesh, batches, "16a", smi)
+    print(f"mesh train (16a) {LM_ARCH}: {text}")
+    opt = loop_optimizer()
+    params = shard_tree(arch.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg),
+                        arch.param_pspecs(mesh, cfg), mesh)
     state = init_opt_state(opt, params)
     step = build_train_step(arch, shape, mesh, cfg, optimizer=opt, bf16_gather=True).jitted
     g16 = mesh_steps(step, params, state, batches[:2])
     del params, state, step
     torch.cuda.empty_cache()
-    g16_err = abs(g16[0][0] - losses["one"][0]) / losses["one"][0]
-    check(g16_err <= 0.05, f"16a bf16_gather: loss {g16[0][0]} vs one device {losses['one'][0]}")
+    g16_err = abs(g16[0][0] - one[0]) / one[0]
+    check(g16_err <= 0.05, f"16a bf16_gather: loss {g16[0][0]} vs one device {one[0]}")
     counts = read_counts()
     check(sum(counts.values()) == 0, f"16a: a train step launched a kernel: {counts}")
-    tokens = TRAIN_SEQ * TRAIN_BATCH
-    flops = model_flops_per_token(arch, cfg, TRAIN_SEQ) * tokens
-    print(
-        f"mesh train (16a) {LM_ARCH} full width on {mesh}: f32 compute -- gradients at the "
-        f"initial parameters {g_err:.3e} of max |g| (limit {MESH_LIMITS['grad']}), {MESH_STEPS} "
-        f"steps' losses {[round(x, 6) for x in got[0]]} vs one device "
-        f"{[round(x, 6) for x in one[0]]} ({loss_err:.3e} relative, limit {MESH_LIMITS['loss']}), "
-        f"grad norms {gn_err:.3e} relative, parameters after {MESH_STEPS} steps {p_err:.3e} of "
-        f"max |w| (limit {MESH_LIMITS['param']}); f32 steps (s) one device "
-        f"{[round(x, 4) for x in one[2]]}, mesh {[round(x, 4) for x in got[2]]}; on {smi}"
-    )
-    print(
-        f"mesh train (16a) bf16 compute (the config's), seq {TRAIN_SEQ} x batch {TRAIN_BATCH}: "
-        f"{1e3 * walls['mesh']:.3f} ms a step on the mesh vs {1e3 * walls['one']:.3f} ms on one "
-        f"device (sharded / one-device wall {walls['mesh'] / walls['one']:.3f}; mean of steps "
-        f"2-{MESH_STEPS}), {tokens / walls['mesh']:.1f} tokens/s, model FLOPs {flops:.4e} a step "
-        f"= {flops / walls['mesh'] / BF16_TC_FLOPS:.4f} of the dense bf16 peak on the mesh "
-        f"({flops / walls['one'] / BF16_TC_FLOPS:.4f} on one device); peak memory "
-        f"{peaks['mesh'] / 2**30:.3f} GiB on the mesh, {peaks['one'] / 2**30:.3f} GiB on one "
-        f"device; losses {[round(x, 5) for x in losses['mesh']]} vs "
-        f"{[round(x, 5) for x in losses['one']]} ({bf_err:.3e} relative, bf16 limit 0.05); "
-        f"bf16_gather step loss {g16[0][0]:.6f} ({g16_err:.3e} from one device), its second step "
-        f"{1e3 * g16[2][1]:.3f} ms; on {smi}"
-    )
-    print(f"mesh train (16a) step split on the mesh (bf16): {split}; on {smi}")
+    print(f"mesh train (16a) bf16_gather step loss {g16[0][0]:.6f} ({g16_err:.3e} from one device's "
+          f"bf16, limit 0.05), its second step {1e3 * g16[2][1]:.3f} ms; on {smi}")
     return counts
 
 
-def grow_caches(caches, extra: int):
-    """Prefill caches (exact length) with ``extra`` empty positions after
-    them, for decoding on (a sharded leaf grown shard by shard)."""
-
-    def grow(name, t):
-        if name.rsplit("/", 1)[-1] == "len":
-            return t
-        if isinstance(t, Sharded):
-            shards = [torch.cat([s, s.new_zeros((*s.shape[:2], extra, *s.shape[3:]))], dim=2)
-                      for s in t.shards]
-            return Sharded.from_local(shards, t.mesh, t.spec)
-        return torch.cat([t, t.new_zeros((*t.shape[:2], extra, *t.shape[3:]))], dim=2)
-
-    return tree_map(grow, caches)
-
-
-def serve_params_bf16_int8(arch):
-    """stablelm-1.6b's serve_optimized int8 tree: bf16 float leaves, the
-    block weights quantized (from a seeded generator)."""
-    params = arch.init_params(torch.Generator(device=DEVICE).manual_seed(0))
-    params = tree_map(lambda _, t: t.to(torch.bfloat16), params)
-    return quantize_tree(params, lm_policy(8))
-
-
-def logits_agree(got, want, what: str) -> tuple[float, int, int]:
-    """``got`` within MESH_LOGIT_TOL of max |want|, and its greedy token equal
+def logits_agree(got, want, what: str, tol: float = MESH_LOGIT_TOL) -> tuple[float, int, int]:
+    """``got`` within ``tol`` of max |want|, and its greedy token equal
     wherever want's top-2 margin is wider than twice that.  Returns (error /
     max, decided rows, rows whose tokens are equal)."""
     got, want = got.float(), want.float().to(got.device)
     scale = float(want.abs().max())
     err = float((got - want).abs().max()) / scale
-    check(err <= MESH_LOGIT_TOL, f"{what}: logits {err:.3e} of max apart")
+    check(err <= tol, f"{what}: logits {err:.3e} of max apart")
     top2 = want.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > 2 * MESH_LOGIT_TOL * scale
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol * scale
     same = got.argmax(-1) == want.argmax(-1)
     check(bool(same[decided].all()), f"{what}: a decided greedy token differs")
     return err, int(decided.sum()), int(same.sum())
@@ -3959,108 +3897,17 @@ def logits_agree(got, want, what: str) -> tuple[float, int, int]:
 
 def phase_mesh_serve(mesh, smi: str) -> dict:
     """16b-c: a 4096-token prefill of 2 sequences with serve_optimized int8
-    weights on ``mesh`` (every launch recorded and held to plain), its
-    logits and caches against one device, then 16 greedy decode steps over
-    the TP- and batch-sharded caches grown by 16 positions, fed the
-    one-device run's tokens (so that a near-tie cannot steer the two apart),
-    each step's logits and greedy token against one device."""
+    weights, then 16 greedy decode steps over the TP- and batch-sharded
+    caches fed the one-device run's tokens (``mesh_serve``: one device
+    first, then the same tree on ``mesh``, every launch held to plain,
+    logits and caches against one device)."""
     arch = get_arch(LM_ARCH)
     cfg = arch.config
-    B, S, T = MESH_PREFILL_B, MESH_PREFILL_S, MESH_DECODE
-    qparams = serve_params_bf16_int8(arch)
-    tokens = torch.from_numpy(np.random.default_rng(16).integers(0, cfg.vocab, (B, S))).to(DEVICE)
-    pshape = ShapeSpec("prefill", S, B, "prefill")
-    pre_one = build_prefill_step(arch, pshape, None, cfg, quant=lm_policy(8), serve_optimized=True)
-    pre_mesh = build_prefill_step(arch, pshape, mesh, cfg, quant=lm_policy(8), serve_optimized=True)
-    mparams = tree_map(lambda _, t: t, qparams)  # the mesh step rebinds its own tree's leaves
-    pre_one.jitted(qparams, {"tokens": tokens[:, :8]})  # warm-up (S < 4096: no flash launch)
-    with recorded_quant_matmul() as seen_qm, recorded_flash_attention() as seen_fa:
-        reset_counts()
-        logits, caches = pre_mesh.jitted(mparams, {"tokens": tokens})
-        torch.cuda.synchronize()
-        counts = read_counts()
     L, n = cfg.n_layers, mesh.size
-    check(counts["flash_attention"] == L * n == len(seen_fa), f"16b: {L * n} flash launches")
-    check(counts["quant_matmul"] == QDOTS_PER_LAYER * L * n == len(seen_qm),
-          f"16b: {QDOTS_PER_LAYER * L * n} quant_matmul launches")
-    check(not isinstance(logits, Sharded) and logits.shape == (B, 1, cfg.vocab), "16b: logits")
-    qm_err = check_recorded_qm(seen_qm, "16b mesh prefill")
-    fa_err, fa_used = check_recorded_fa(seen_fa, "16b mesh prefill")
-    del seen_qm, seen_fa
-    torch.cuda.synchronize()
-    logits_one, caches_one = pre_one.jitted(qparams, {"tokens": tokens})
-    p_err, p_dec, p_same = logits_agree(logits, logits_one, "16b prefill")
-    c_err = max(
-        leaf_err(caches[pos][k].full(), caches_one[pos][k])
-        for pos in caches_one for k in ("k", "v")
-    )
-    check(c_err <= CACHE_TOL, f"16b: caches {c_err:.3e} of max apart")
-    check(all(torch.equal(caches[p]["len"].full(), caches_one[p]["len"]) for p in caches_one), "16b: len")
-    walls = {}
-    for where, fn, ps in (("one", pre_one.jitted, qparams), ("mesh", pre_mesh.jitted, mparams)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(ps, {"tokens": tokens})
-        torch.cuda.synchronize()
-        walls[where] = time.perf_counter() - t0
-    print(
-        f"mesh prefill (16b) {LM_ARCH} full width int8 serve_optimized on {mesh}: {B} x {S} "
-        f"tokens in {walls['mesh']:.3f} s warm with nothing recorded vs {walls['one']:.3f} s on one "
-        f"device ({walls['mesh'] / walls['one']:.3f}x); {counts['quant_matmul']} quant_matmul "
-        f"launches each within QM_TOL of plain (max_abs_err {qm_err:.3e}; the row-parallel ones "
-        f"with f32 partials), {counts['flash_attention']} flash_attention launches on local heads "
-        f"each within FA_TOL (max_abs_err {fa_err:.3e}; tolerance used, then by each planted "
-        f"fault: {json.dumps({k: {f: round(u, 4) for f, u in d.items()} for k, d in fa_used.items()})}); "
-        f"logits {p_err:.3e} of max from one device ({p_same}/{B} greedy tokens equal, {p_dec} "
-        f"decided), caches {c_err:.3e}; on {smi}"
-    )
-    # 16c: decode over the sharded caches
-    dshape = ShapeSpec("decode", S + T, B, "decode")
-    dec_one = build_decode_step(arch, dshape, None, cfg, quant=lm_policy(8), serve_optimized=True)
-    dec_mesh = build_decode_step(arch, dshape, mesh, cfg, quant=lm_policy(8), serve_optimized=True)
-    caches, caches_one = grow_caches(caches, T), grow_caches(caches_one, T)
-    tok = logits_one.argmax(-1).to(torch.int32)
-    cur = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
-    toks, outs_one = [], []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(T):
-        lg, _ = dec_one.jitted(qparams, caches_one, {"tokens": tok, "cur_len": cur + t})
-        toks.append(tok)
-        tok = lg.argmax(-1).to(torch.int32)
-        outs_one.append(lg)
-    torch.cuda.synchronize()
-    one_ms = 1e3 * (time.perf_counter() - t0) / T
-    reset_counts()
-    outs = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(T):
-        lg, _ = dec_mesh.jitted(mparams, caches, {"tokens": toks[t], "cur_len": cur + t})
-        outs.append(lg)
-    torch.cuda.synchronize()
-    mesh_ms = 1e3 * (time.perf_counter() - t0) / T
-    dcounts = read_counts()
-    check(dcounts["quant_matmul"] == QDOTS_PER_LAYER * L * n * T, "16c: quant_matmul launches")
-    check(dcounts["flash_attention"] == 0, "16c: decode launches no flash attention")
-    d_err, d_dec, d_same = 0.0, 0, 0
-    for t, (a, b) in enumerate(zip(outs, outs_one)):
-        e, dd, ss = logits_agree(a, b, f"16c decode step {t}")
-        d_err, d_dec, d_same = max(d_err, e), d_dec + dd, d_same + ss
-    check(all(torch.equal(caches[p]["len"].full(), caches_one[p]["len"]) for p in caches_one), "16c: len")
-    print(
-        f"mesh decode (16c) {LM_ARCH} int8 on {mesh}: {T} greedy steps of {B} sequences against "
-        f"{S}-token caches sharded over batch and kv heads, {mesh_ms:.3f} ms a step vs "
-        f"{one_ms:.3f} ms on one device ({mesh_ms / one_ms:.3f}x); {d_same}/{B * T} greedy tokens "
-        f"equal to one device's ({d_dec} decided by a top-2 margin above "
-        f"{2 * MESH_LOGIT_TOL} of max), logits {d_err:.3e} of max apart; "
-        f"{dcounts['quant_matmul']} quant_matmul launches; on {smi}"
-    )
-    for k, v in dcounts.items():
-        counts[k] += v
-    del qparams, mparams, caches, caches_one, outs, outs_one
-    torch.cuda.empty_cache()
-    return counts
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(0, cfg.vocab, (MESH_PREFILL_B, MESH_PREFILL_S)))
+    qparams = quantize_tree(init_bf16(arch, cfg), lm_policy(8))
+    return mesh_serve(arch, [(cfg, MESH_LOGIT_TOL, CACHE_TOL)], mesh, qparams, {"tokens": tokens.to(DEVICE)},
+                      L * n, QDOTS_PER_LAYER * L * n, MESH_DECODE, "16b-c", smi)
 
 
 def phase_mesh_loop(smi: str) -> dict:
@@ -4169,6 +4016,515 @@ def phase_mesh(smi: str, launches: dict) -> None:
             for k, v in counts.items():
                 launches[k] += v
     print(f"phase 16 took {time.perf_counter() - t0:.3f} s; on {smi}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the MoE, SSM, hybrid and VLM LMs over a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_SERVE_ARCH = "granite-moe-1b-a400m", "qwen2-moe-a2.7b"
+MESH17_CUT = 2  # 17a's "fsdp" and "megatron" layouts: 2 of granite's 24 layers
+MESH17_SSM_PROMPT = 512  # 17d: two SSD chunks of 256 before the decode steps
+MESH17_TIMED_DECODE = 4  # decode steps timed again unrecorded, each side
+# AdamW's update g / (sqrt(nu_hat) + eps) turns gradients near eps into
+# updates of either sign (ROADMAP Queue 3): the parameters are held where
+# sqrt(nu_hat) > 100 eps, or where no gradient ever came (weight decay alone),
+# as tests/test_torch_lm_families.py holds them
+ADAM_EPS, ADAM_B2 = 1e-8, 0.999
+# 17c and 17d serve their int8 / bf16 weights at f32 compute and at the
+# config's bf16.  At f32 the limits are tests/test_torch_lm_families.py's f32
+# logits, and the caches (an SSD state sums 4096 tokens) at half SSD_TOL.
+# At bf16 the random jamba group and mamba2's 48 layers amplify rounding:
+# one device's own bf16 logits lie 25 % / 5.0 % of max from its f32 ones
+# (H100 80GB HBM3, 700 W, scripts/mesh_bf16_drift.py, which also shows two
+# equivalent orders of the SSD's sums on one device as far apart), so the
+# bf16 mesh is held to one device's bf16 within max(5 %, twice that
+# distance), as tests/test_torch_lm_mesh_families_serve.py holds it
+MESH17_F32_LOGIT_TOL, MESH17_F32_CACHE_TOL = 1e-4, 1e-3
+MESH17_TWIN_FLOOR = 0.05
+
+
+def init_bf16(arch, cfg, seed: int = 0):
+    """``init_params`` from ``torch.Generator('cuda').manual_seed(seed)``,
+    each leaf cast to bf16 as it is drawn (qwen2-moe's whole f32 tree, 57 GB,
+    would not fit beside its cast)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    template = arch.template(cfg)
+    leaves = [materialize(gen, {"w": spec})["w"].to(torch.bfloat16) for _, spec in tree_leaves(template)]
+    return tree_unflatten(template, leaves)
+
+
+def train_batches(arch, cfg, n: int, seed: int = 0) -> list[dict]:
+    """``n`` SyntheticTokens batches at seq 256 x batch 8 on the card; the
+    VLM's as input_template splits them (128 patch embeddings on an 8 x 16
+    grid, then 128 text tokens)."""
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=seed)
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in next(data).items()} for _ in range(n)]
+    if arch.family != "vlm":
+        return batches
+    n_vis = min(arch.n_vision_tokens, TRAIN_SEQ // 2)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    pos3 = vlm_positions3(TRAIN_BATCH, 8, n_vis // 8, TRAIN_SEQ)
+    return [
+        {"tokens": b["tokens"][:, n_vis:], "targets": b["targets"][:, n_vis:],
+         "vision_embeds": torch.randn(TRAIN_BATCH, n_vis, cfg.d_model, device=DEVICE,
+                                      generator=gen).to(torch.bfloat16),
+         "positions3": pos3}
+        for b in batches
+    ]
+
+
+def routing(fn) -> dict:
+    """``fn``'s MoE routing (a forward without gradients): capacity drops,
+    assignments and the smallest top-k margin."""
+    with record_routing() as rec, torch.no_grad():
+        fn()
+    torch.cuda.synchronize()
+    return rec
+
+
+def mesh_train_f32(arch, cfg, mesh, batches, what: str, hold_all: bool = False) -> str:
+    """``cfg`` (f32 compute) one device then ``mesh``, the loop's AdamW over
+    ``batches``: gradients at the initial parameters within 1e-4 of each
+    leaf's max |g|, each step's loss and grad norm 1e-5 relative, the
+    parameters after the steps 1e-3 of max |w| where AdamW's update is
+    conditioned (every element with ``hold_all``).  An MoE's mesh replays
+    the one-device routes (its forward and remat's recompute alike), and
+    each token its own top k would route apart must be within the runs'
+    rounding (flip ratio <= 1).  Returns the summary."""
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    init = lambda: arch.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    loss_fn = arch.loss_fn(cfg)
+    opt = loop_optimizer()
+    params = init()
+    stats = routing(lambda: loss_fn(params, batches[0])) if cfg.moe else None
+    with record_routing(keep=True) as kept:
+        leaves = [t.detach().requires_grad_(True) for _, t in tree_leaves(params)]
+        loss, _ = loss_fn(tree_unflatten(params, leaves), batches[0])
+        g_one = list(torch.autograd.grad(loss, leaves))
+        del leaves, loss
+        state = opt.init([t for _, t in tree_leaves(params)])
+        one = mesh_steps(build_train_step(arch, shape, None, cfg, optimizer=opt).jitted, params, state, batches)
+    p_one = [t for _, t in tree_leaves(params)]  # kept on the card: the comparisons run there
+    bias_c = 1 - ADAM_B2 ** len(batches)
+    held = [
+        torch.ones_like(nu, dtype=torch.bool) if hold_all else (nu == 0) | ((nu / bias_c).sqrt() > 100 * ADAM_EPS)
+        for nu in state.nu
+    ]
+    del params, state
+    torch.cuda.empty_cache()
+    params = shard_tree(init(), arch.param_pspecs(mesh, cfg), mesh)
+    b_specs = arch.input_pspecs(mesh, shape, cfg)
+    placed = {k: place(v, b_specs[k], mesh) for k, v in batches[0].items()}
+    with record_routing(replay=kept["routes"]) as route:
+        _, _, g_mesh = mesh_value_and_grad(loss_fn, params, placed)
+        g_err, g_worst = max((leaf_err(g.full(), w), p) for g, w, (p, _) in zip(g_mesh, g_one, tree_leaves(params)))
+        del g_mesh, g_one, placed
+        state = init_opt_state(opt, params)
+        got = mesh_steps(build_train_step(arch, shape, mesh, cfg, optimizer=opt).jitted, params, state, batches)
+    check(route["next"] == len(kept["routes"]), f"{what}: replayed {route['next']} of {len(kept['routes'])} routes")
+    p_err, p_all = 0.0, 0.0
+    for (_, t), w, h in zip(tree_leaves(params), p_one, held):
+        diff = (t.full() - w).abs()
+        scale = float(w.abs().max().clamp_min(1e-30))
+        p_err = max(p_err, float(diff[h].max()) / scale if h.any() else 0.0)
+        p_all = max(p_all, float(diff.max()) / scale)
+    share = sum(int(h.sum()) for h in held) / sum(h.numel() for h in held)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got[0], one[0]))
+    gn_err = max(abs(a - b) / abs(b) for a, b in zip(got[1], one[1]))
+    check(g_err <= MESH_LIMITS["grad"], f"{what}: gradients on the mesh {g_err:.3e} of max |g|")
+    check(loss_err <= MESH_LIMITS["loss"], f"{what}: losses {got[0]} vs one device {one[0]}")
+    check(gn_err <= MESH_LIMITS["loss"], f"{what}: grad norms {got[1]} vs one device {one[1]}")
+    check(p_err <= MESH_LIMITS["param"], f"{what}: parameters after {len(batches)} steps {p_err:.3e}")
+    check(route["flips"] == 0 or route["flip_ratio"] <= 1,
+          f"{what}: a token routed apart by its own top k beyond rounding: {route}")
+    out = (
+        f"gradients at the initial parameters {g_err:.3e} of max |g| ({g_worst}; limit "
+        f"{MESH_LIMITS['grad']}), "
+        f"{len(batches)} steps' losses {[round(x, 6) for x in got[0]]} vs one device "
+        f"{[round(x, 6) for x in one[0]]} ({loss_err:.3e} relative), grad norms {gn_err:.3e}, "
+        f"parameters after the steps {p_err:.3e} of max |w| over the {100 * share:.4f} % held "
+        f"({p_all:.3e} over all); "
+        f"f32 steps (s) one device {[round(x, 3) for x in one[2]]}, mesh {[round(x, 3) for x in got[2]]}"
+    )
+    if cfg.moe:
+        out += (
+            f"; routing at the initial parameters: {stats['drops']} of {stats['assigned']} "
+            f"token-expert assignments dropped at capacity, smallest top-k margin "
+            f"{stats['margin']:.3e}; the mesh replayed one device's {len(kept['routes'])} chunk "
+            f"routes, {route['flips']} token routings its own top k would have sent elsewhere "
+            f"(largest margin / twice the probabilities' change {route['flip_ratio']:.3e}, limit 1)"
+        )
+    del params, state, p_one, held
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_bf16(arch, cfg, mesh, batches, what: str, smi: str) -> tuple[list, str]:
+    """``cfg`` at bf16 compute, one device then ``mesh``, the steps after the
+    first timed: ms a step, model-FLOPs share, peak memory, the losses
+    within 5 % of one device's, and the mesh step's device split.  Returns
+    one device's losses and the summary."""
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt = loop_optimizer()
+    walls, losses, peaks = {}, {}, {}
+    for where in ("one", "mesh"):
+        torch.cuda.reset_peak_memory_stats()
+        params = arch.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+        if where == "mesh":
+            params = shard_tree(params, arch.param_pspecs(mesh, cfg), mesh)
+        state = init_opt_state(opt, params)
+        step = build_train_step(arch, shape, mesh if where == "mesh" else None, cfg, optimizer=opt).jitted
+        losses[where], _, secs = mesh_steps(step, params, state, batches)
+        walls[where] = statistics.mean(secs[1:])
+        peaks[where] = torch.cuda.max_memory_allocated()
+        if where == "mesh":
+            split = device_split(lambda: step(params, state, batches[-1]), n=1, top=8, width=80)
+        del params, state, step
+        torch.cuda.empty_cache()
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["one"]))
+    check(err <= 0.05, f"{what} bf16: losses {losses['mesh']} vs one device {losses['one']}")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops = model_flops_per_token(arch, cfg, TRAIN_SEQ) * tokens
+    return losses["one"], (
+        f"bf16 compute (the config's): {1e3 * walls['mesh']:.3f} ms a step on the mesh vs "
+        f"{1e3 * walls['one']:.3f} ms on one device ({walls['mesh'] / walls['one']:.3f}x; mean of "
+        f"steps 2-{len(batches)}), {tokens / walls['mesh']:.1f} tokens/s, model FLOPs {flops:.4e} a "
+        f"step = {flops / walls['mesh'] / BF16_TC_FLOPS:.4f} of the dense bf16 peak on the mesh "
+        f"({flops / walls['one'] / BF16_TC_FLOPS:.4f} on one device); peak memory "
+        f"{peaks['mesh'] / 2**30:.3f} GiB on the mesh, {peaks['one'] / 2**30:.3f} GiB on one device; "
+        f"losses {[round(x, 5) for x in losses['mesh']]} vs {[round(x, 5) for x in losses['one']]} "
+        f"({err:.3e} relative, limit 0.05); the mesh step's split: {split}; on {smi}"
+    )
+
+
+def grow_kv(caches, extra: int):
+    """Prefill caches with ``extra`` empty positions after their K / V (a
+    sharded leaf grown shard by shard); ``len`` and the SSM's conv / state
+    copied, so that decoding leaves the prefill's as they were."""
+
+    def grow(name, t):
+        if name.rsplit("/", 1)[-1] not in ("k", "v"):
+            return t.map(torch.clone) if isinstance(t, Sharded) else t.clone()
+        if isinstance(t, Sharded):
+            shards = [torch.cat([s, s.new_zeros((*s.shape[:2], extra, *s.shape[3:]))], dim=2)
+                      for s in t.shards]
+            return Sharded.from_local(shards, t.mesh, t.spec)
+        return torch.cat([t, t.new_zeros((*t.shape[:2], extra, *t.shape[3:]))], dim=2)
+
+    return tree_map(grow, caches)
+
+
+def conv_blocks_err(caches, caches_one) -> tuple[float, int]:
+    """Each shard's block of every SSM conv cache against the one-device
+    cache's rows and columns of that block: (max error / max, blocks)."""
+    err, n = 0.0, 0
+    for pos, c in caches.items():
+        if "conv" not in c:
+            continue
+        t = c["conv"]
+        for i, block in enumerate(t.shards):
+            idx = [slice(None)] * 4
+            for d, entry in enumerate(t.spec):
+                if entry is not None:
+                    k = t.shape[d] // t.mesh.axis_size(entry)
+                    b = t.mesh.block_index(i, entry)
+                    idx[d] = slice(b * k, (b + 1) * k)
+            err, n = max(err, leaf_err(block, caches_one[pos]["conv"][tuple(idx)])), n + 1
+    return err, n
+
+
+def dtype_name(cfg) -> str:
+    return str(cfg.compute_dtype).removeprefix("torch.")
+
+
+def mesh_serve(arch, cfgs: list, mesh, qparams, batch, flash: int, qdots: int, decode: int,
+               what: str, smi: str) -> dict:
+    """``cfgs``: [(config, logit limit, cache limit)], the same tree served
+    at each config's compute dtype.  One device first, each config: a
+    warm-up, the prefill of ``batch`` and ``decode`` greedy steps (fed the
+    first config's tokens) against its caches grown by ``decode``
+    positions, each with its MoE routes kept; the first config's prefill
+    and first MESH17_TIMED_DECODE decode steps again, unrecorded and timed.
+    Then the tree placed on ``mesh`` (rebound leaf by leaf: the one-device
+    copy goes as the sharded one is made), and each config: the prefill and
+    the decode steps with the one-device routes replayed (a token routed
+    apart by its own top k only where its margin lies within the runs'
+    difference) and every launch held to plain as it is made (the kernels'
+    counts equal to the launches checked, ``flash`` and ``qdots`` a prefill,
+    ``qdots`` a decode step); the logits within the logit limit of max |one
+    device's| with the greedy tokens equal where decided, every cache leaf
+    within the cache limit of its max (each shard's block of a model-split
+    conv cache against the one-device columns).  A later config's None
+    limits come from its one-device distance from the first config's, the
+    twin: max(MESH17_TWIN_FLOOR, 2 x that distance).  Then the first
+    config's prefill and decode steps on the mesh, unrecorded and timed.
+    Returns the mesh's launches."""
+    B, S = batch["tokens"].shape
+    if "vision_embeds" in batch:
+        S += batch["vision_embeds"].shape[1]
+    T, n_timed = decode, min(decode, MESH17_TIMED_DECODE)
+    pshape, dshape = ShapeSpec("prefill", S, B, "prefill"), ShapeSpec("decode", S + T, B, "decode")
+    kw = dict(quant=lm_policy(8), serve_optimized=True)
+    steps = lambda m, cfg: (build_prefill_step(arch, pshape, m, cfg, **kw).jitted,
+                            build_decode_step(arch, dshape, m, cfg, **kw).jitted)
+    warm = {"tokens": batch["tokens"][:, :8]}
+    cur = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def greedy(dec, caches, toks, steps: int = T) -> list:
+        outs = []
+        for t in range(steps):
+            lg, _ = dec(qparams, caches, {"tokens": toks[t], "cur_len": cur + t})
+            outs.append(lg)
+            if len(toks) == t + 1:  # one device's first config: its own greedy tokens
+                toks.append(lg.argmax(-1).to(torch.int32))
+        return outs
+
+    ones, toks = [], None
+    with torch.no_grad():
+        for cfg, _, _ in cfgs:
+            pre, dec = steps(None, cfg)
+            pre(qparams, warm)
+            with record_routing(keep=True) as r_pre:
+                logits, caches = pre(qparams, batch)
+            toks = toks or [logits.argmax(-1).to(torch.int32)]
+            grown = grow_kv(caches, T)
+            with record_routing(keep=True) as r_dec:
+                outs = greedy(dec, grown, toks)
+            ones.append(dict(logits=logits, caches=caches, grown=grown, outs=outs, pre=r_pre, dec=r_dec))
+        pre, dec = steps(None, cfgs[0][0])
+        one_s = timed(lambda: pre(qparams, batch))
+        one_ms = 1e3 * timed(lambda: greedy(dec, grow_kv(ones[0]["caches"], T), toks, n_timed)) / max(n_timed, 1)
+        steps(mesh, cfgs[0][0])[0](qparams, warm)  # places the tree: qparams' leaves are now sharded
+        counts = {}
+        for (cfg, logit_tol, cache_tol), one in zip(cfgs, ones):
+            twin = ""
+            if logit_tol is None:
+                ref = ones[0]
+                d_l = max(leaf_err(a, b) for a, b in zip([one["logits"], *one["outs"]],
+                                                          [ref["logits"], *ref["outs"]]))
+                d_c = max(leaf_err(one["caches"][p][k], ref["caches"][p][k])
+                          for p in ref["caches"] for k in ref["caches"][p] if k != "len")
+                logit_tol, cache_tol = max(MESH17_TWIN_FLOOR, 2 * d_l), max(MESH17_TWIN_FLOOR, 2 * d_c)
+                twin = (f"; one device's own {dtype_name(cfg)} logits lie {d_l:.3e} of max from its "
+                        f"{dtype_name(cfgs[0][0])} ones and its caches {d_c:.3e}, so the limits are "
+                        f"max({MESH17_TWIN_FLOOR}, twice those)")
+            pre, dec = steps(mesh, cfg)
+            with checked_launches(what, sampled=False) as stats, \
+                    record_routing(replay=one["pre"]["routes"]) as route:
+                reset_counts()
+                logits, caches = pre(qparams, batch)
+                torch.cuda.synchronize()
+                pc = read_counts()
+            check(pc["flash_attention"] == flash == stats["flash_attention"],
+                  f"{what}: {flash} flash launches, each checked, not {pc} ({stats['flash_attention']} checked)")
+            check(pc["quant_matmul"] == qdots == stats["quant_matmul"],
+                  f"{what}: {qdots} quant_matmul launches, each checked, not {pc} ({stats['quant_matmul']} checked)")
+            check(not isinstance(logits, Sharded) and logits.shape == (B, 1, cfg.vocab), f"{what}: logits")
+            p_err, p_dec, p_same = logits_agree(logits, one["logits"], f"{what} prefill", logit_tol)
+            c_err = max(
+                leaf_err(caches[p][k].full(), one["caches"][p][k])
+                for p in one["caches"] for k in one["caches"][p] if k != "len"
+            )
+            check(c_err <= cache_tol, f"{what}: caches {c_err:.3e} of max apart")
+            check(all(torch.equal(c["len"].full(), one["caches"][p]["len"]) for p, c in caches.items() if "len" in c),
+                  f"{what}: len")
+            conv = conv_blocks_err(caches, one["caches"])
+            check(conv[0] <= cache_tol, f"{what}: conv cache blocks {conv[0]:.3e} of max apart")
+            grown = grow_kv(caches, T)
+            with checked_launches(f"{what} decode", sampled=False) as dstats, \
+                    record_routing(replay=one["dec"]["routes"]) as route_d:
+                reset_counts()
+                outs = greedy(dec, grown, toks)
+                torch.cuda.synchronize()
+                dc = read_counts()
+            check(dc["quant_matmul"] == qdots * T == dstats["quant_matmul"]
+                  and dc["flash_attention"] == 0 == dstats["flash_attention"],
+                  f"{what} decode: {qdots} x {T} quant_matmul launches, each checked, and no flash, "
+                  f"not {dc} ({dstats['quant_matmul']} checked)")
+            for r, kept in ((route, one["pre"]), (route_d, one["dec"])):
+                check(r["next"] == len(kept["routes"]), f"{what}: replayed {r['next']} of {len(kept['routes'])} routes")
+                check(r["flips"] == 0 or r["flip_ratio"] <= 1,
+                      f"{what}: a token routed apart by its own top k beyond rounding: {r}")
+            d_err, d_dec, d_same = 0.0, 0, 0
+            for t, (a, b) in enumerate(zip(outs, one["outs"])):
+                e, dd, ss = logits_agree(a, b, f"{what} decode step {t}", logit_tol)
+                d_err, d_dec, d_same = max(d_err, e), d_dec + dd, d_same + ss
+            conv_d = conv_blocks_err(grown, one["grown"]) if T else (0.0, 0)
+            check(conv_d[0] <= cache_tol, f"{what} decode: conv cache blocks {conv_d[0]:.3e} of max apart")
+            timing = ""
+            if cfg is cfgs[0][0]:
+                mesh_s = timed(lambda: pre(qparams, batch))
+                mesh_ms = 1e3 * timed(lambda: greedy(dec, grow_kv(caches, T), toks, n_timed)) / max(n_timed, 1)
+                timing = (f"{B} x {S} prefill {mesh_s:.3f} s warm, unrecorded vs {one_s:.3f} s on one device "
+                          f"({mesh_s / one_s:.3f}x)"
+                          + (f"; the first {n_timed} decode steps unrecorded {mesh_ms:.3f} ms a step vs "
+                             f"{one_ms:.3f} ms on one device ({mesh_ms / one_ms:.3f}x)" if T else "") + "; ")
+            fa = json.dumps({k: {f: round(u, 4) for f, u in d.items()} for k, d in stats["fa_used"].items()})
+            moe = (
+                f"; the mesh replayed one device's routes: its own top k would have sent {route['flips']} "
+                f"prefill and {route_d['flips']} decode token routings elsewhere (largest margin / twice "
+                f"the token's largest probability change {max(route['flip_ratio'], route_d['flip_ratio']):.3e}, "
+                f"limit 1; the largest change {max(route['moved'], route_d['moved']):.3e}), smallest top-k "
+                f"margin {min(one['pre']['margin'], one['dec']['margin']):.3e}, capacity drops "
+                f"{route['drops']} of {route['assigned']} in the prefill (one device {one['pre']['drops']})"
+            ) if cfg.moe else ""
+            print(
+                f"mesh serve ({what}) {arch.name} full width ({cfg.n_layers} layers) int8 serve_optimized, "
+                f"{dtype_name(cfg)} compute, on {mesh}: {timing}{pc['quant_matmul']} prefill quant_matmul "
+                f"launches and {dc['quant_matmul']} decode ones each within QM_TOL of plain (max_abs_err "
+                f"{max(stats['qm_err'], dstats['qm_err']):.3e}), {pc['flash_attention']} flash_attention "
+                f"launches within FA_TOL (max_abs_err {stats['fa_err']:.3e}; tolerance used, then by each "
+                f"planted fault: {fa}); prefill logits {p_err:.3e} of max from one device (limit "
+                f"{logit_tol:.3e}; {p_same}/{B} greedy tokens equal, {p_dec} decided), caches {c_err:.3e} "
+                f"(limit {cache_tol:.3e})"
+                + (f", the model-split conv cache's {conv[1]} shard blocks {conv[0]:.3e} of the one-device "
+                   f"columns' max (after {T} decode steps {conv_d[0]:.3e})" if conv[1] else "")
+                + (f"; {T} greedy decode steps fed the one-device tokens: {d_same}/{B * T} tokens equal "
+                   f"({d_dec} decided), logits {d_err:.3e} of max apart" if T else "")
+                + twin + moe + f"; on {smi}"
+            )
+            counts = {k: counts.get(k, 0) + pc[k] + dc[k] for k in pc}
+    del qparams, caches, grown, outs, ones
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase17_moe_train(mesh, smi: str) -> dict:
+    """17a: granite-moe-1b-a400m at full width, train steps at seq 256 x
+    batch 8 on ``mesh``: the "tp" expert layout at f32 against one device,
+    then bf16 timed; "fsdp" and "megatron" at f32 cut to MESH17_CUT layers."""
+    arch = get_arch(MOE_ARCH)
+    batches = train_batches(arch, arch.config, MESH_STEPS)
+    reset_counts()
+    f32 = dataclasses.replace(arch.config, compute_dtype=torch.float32)
+    print(f"mesh train (17a) {MOE_ARCH} full width (24 layers, 32 experts top 8) \"tp\" experts "
+          f"on {mesh}, f32 compute: {mesh_train_f32(arch, f32, mesh, batches, '17a tp')}; on {smi}")
+    print(f"mesh train (17a) {MOE_ARCH} \"tp\": "
+          f"{mesh_train_bf16(arch, arch.config, mesh, batches, '17a', smi)[1]}")
+    for layout in ("fsdp", "megatron"):
+        cut = dataclasses.replace(f32, n_layers=MESH17_CUT,
+                                  moe=dataclasses.replace(f32.moe, shard_experts=layout))
+        print(f"mesh train (17a) {MOE_ARCH} \"{layout}\" experts, cut to {MESH17_CUT} of "
+              f"{f32.n_layers} layers (full width), f32: "
+              f"{mesh_train_f32(arch, cut, mesh, batches, f'17a {layout}')}; on {smi}")
+    counts = read_counts()
+    check(sum(counts.values()) == 0, f"17a: a train step launched a kernel: {counts}")
+    return counts
+
+
+def phase17_moe_serve(mesh, smi: str) -> dict:
+    """17b: qwen2-moe-a2.7b, all 24 layers, int8 serve_optimized (bf16
+    experts and embeddings): a 2 x 4096 prefill and 16 decode steps."""
+    arch = get_arch(MOE_SERVE_ARCH)
+    cfg = arch.config
+    qparams = quantize_tree(init_bf16(arch, cfg), lm_policy(8))
+    tokens = torch.from_numpy(np.random.default_rng(17).integers(0, cfg.vocab, (MESH_PREFILL_B, MESH_PREFILL_S)))
+    n, L = mesh.size, cfg.n_layers
+    return mesh_serve(arch, [(cfg, MESH_LOGIT_TOL, CACHE_TOL)], mesh, qparams, {"tokens": tokens.to(DEVICE)},
+                      L * n, QDOTS_PER_LAYER * L * n, MESH_DECODE, "17b", smi)
+
+
+def phase17_hybrid_serve(mesh, smi: str) -> dict:
+    """17c: jamba-v0.1-52b at full width cut to one pattern group (phase 14's
+    cut): int8 serve_optimized weights, a 2 x 4096 prefill and 16 decode
+    steps at f32 compute (the f32 limits), then at the config's bf16 (limits
+    from one device's bf16-vs-f32 distance); its conv cache split over
+    ``model`` (8448 -> 4224 a shard)."""
+    arch = get_arch(HYBRID_ARCH)
+    cfg = dataclasses.replace(arch.config, n_layers=len(tfm.layer_pattern(arch.config)))
+    arch = dataclasses.replace(arch, config=cfg)
+    qparams = quantize_tree(init_bf16(arch, cfg), lm_policy(8))
+    tokens = torch.from_numpy(np.random.default_rng(18).integers(0, cfg.vocab, (MESH_PREFILL_B, MESH_PREFILL_S)))
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    cfgs = [(f32, MESH17_F32_LOGIT_TOL, MESH17_F32_CACHE_TOL), (cfg, None, None)]
+    return mesh_serve(arch, cfgs, mesh, qparams, {"tokens": tokens.to(DEVICE)}, mesh.size,
+                      30 * mesh.size, MESH_DECODE, "17c", smi)
+
+
+def phase17_ssm(mesh, smi: str) -> dict:
+    """17d: mamba2-780m, all 48 layers: an f32 train step against one
+    device, a bf16 step timed, a 2 x 512 prefill and 16 decode steps of its
+    int8 serve_optimized weights at f32 compute, then at the config's bf16
+    (limits from one device's bf16-vs-f32 distance, as 17c)."""
+    arch = get_arch(SSM_ARCH)
+    batches = train_batches(arch, arch.config, 2)
+    reset_counts()
+    f32 = dataclasses.replace(arch.config, compute_dtype=torch.float32)
+    print(f"mesh train (17d) {SSM_ARCH} full width (48 layers, 48 heads) on {mesh}, f32 compute: "
+          f"{mesh_train_f32(arch, f32, mesh, batches[:1], '17d')}; on {smi}")
+    print(f"mesh train (17d) {SSM_ARCH}: {mesh_train_bf16(arch, arch.config, mesh, batches, '17d', smi)[1]}")
+    counts = read_counts()
+    check(sum(counts.values()) == 0, f"17d: a train step launched a kernel: {counts}")
+    cfg = arch.config
+    qparams = quantize_tree(init_bf16(arch, cfg), lm_policy(8))
+    tokens = torch.from_numpy(np.random.default_rng(19).integers(0, cfg.vocab, (MESH_PREFILL_B, MESH17_SSM_PROMPT)))
+    cfgs = [(f32, MESH17_F32_LOGIT_TOL, MESH17_F32_CACHE_TOL), (cfg, None, None)]
+    return mesh_serve(arch, cfgs, mesh, qparams, {"tokens": tokens.to(DEVICE)}, 0,
+                      2 * cfg.n_layers * mesh.size, MESH_DECODE, "17d", smi)
+
+
+def phase17_vlm(mesh, smi: str) -> dict:
+    """17e: qwen2-vl-2b, all 28 layers: an f32 train step with patch
+    embeddings and M-RoPE positions against one device; a 2 x 4096 int8
+    prefill of 256 patches (a 16 x 16 grid) and 3840 text tokens each."""
+    arch = get_arch(VLM_ARCH)
+    cfg = arch.config
+    reset_counts()
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    batches = train_batches(arch, cfg, 1)
+    print(f"mesh train (17e) {VLM_ARCH} full width (28 layers; 128 patches + 128 text tokens, M-RoPE "
+          f"on an 8 x 16 grid) on {mesh}, f32 compute: {mesh_train_f32(arch, f32, mesh, batches, '17e')}; "
+          f"on {smi}")
+    counts = read_counts()
+    check(sum(counts.values()) == 0, f"17e: a train step launched a kernel: {counts}")
+    n_vis, B = arch.n_vision_tokens, MESH_PREFILL_B
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    batch = {
+        "tokens": torch.from_numpy(np.random.default_rng(20).integers(
+            0, cfg.vocab, (B, MESH_PREFILL_S - n_vis))).to(DEVICE),
+        "vision_embeds": torch.randn(B, n_vis, cfg.d_model, device=DEVICE, generator=gen).to(torch.bfloat16),
+        "positions3": vlm_positions3(B, 16, 16, MESH_PREFILL_S),
+    }
+    qparams = quantize_tree(init_bf16(arch, cfg), lm_policy(8))
+    return mesh_serve(arch, [(cfg, MESH_LOGIT_TOL, CACHE_TOL)], mesh, qparams, batch, cfg.n_layers * mesh.size,
+                      QDOTS_PER_LAYER * cfg.n_layers * mesh.size, 0, "17e", smi)
+
+
+def phase_mesh_families(smi: str, launches: dict) -> None:
+    """Phase 17: the MoE, SSM, hybrid and VLM LMs over the (2, 2) mesh of
+    four shards of card 0 (17a-e), then on distinct cards where the machine
+    has them."""
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    meshes = [card_mesh2(MESH_SHAPE)]
+    if n >= 2:
+        shape = (2, 2) if n >= 4 else (1, 2)
+        meshes.append(card_mesh2(shape, [f"cuda:{i}" for i in range(shape[0] * shape[1])]))
+    else:
+        print(f"mesh families on distinct cards: not run (this machine has {n} card); 17a-e ran "
+              f"on four shards of card 0 only")
+    for mesh in meshes:
+        for name, phase in [
+            ("mesh_moe_train", lambda: phase17_moe_train(mesh, smi)),
+            ("mesh_moe_serve", lambda: phase17_moe_serve(mesh, smi)),
+            ("mesh_hybrid_serve", lambda: phase17_hybrid_serve(mesh, smi)),
+            ("mesh_ssm", lambda: phase17_ssm(mesh, smi)),
+            ("mesh_vlm", lambda: phase17_vlm(mesh, smi)),
+        ]:
+            t1 = time.perf_counter()
+            counts = phase()
+            print(f"launches[{name}]: {counts} ({time.perf_counter() - t1:.3f} s)")
+            for k, v in counts.items():
+                launches[k] += v
+    print(f"phase 17 took {time.perf_counter() - t0:.3f} s; on {smi}")
 
 
 def main() -> int:
@@ -4401,6 +4757,9 @@ def main() -> int:
     print(f"the script so far {time.perf_counter() - t_start:.3f} s")
 
     phase_mesh(smi, launches)
+    print(f"the script so far {time.perf_counter() - t_start:.3f} s")
+
+    phase_mesh_families(smi, launches)
     print(f"the script so far {time.perf_counter() - t_start:.3f} s")
 
     for k, v in launches.items():

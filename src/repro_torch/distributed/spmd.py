@@ -14,6 +14,8 @@ mesh repeats a device, so that writing one never writes another.
 * :func:`reshard` moves a value to another spec: an all-gather over the
   axes it drops, a local slice for the axes it adds.
 * :func:`all_reduce` sums (or takes the max) over mesh axes.
+* :func:`all_to_all` exchanges blocks over a mesh axis (the MoE's tokens
+  to their experts' owners and back).
 
 Collectives are ordered copies (``Tensor.to``), concatenations and sums in
 a fixed order (shard order along the reduced axes), so a run repeats bit
@@ -42,6 +44,7 @@ __all__ = [
     "reshard",
     "all_reduce",
     "all_gather",
+    "all_to_all",
     "local",
     "local_tree",
     "is_sharded",
@@ -221,6 +224,30 @@ def all_gather(xs: list, mesh: Mesh, axes, dim: int) -> list:
             for combo in itertools.product(*(range(mesh.shape[a]) for a in names))
         ]
         out.append(torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0])
+    return out
+
+
+def all_to_all(xs: list, mesh: Mesh, axis: str, split_dim: int, concat_dim: int) -> list:
+    """Exchange blocks over the mesh ``axis`` (``jax.lax.all_to_all``): the
+    shard at index ``j`` along ``axis`` gets, from every member ``k`` of its
+    group in order, block ``j`` of ``xs[k]`` cut into ``n`` along
+    ``split_dim``, concatenated along ``concat_dim``.  The same call with
+    the two dims swapped is its inverse, and autograd's backward of the
+    copies and the concatenation is that inverse exchange."""
+    n = mesh.shape.get(axis, 1)
+    if n == 1:
+        return list(xs)
+    out = []
+    for i, dev in enumerate(mesh.flat):
+        c = mesh.coord(i)
+        parts = []
+        for k in range(n):
+            src = xs[mesh.index({**c, axis: k})]
+            size, rem = divmod(src.shape[split_dim], n)
+            if rem:
+                raise ValueError(f"all_to_all: dimension {src.shape[split_dim]} does not divide over {n}")
+            parts.append(src.narrow(split_dim, c[axis] * size, size).to(dev))
+        out.append(torch.cat(parts, dim=concat_dim))
     return out
 
 

@@ -18,14 +18,15 @@ works on flat lists in ``models/common.py::tree_leaves`` order.
 ``mesh``: ``None`` or a one-shard mesh runs on the device the tensors live
 on.  A named :class:`~repro_torch.distributed.sharding.Mesh` of several
 shards (``launch/mesh.py``; a ``core/shard.py`` ``DeviceMesh`` counts as
-(n, 1) over ("data", "model")) runs the dense family sharded
-(``models/sharded.py``): parameters and both AdamW moments placed by
+(n, 1) over ("data", "model")) runs the decoder LM sharded -- the dense,
+MoE, SSM, hybrid and VLM families (``models/sharded.py``, ``sharded_moe.py``,
+``sharded_ssm.py``): parameters and both AdamW moments placed by
 ``param_pspecs`` (serving: ``serve_optimized``'s TP-only specs and
 ``_quant_pspecs``), batches by ``input_pspecs`` and caches by
 ``cache_pspecs``.  A leaf passed whole is placed on entry and the caller's
 tree is rebound to the placed leaf (JAX's ``in_shardings`` with donation).
-The other families, and ``shard_cache_seq``, raise under such a mesh
-(ROADMAP Queue 1 #5c).
+Whisper, and ``shard_cache_seq``, raise under such a mesh (ROADMAP
+Queue 1 #5c).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from repro_torch.distributed.spmd import Sharded, all_reduce, place
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.common import tree_leaves, tree_unflatten
 from repro_torch.models.registry import Arch, ShapeSpec
-from repro_torch.models.sharded import check_dense
+from repro_torch.models.sharded import check_sharded
 from repro_torch.train import optimizer as opt_lib
 
 __all__ = [
@@ -163,7 +164,7 @@ def build_train_step(
     if mesh is None:
         return StepBundle(_one_device_step(loss_fn, optimizer, grad_clip), (abs_params, None, abs_batch), name)
 
-    check_dense(cfg, "build_train_step", mesh.size)
+    check_sharded(cfg, "build_train_step", mesh.size)
     p_specs = arch.param_pspecs(mesh, cfg)
     b_specs = arch.input_pspecs(mesh, shape, cfg)
     leaf_specs = [s for _, s in tree_leaves(p_specs)]
@@ -344,7 +345,7 @@ def _serving(arch, shape, mesh, cfg, quant, serve_optimized, what):
     cfg = cfg or arch.config
     abs_params, p_specs = _serve_params(arch, cfg, quant, serve_optimized, mesh)
     if mesh is not None:
-        check_dense(cfg, what, mesh.size)
+        check_sharded(cfg, what, mesh.size)
     return mesh, cfg, abs_params, p_specs
 
 

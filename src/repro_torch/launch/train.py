@@ -7,11 +7,12 @@ Trains the architecture's reduced config (``--full-config``: the full one)
 on the host mesh, every card of ``--device`` (default ``cuda``) as (n, 1)
 over ("data", "model"): one card, or the CPU, trains on that device.
 Resume is automatic from ``<run-dir>/ckpt``.  ``--production-mesh`` asks
-for JAX's 256 / 512-device mesh and refuses below that, as JAX does.  A
-family not yet sharded raises on a mesh of several devices (ROADMAP Queue
-1 #5c).  ``TrainLoop`` feeds token batches
-only, as JAX's does, so whisper-medium (which trains on audio frames) takes
-``launch/steps.py::build_train_step`` instead.
+for JAX's 256 / 512-device mesh and refuses below that, as JAX does.
+Every decoder family (dense, MoE, SSM, hybrid, VLM) trains on a mesh of
+several devices.  ``TrainLoop`` feeds token batches only, as JAX's does,
+so whisper-medium (which trains on audio frames) takes
+``launch/steps.py::build_train_step`` instead, on one device (Whisper under
+a mesh: ROADMAP Queue 1 #5c).
 """
 
 from __future__ import annotations

@@ -225,6 +225,20 @@ def ssm_cache_init(cfg: SSMConfig, batch: int, dtype=torch.float32, device="cuda
     }
 
 
+def ssd_step(x, dt, a, Bmat, Cmat, state):
+    """One step of the recurrence: x [B,H,P], dt / a [B,1,H], Bmat / Cmat
+    [B,G,N] and the f32 state [B,H,P,N] -> (y [B,H,P] f32, before the skip
+    term, and the new state).  A block of heads (with their groups' B / C)
+    gives its block."""
+    rep = x.shape[1] // Bmat.shape[1]
+    Brep = Bmat.repeat_interleave(rep, dim=1)  # [B,H,N]
+    Crep = Cmat.repeat_interleave(rep, dim=1)
+    f32 = torch.float32
+    xdt = x.to(f32) * dt[:, 0, :, None]  # [B,H,P]
+    state = state * a[:, 0, :, None, None] + torch.einsum("bhn,bhp->bhpn", Brep.to(f32), xdt)
+    return torch.einsum("bhn,bhpn->bhp", Crep.to(f32), state), state
+
+
 def ssm_decode_step(cfg: SSMConfig, params, cache, x_token):
     """One-token decode: O(1) in context length. x_token [B, 1, D].
 
@@ -238,15 +252,8 @@ def ssm_decode_step(cfg: SSMConfig, params, cache, x_token):
     Bmat, Cmat = _bc(cfg, xbc[:, 0])  # [B,G,N]
     dt, a = _decays(cfg, dt_raw, params["dt_bias"], params["a_log"])  # [B,1,H]
 
-    rep = cfg.n_heads // cfg.n_groups
-    Brep = Bmat.repeat_interleave(rep, dim=1)  # [B,H,N]
-    Crep = Cmat.repeat_interleave(rep, dim=1)
+    y, state = ssd_step(x, dt, a, Bmat, Cmat, cache["state"])
     f32 = torch.float32
-    xdt = x.to(f32) * dt[:, 0, :, None]  # [B,H,P]
-    state = cache["state"] * a[:, 0, :, None, None] + torch.einsum(
-        "bhn,bhp->bhpn", Brep.to(f32), xdt
-    )
-    y = torch.einsum("bhn,bhpn->bhp", Crep.to(f32), state)
     y = y + params["d_skip"].to(f32)[None, :, None] * x.to(f32)
     y = y.reshape(B_, 1, cfg.d_inner).to(x_token.dtype)
     y = rms_norm(y * F.silu(z), params["norm_w"])

@@ -107,69 +107,98 @@ def _capacity(cfg: MoEConfig, chunk: int) -> int:
     return max(1, math.ceil(chunk * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
 
 
-def _route(cfg: MoEConfig, router_logits: torch.Tensor):
-    """Top-k routing. logits [B,C,E] -> (gates [B,C,E], aux_loss).
+def _top_k(cfg: MoEConfig, router_logits: torch.Tensor):
+    """Router probabilities [B,C,E] and the top-k experts [B,C,k].
 
     The top k of a stable descending sort: equal probabilities keep the
     lower expert first, as ``jax.lax.top_k`` does.
     """
     probs = torch.softmax(router_logits.to(torch.float32), dim=-1)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_vals, top_idx = vals[..., : cfg.top_k], idx[..., : cfg.top_k]  # [B,C,k]
+    idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    return probs, idx[..., : cfg.top_k]
+
+
+def _gates(cfg: MoEConfig, probs: torch.Tensor, top_idx: torch.Tensor):
+    """The one-hot of the top k [B,C,k,E] and the gates [B,C,E]: the top k's
+    probabilities renormalised, zeros elsewhere."""
+    top_vals = torch.gather(probs, -1, top_idx)
     top_vals = top_vals / (torch.sum(top_vals, dim=-1, keepdim=True) + 1e-9)
     # JAX's einsum of the values with a one-hot over experts: each gate is one
     # value plus exact zeros, so a scatter gives the same bits
     gate_full = torch.zeros_like(probs).scatter(-1, top_idx, top_vals)
-    # Load-balance loss (Switch-style): mean prob * mean assignment per expert.
     onehot = F.one_hot(top_idx, cfg.n_experts).to(probs.dtype)  # [B,C,k,E]
+    return onehot, gate_full
+
+
+def _route(cfg: MoEConfig, router_logits: torch.Tensor):
+    """Top-k routing. logits [B,C,E] -> (gates [B,C,E], aux_loss)."""
+    probs, top_idx = _top_k(cfg, router_logits)
+    onehot, gate_full = _gates(cfg, probs, top_idx)
+    # Load-balance loss (Switch-style): mean prob * mean assignment per expert.
     me = torch.mean(probs, dim=(0, 1))
     ce = torch.mean(torch.sum(onehot, dim=2), dim=(0, 1))
     aux = cfg.n_experts * torch.sum(me * ce)
     return gate_full, aux
 
 
-def _moe_chunk(cfg: MoEConfig, params, x_chunk: torch.Tensor):
-    """x_chunk [B, C, D] -> (out [B, C, D], aux)."""
-    _, C, _ = x_chunk.shape
-    cap = _capacity(cfg, C)
-    dt = x_chunk.dtype
-    logits = torch.einsum(
-        "bcd,de->bce", x_chunk.to(torch.float32), params["router"].to(torch.float32)
-    )
-    gates, aux = _route(cfg, logits)  # [B,C,E]
-
-    # Position of each token within its expert's capacity buffer.
+def _dispatch(cfg: MoEConfig, gates: torch.Tensor, dt: torch.dtype):
+    """The dispatch and combine tensors [B,C,E,cap] of a chunk's gates: each
+    token's slot in its expert's capacity buffer, a cumsum over the chunk
+    (dim 1) of every batch row on its own; assignments past the capacity
+    are dropped."""
+    cap = _capacity(cfg, gates.shape[1])
     assign = (gates > 0).to(torch.float32)  # [B,C,E]
     pos = torch.cumsum(assign, dim=1) * assign - 1.0  # -1 = unassigned
     keep = (pos >= 0) & (pos < cap)
     pos = torch.clamp(pos, 0, cap - 1).to(torch.int64)
     # dispatch[b,c,e,cap]: one-hot over capacity slot
     disp = F.one_hot(pos, cap).to(dt) * keep[..., None].to(dt)
-    combine = disp * gates[..., None].to(dt)
+    return disp, disp * gates[..., None].to(dt)
 
-    expert_in = torch.einsum("bcek,bcd->ebkd", disp, x_chunk)  # [E,B,cap,D]
+
+def _experts(params, expert_in: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU on their buffers: expert_in [E,B,cap,D] ->
+    expert_out [E,B,cap,D] (a block of experts, of D or of F gives its block)."""
+    dt = expert_in.dtype
     h = F.silu(torch.einsum("ebkd,edf->ebkf", expert_in, params["w_gate"].to(dt))) * torch.einsum(
         "ebkd,edf->ebkf", expert_in, params["w_up"].to(dt)
     )
-    expert_out = torch.einsum("ebkf,efd->ebkd", h, params["w_down"].to(dt))
-    out = torch.einsum("bcek,ebkd->bcd", combine, expert_out)
+    return torch.einsum("ebkf,efd->ebkd", h, params["w_down"].to(dt))
+
+
+def _moe_chunk(cfg: MoEConfig, params, x_chunk: torch.Tensor):
+    """x_chunk [B, C, D] -> (out [B, C, D], aux)."""
+    logits = torch.einsum(
+        "bcd,de->bce", x_chunk.to(torch.float32), params["router"].to(torch.float32)
+    )
+    gates, aux = _route(cfg, logits)  # [B,C,E]
+    disp, combine = _dispatch(cfg, gates, x_chunk.dtype)
+    expert_in = torch.einsum("bcek,bcd->ebkd", disp, x_chunk)  # [E,B,cap,D]
+    out = torch.einsum("bcek,ebkd->bcd", combine, _experts(params, expert_in))
     return out, aux
+
+
+def _chunks(cfg: MoEConfig, x: torch.Tensor) -> list[torch.Tensor]:
+    """The sequence chunks of x [B, S, D]; a ragged last chunk is zero-padded
+    (its padding routes but is discarded)."""
+    S = x.shape[1]
+    chunk = min(cfg.seq_chunk, S)
+    pad = -S % chunk
+    x_p = F.pad(x, (0, 0, 0, pad)) if pad else x
+    return list(x_p.split(chunk, dim=1))
 
 
 def moe_apply(cfg: MoEConfig, params, x: torch.Tensor):
     """x [B, S, D] -> (out [B, S, D], aux_loss scalar)."""
-    B, S, D = x.shape
-    chunk = min(cfg.seq_chunk, S)
-    pad = -S % chunk  # a ragged last chunk is zero-padded; its tokens route but are discarded
-    x_p = F.pad(x, (0, 0, 0, pad)) if pad else x
-    n_chunks = x_p.shape[1] // chunk
+    S = x.shape[1]
+    chunks = _chunks(cfg, x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     outs = []
-    for i in range(n_chunks):
-        out, aux = _moe_chunk(cfg, params, x_p[:, i * chunk : (i + 1) * chunk])
+    for xc in chunks:
+        out, aux = _moe_chunk(cfg, params, xc)
         aux_total = aux_total + aux
         outs.append(out)
     out = torch.cat(outs, dim=1)[:, :S]
     if cfg.n_shared:
         out = out + mlp_apply(_shared_cfg(cfg), params["shared"], x)
-    return out, cfg.router_aux_weight * aux_total / max(1, n_chunks)
+    return out, cfg.router_aux_weight * aux_total / max(1, len(chunks))

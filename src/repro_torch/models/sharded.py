@@ -1,33 +1,40 @@
-"""Sharded execution of the dense decoder LM over a named mesh.
+"""Sharded execution of the decoder LM over a named mesh.
 
-What XLA's SPMD partitioner makes of JAX's specs for ``models/transformer.py``'s
-dense blocks (``partition_specs`` of the template, ``input_pspecs``,
-``cache_pspecs``), run shard by shard from one process through
+What XLA's SPMD partitioner makes of JAX's specs for ``models/transformer.py``
+(``partition_specs`` of the template, ``input_pspecs``, ``cache_pspecs``),
+run shard by shard from one process through
 :mod:`repro_torch.distributed.spmd`:
 
 * every parameter leaf is all-gathered over the axes other than ``model``
   before use (FSDP), a repeat group at a time inside the group's body, so
   ``remat="block"`` gathers again in the backward pass; autograd
-  reduce-scatters the gradients back onto the shards;
+  reduce-scatters the gradients back onto the shards.  The experts of the
+  ``"fsdp"`` MoE layout stay split over ``data`` (``models/sharded_moe.py``);
 * column-parallel ``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up`` (and the
   biases), local heads, row-parallel ``wo`` / ``w_down`` followed by an
   all-reduce over ``model``.  Where the kv heads do not divide over
   ``model`` (JAX's cache specs replicate there), Q / K / V are all-gathered
   and every model shard attends all heads;
+* MoE blocks by their expert layout (``models/sharded_moe.py``) and SSM
+  mixers with their heads over ``model`` (``models/sharded_ssm.py``);
 * a vocab-parallel ``embed`` (a masked lookup and an all-reduce, exact) and
   head: the chunked CE combines the max and the log-sum-exp across the
   ``model`` shards in f32, in ``_chunked_ce``'s 512-token chunks;
-* the batch over ``data`` (and ``pod``) by ``input_pspecs``; the loss adds
-  each batch shard's token losses once and divides by the global count.
+* every batch input by ``input_pspecs`` (the batch over ``data`` and
+  ``pod``; ``positions3`` on its dim 1); the VLM's patch embeddings are
+  prepended per batch shard and the loss runs over the text tail; the loss
+  adds each batch block's token losses once and divides by the global
+  count, and takes the MoE aux (global means) once.
 
 A dimension that does not divide over its axis was left replicated by
-``partition_spec``; the same code then runs it whole on every shard.  Only
-the dense family is ported; the others raise :class:`NotImplementedError`.
+``partition_spec``; the same code then runs it whole on every shard.
+Whisper (``WhisperConfig``) raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -49,24 +56,25 @@ from repro_torch.models.transformer import (
     ModelConfig,
     _attend,
     _ce_chunk,
+    _default_pos3,
     _head_logits,
     _qkv,
+    cache_specs,
     layer_pattern,
     n_groups,
 )
 
-__all__ = ["check_dense", "lm_loss", "prefill", "decode_step"]
+__all__ = ["check_sharded", "lm_loss", "prefill", "decode_step"]
 
 UNPORTED = (
     "{what} over a mesh of {n} shards is not ported for {name} (family {family}): "
-    "only the dense family shards yet (ROADMAP Queue 1 #5c)"
+    "Whisper and shard_cache_seq shard next (ROADMAP Queue 1 #5c)"
 )
 
 
-def check_dense(cfg, what: str, n_shards: int) -> None:
-    """Refuse a config whose blocks have no sharded execution yet."""
-    dense = isinstance(cfg, ModelConfig) and cfg.family == "dense" and cfg.moe is None
-    if not (dense and cfg.ssm is None and cfg.attn_period == 0 and not cfg.mrope):
+def check_sharded(cfg, what: str, n_shards: int) -> None:
+    """Refuse a config whose blocks have no sharded execution yet (Whisper)."""
+    if not isinstance(cfg, ModelConfig):
         raise NotImplementedError(
             UNPORTED.format(what=what, n=n_shards, name=cfg.name, family=getattr(cfg, "family", "?"))
         )
@@ -87,6 +95,19 @@ def _tp_layout(leaf):
     if isinstance(leaf, QTensor):
         return QTensor(_tp_layout(leaf.q), _tp_layout(leaf.scale), leaf.bits, leaf.shape)
     return reshard(leaf, P(*(a if a == "model" else None for a in leaf.spec)))
+
+
+# the routed experts' leaves, whose ``"fsdp"`` layout keeps the experts over data
+_EXPERTS = re.compile(r"pos\d+/moe/(w_gate|w_up|w_down)")
+
+
+def _group_layout(path: str, leaf):
+    """A repeat group's leaf as its blocks use it: FSDP-gathered, except
+    that experts split over ``data`` stay there (the tokens travel)."""
+    if _EXPERTS.fullmatch(path) and not isinstance(leaf, QTensor) and leaf.spec[0] is not None:
+        keep = leaf.spec[0]
+        return reshard(leaf, P(keep, *(a if a == "model" else None for a in leaf.spec[1:])))
+    return _tp_layout(leaf)
 
 
 def _layers(tree, n: int) -> list:
@@ -120,21 +141,28 @@ def _partial(x: torch.Tensor, w) -> torch.Tensor:
 
 
 class _Run:
-    """One sharded pass: the config, the mesh and its ``model`` axis."""
+    """One sharded pass: the config, the mesh, its ``model`` axis and the
+    batch's layout."""
 
-    def __init__(self, cfg: ModelConfig, params):
+    def __init__(self, cfg: ModelConfig, params, batch_spec):
         self.cfg = cfg
         self.mesh = _mesh_of(params)
-        check_dense(cfg, "the LM", self.mesh.size)
+        check_sharded(cfg, "the LM", self.mesh.size)
         self.n = self.mesh.size
         self.tp = self.mesh.shape.get("model", 1)
         self.m = [self.mesh.coord(i).get("model", 0) for i in range(self.n)]
+        self.batch_spec = batch_spec
+        self.batch_axes = axis_names_of(batch_spec)
+        # one shard per batch block: what counts each token once
+        self.reps = _representatives(self.mesh, batch_spec)
         has_model = "model" in self.mesh.axis_names
+        # the kv heads' (and the SSM caches') axis, as cache_pspecs places them
         self.kv_axis = "model" if has_model and cfg.n_kv_heads % self.tp == 0 else None
-        self.heads_local = self.tp > 1 and self.kv_axis is not None
+        pattern = layer_pattern(cfg)
+        attn = [params["blocks"][f"pos{i}"]["attn"] for i, k in enumerate(pattern) if k.mixer == "attn"]
+        self.heads_local = self.tp > 1 and self.kv_axis is not None and bool(attn)
         if self.heads_local:
-            attn = params["blocks"]["pos0"]["attn"]
-            if any(_model_dim(attn[w]) != 2 for w in ("wq", "wk", "wv")):
+            if any(_model_dim(attn[0][w]) != 2 for w in ("wq", "wk", "wv")):
                 raise ValueError("the kv heads divide over 'model' but wq / wk / wv are not split")
             self.lcfg = dataclasses.replace(
                 cfg, n_heads=cfg.n_heads // self.tp, n_kv_heads=cfg.n_kv_heads // self.tp
@@ -147,6 +175,12 @@ class _Run:
 
     def gather(self, xs: list) -> list:
         return all_gather(xs, self.mesh, "model", -1)
+
+    def whole(self, leaf) -> list:
+        """Every shard's copy of a leaf whole (gathered over ``model`` if split)."""
+        if self.tp > 1 and _model_dim(leaf) is not None:
+            leaf = reshard(leaf, P(*(None,) * leaf.ndim))
+        return [local(leaf, i) for i in range(self.n)]
 
     def row(self, xs: list, split: bool, w) -> list:
         """``x @ w`` where ``xs`` are split over ``model`` on their last dim
@@ -162,66 +196,95 @@ class _Run:
             xs = self.gather(xs)
         return [qdot(x, local(w, i)) for i, x in enumerate(xs)]
 
+    def mlp(self, p, hs: list, mcfg: MLPConfig) -> list:
+        """A dense MLP: column-parallel hidden layer, row-parallel ``w_down``."""
+        hid = [mlp_hidden(mcfg, local_tree(p, i), h) for i, h in enumerate(hs)]
+        return self.row(hid, _model_dim(p["w_up"]) == 1, p["w_down"])
+
     # -- blocks ----------------------------------------------------------
-    def block(self, kind, p, xs, positions, mode, caches):
-        """One pre-norm dense block on every shard; ``p`` is the layer's
-        leaves in the TP layout.  Returns (xs, per-shard new caches)."""
-        cfg, lp = self.cfg, [local_tree(p, i) for i in range(self.n)]
-        hs = [rms_norm(x, lp[i]["norm1"]) for i, x in enumerate(xs)]
-        qkv = [_qkv(cfg, lp[i]["attn"], h) for i, h in enumerate(hs)]
+    def attn(self, kind, p, hs, positions, pos3, mode, caches):
+        """Attention over local (or gathered) heads: (out, per-shard new caches)."""
+        cfg = self.cfg
+        qkv = [_qkv(cfg, local_tree(p, i), h) for i, h in enumerate(hs)]
         if not self.heads_local:  # all heads on every shard
             cols = [
-                self.gather(list(c)) if _model_dim(p["attn"][w]) == 1 else list(c)
+                self.gather(list(c)) if _model_dim(p[w]) == 1 else list(c)
                 for c, w in zip(zip(*qkv), ("wq", "wk", "wv"))
             ]
             qkv = list(zip(*cols))
         outs, new = zip(*(
-            _attend(self.lcfg, kind, *qkv[i], positions[i], None, mode,
+            _attend(self.lcfg, kind, *qkv[i], positions[i], None if pos3 is None else pos3[i], mode,
                     None if caches is None else caches[i])
             for i in range(self.n)
         ))
-        mix = self.row(list(outs), self.heads_local, p["attn"]["wo"])
+        return self.row(list(outs), self.heads_local, p["wo"]), list(new)
+
+    def block(self, kind, p, xs, positions, pos3, mode, caches):
+        """One pre-norm block on every shard; ``p`` is the layer's leaves in
+        the group's layout.  Returns (xs, per-shard new caches, per-shard
+        aux or None)."""
+        # imported here: both modules import this one
+        from repro_torch.models.sharded_moe import moe
+        from repro_torch.models.sharded_ssm import ssm_mixer
+
+        cfg, lp = self.cfg, [local_tree(p, i) for i in range(self.n)]
+        hs = [rms_norm(x, lp[i]["norm1"]) for i, x in enumerate(xs)]
+        if kind.mixer == "attn":
+            mix, new = self.attn(kind, p["attn"], hs, positions, pos3, mode, caches)
+        else:
+            mix, new = ssm_mixer(self, p["ssm"], hs, mode, caches)
         if cfg.sandwich_norm:
             mix = [rms_norm(t, lp[i]["post_norm1"]) for i, t in enumerate(mix)]
         xs = [x + t for x, t in zip(xs, mix)]
-        if cfg.d_ff > 0:
-            mcfg = MLPConfig(cfg.d_model, cfg.d_ff, cfg.act)
-            hid = [mlp_hidden(mcfg, lp[i]["mlp"], rms_norm(x, lp[i]["norm2"])) for i, x in enumerate(xs)]
-            ff = self.row(hid, _model_dim(p["mlp"]["w_up"]) == 1, p["mlp"]["w_down"])
+        aux = None
+        if kind.moe or cfg.d_ff > 0:
+            hs = [rms_norm(x, lp[i]["norm2"]) for i, x in enumerate(xs)]
+            if kind.moe:
+                ff, aux = moe(self, p["moe"], hs)
+            else:
+                ff = self.mlp(p["mlp"], hs, MLPConfig(cfg.d_model, cfg.d_ff, cfg.act))
             if cfg.sandwich_norm:
                 ff = [rms_norm(t, lp[i]["post_norm2"]) for i, t in enumerate(ff)]
             xs = [x + t for x, t in zip(xs, ff)]
-        return xs, list(new)
+        return xs, new, aux
 
-    def scan(self, params, xs, positions, mode, caches):
+    def scan(self, params, xs, positions, pos3, mode, caches):
         """The repeat groups in order; the group's leaves are gathered inside
         its body.  ``caches``: per shard, the local stacked decode caches
-        (written in place).  Returns (xs, {pos: per group, per shard new cache})."""
-        cfg, pattern, ng = self.cfg, layer_pattern(self.cfg), n_groups(self.cfg)
+        (written in place).  Returns (xs, {pos: per group, per shard new
+        cache}, per-shard aux: the sum of the MoE blocks' aux)."""
+        cfg, pattern, ng, n = self.cfg, layer_pattern(self.cfg), n_groups(self.cfg), self.n
         groups = _layers(params["blocks"], ng)
         per_shard = None if caches is None else [unstack(c, ng) for c in caches]
         new = {f"pos{i}": [] for i in range(len(pattern))}
+        aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
         for g in range(ng):
 
             def body(*xs, bp=groups[g], g=g):
-                bp = tree_map(lambda _, w: _tp_layout(w), bp)
+                bp = tree_map(_group_layout, bp)
                 xs = list(xs)
+                aux_g = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
                 for i, kind in enumerate(pattern):
                     ci = None if per_shard is None else [c[g][f"pos{i}"] for c in per_shard]
-                    xs, nc = self.block(kind, bp[f"pos{i}"], xs, positions, mode, ci)
+                    xs, nc, a = self.block(kind, bp[f"pos{i}"], xs, positions, pos3, mode, ci)
+                    if a is not None:
+                        aux_g = [u + v for u, v in zip(aux_g, a)]
                     new[f"pos{i}"].append(nc)
-                return tuple(xs)
+                return (*xs, *aux_g)
 
             if mode == "train" and cfg.remat == "block" and torch.is_grad_enabled():
-                xs = list(checkpoint(body, *xs, use_reentrant=False))
+                out = checkpoint(body, *xs, use_reentrant=False)
             else:
-                xs = list(body(*xs))
-        return xs, new
+                out = body(*xs)
+            xs = list(out[:n])
+            aux = [u + v for u, v in zip(aux, out[n:])]
+        return xs, new, aux
 
     # -- embedding and head ----------------------------------------------
-    def embed(self, E: Sharded, tokens: list) -> list:
+    def embed(self, E: Sharded, tokens: list, vision: list | None = None) -> list:
         """Vocab-parallel lookup: each shard takes the rows it holds, zeros
-        elsewhere, and the all-reduce adds exact zeros -- the one-device bits."""
+        elsewhere, and the all-reduce adds exact zeros -- the one-device bits.
+        The VLM's patch embeddings (``vision``, per batch shard) go first."""
         if _model_dim(E) == 0:
             vl, rows = E.shards[0].shape[0], []
             for i, t in enumerate(tokens):
@@ -232,11 +295,22 @@ class _Run:
             rows = self.psum(rows)
         else:
             rows = [E.shards[i][t] for i, t in enumerate(tokens)]
-        h = [r.to(self.cfg.compute_dtype) for r in rows]
+        dt = self.cfg.compute_dtype
+        h = [r.to(dt) for r in rows]
         if self.cfg.embed_scale:
-            dt = self.cfg.compute_dtype
             h = [x * torch.tensor(self.cfg.d_model**0.5, dtype=dt, device=x.device) for x in h]
+        if vision is not None:
+            h = [torch.cat([v.to(dt), x], dim=1) for v, x in zip(vision, h)]
         return h
+
+    def pos3(self, placed: Sharded | None, xs: list) -> list | None:
+        """M-RoPE positions per shard: the placed ``positions3`` blocks, else
+        every component the arange (``transformer._default_pos3``)."""
+        if not self.cfg.mrope:
+            return None
+        if placed is not None:
+            return list(placed.shards)
+        return [_default_pos3(self.cfg, x, None) for x in xs]
 
     def heads(self, top) -> tuple[list, bool]:
         """Each shard's head block [D, V_local] and whether it is vocab-split."""
@@ -246,14 +320,15 @@ class _Run:
         H = top["lm_head"]
         return list(H.shards), _model_dim(H) == 1
 
-    def logits(self, top, xs, batch_spec) -> torch.Tensor:
+    def logits(self, top, xs) -> torch.Tensor:
         """The last position's f32 logits [B, 1, V], whole on the first device."""
         heads, split = self.heads(top)
         fn = top["final_norm"]
         out = [
             _head_logits(self.cfg, rms_norm(x, fn.shards[i]), heads[i]) for i, x in enumerate(xs)
         ]
-        return Sharded.from_local(out, self.mesh, P(batch_spec, None, "model" if split else None)).full()
+        spec = P(self.batch_spec, None, "model" if split else None)
+        return Sharded.from_local(out, self.mesh, spec).full()
 
     def ce_totals(self, top, hs: list, targets: list) -> list:
         """Each shard's summed token log-likelihoods, negated (``_chunked_ce``'s
@@ -293,14 +368,24 @@ def _mesh_of(params):
     return (e.q if isinstance(e, QTensor) else e).mesh
 
 
-def _batch_leaf(mesh, x) -> Sharded:
-    """A batch input as placed by ``input_pspecs`` (a global tensor is placed here)."""
-    if isinstance(x, Sharded):
-        return x
+def _placed(mesh, batch: dict) -> dict:
+    """The batch inputs as ``input_pspecs`` places them (the batch on dim 0,
+    ``positions3``'s on dim 1); a global tensor is placed here, ``None``
+    dropped."""
     from repro_torch.models.registry import _batch_axes
 
-    spec = P(_batch_axes(mesh, x.shape[0]), *(None,) * (x.dim() - 1))
-    return shard(x, NamedSharding(mesh, spec))
+    out = {}
+    for k, x in batch.items():
+        if x is None or isinstance(x, Sharded):
+            if x is not None:
+                out[k] = x
+            continue
+        if k == "positions3":
+            spec = P(None, _batch_axes(mesh, x.shape[1]), None)
+        else:
+            spec = P(_batch_axes(mesh, x.shape[0]), *(None,) * (x.dim() - 1))
+        out[k] = shard(x, NamedSharding(mesh, spec))
+    return out
 
 
 def _representatives(mesh, batch_spec) -> list[int]:
@@ -312,62 +397,63 @@ def _representatives(mesh, batch_spec) -> list[int]:
     ]
 
 
+def _start(cfg, params, batch: dict):
+    """The run, the placed batch, the head leaves and the embedded inputs."""
+    b = _placed(_mesh_of(params), batch)
+    run = _Run(cfg, params, b["tokens"].spec[0])
+    top = run.top(params)
+    vis = b.get("vision_embeds")
+    xs = run.embed(top["embed"], b["tokens"].shards, None if vis is None else vis.shards)
+    return run, b, top, xs
+
+
 def lm_loss(cfg: ModelConfig, params, batch: dict):
     """``transformer.lm_loss`` over the mesh of ``params``' sharded leaves."""
-    run = _Run(cfg, params)
-    mesh = run.mesh
-    tokens, targets = _batch_leaf(mesh, batch["tokens"]), _batch_leaf(mesh, batch["targets"])
-    top = run.top(params)
-    xs = run.embed(top["embed"], tokens.shards)
+    run, b, top, xs = _start(cfg, params, batch)
+    targets = b["targets"]
     positions = [torch.arange(x.shape[1], device=x.device) for x in xs]
-    xs, _ = run.scan(params, xs, positions, "train", None)
-    hs = [rms_norm(x, top["final_norm"].shards[i]) for i, x in enumerate(xs)]
+    xs, _, aux = run.scan(params, xs, positions, run.pos3(b.get("positions3"), xs), "train", None)
+    T = targets.shape[1]
+    hs = [rms_norm(x, top["final_norm"].shards[i])[:, -T:] for i, x in enumerate(xs)]
     totals = run.ce_totals(top, hs, targets.shards)
-    dev = mesh.flat[0]
+    dev = run.mesh.flat[0]
     total = torch.zeros((), dtype=torch.float32, device=dev)
-    for i in _representatives(mesh, targets.spec[0]):
+    for i in run.reps:
         total = total + totals[i].to(dev)
-    B, S = targets.shape
-    ce = total / (B * S)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    ce = total / (targets.shape[0] * T)
+    # every shard holds the aux of the global batch: take it once
+    aux = aux[0].to(dev)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def prefill(cfg: ModelConfig, params, tokens):
+def prefill(cfg: ModelConfig, params, tokens, *, pos3=None, vision_embeds=None):
     """``transformer.prefill`` over the mesh: (logits [B, 1, V] whole on the
     mesh's first device, caches sharded by ``cache_pspecs``)."""
-    run = _Run(cfg, params)
-    mesh = run.mesh
-    tokens = _batch_leaf(mesh, tokens)
-    top = run.top(params)
-    xs = run.embed(top["embed"], tokens.shards)
+    run, b, top, xs = _start(
+        cfg, params, {"tokens": tokens, "positions3": pos3, "vision_embeds": vision_embeds}
+    )
     positions = [torch.arange(x.shape[1], device=x.device) for x in xs]
-    xs, new = run.scan(params, xs, positions, "prefill", None)
-    b = tokens.spec[0]
-    kv = P(None, b, None, run.kv_axis, None)
-    specs = {"k": kv, "v": kv, "len": P(None, b)}
+    xs, new, _ = run.scan(params, xs, positions, run.pos3(b.get("positions3"), xs), "prefill", None)
+    specs = cache_specs(cfg, run.batch_spec, run.kv_axis)
     caches = {
         pos: {
             name: Sharded.from_local(
-                [torch.stack([grp[i][name] for grp in per_group]) for i in range(run.n)], mesh, spec
+                [torch.stack([grp[i][name] for grp in per_group]) for i in range(run.n)], run.mesh, spec
             )
-            for name, spec in specs.items()
+            for name, spec in specs[pos].items()
         }
         for pos, per_group in new.items()
     }
-    return run.logits(top, [x[:, -1:] for x in xs], b), caches
+    return run.logits(top, [x[:, -1:] for x in xs]), caches
 
 
 def decode_step(cfg: ModelConfig, params, caches, tokens, cur_len):
     """``transformer.decode_step`` over the mesh: each shard appends to its
     blocks of the sharded ``caches`` in place; returns (logits whole on the
     mesh's first device, caches)."""
-    run = _Run(cfg, params)
-    mesh = run.mesh
-    tokens, cur_len = _batch_leaf(mesh, tokens), _batch_leaf(mesh, cur_len)
-    top = run.top(params)
-    xs = run.embed(top["embed"], tokens.shards)
-    positions = [c[:, None] for c in cur_len.shards]
+    run, b, top, xs = _start(cfg, params, {"tokens": tokens, "cur_len": cur_len})
+    positions = [c[:, None] for c in b["cur_len"].shards]
+    pos3 = [p[None].expand(3, *p.shape) for p in positions] if cfg.mrope else None
     local_caches = [local_tree(caches, i) for i in range(run.n)]
-    xs, _ = run.scan(params, xs, positions, "decode", local_caches)
-    return run.logits(top, xs, tokens.spec[0]), caches
+    xs, _, _ = run.scan(params, xs, positions, pos3, "decode", local_caches)
+    return run.logits(top, xs), caches

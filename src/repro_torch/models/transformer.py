@@ -481,7 +481,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *, pos3=None, vision
     if is_sharded(params["embed"]):
         from repro_torch.models import sharded
 
-        return sharded.prefill(cfg, params, tokens)
+        return sharded.prefill(cfg, params, tokens, pos3=pos3, vision_embeds=vision_embeds)
     h = _embed_tokens(cfg, params, tokens, vision_embeds)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)

@@ -1,8 +1,8 @@
 """Production training loop: checkpoint/restart, stragglers, metrics.
 
 Port of ``repro/train/loop.py``.  Drives any registered architecture end
-to end on one device (``cuda`` unless the caller asks for the CPU), or the
-dense family over a named mesh (``launch/mesh.py``):
+to end on one device (``cuda`` unless the caller asks for the CPU), or
+over a named mesh (``launch/mesh.py``):
 
     loop = TrainLoop(arch_name, seq_len, global_batch, None, run_dir, ...)
     loop.run(total_steps)
@@ -22,8 +22,8 @@ Fault tolerance (JAX's model, the same events in ``metrics.jsonl``):
 several shards trains FSDP + TP over it (``launch/steps.py``), inside
 ``activation_rules(mesh)`` as JAX's loop does: the state is made on
 ``device`` and placed by the first step; checkpoints hold whole leaves, so
-a run resumes on another mesh than the one that wrote them.  A family not
-yet sharded raises (ROADMAP Queue 1 #5c).
+a run resumes on another mesh than the one that wrote them.  Every
+decoder family shards; Whisper raises there (ROADMAP Queue 1 #5c).
 """
 
 from __future__ import annotations

@@ -143,12 +143,13 @@ def test_more_than_three_failures_raise(tmp_path):
 
 
 def test_multi_device_mesh_is_refused(tmp_path):
-    """A mesh of several shards trains the dense family sharded; a family
-    not sharded yet is refused at construction, naming its ROADMAP item."""
+    """A mesh of several shards trains the decoder families sharded; Whisper,
+    not sharded yet, is refused at construction, naming its ROADMAP item."""
     with pytest.raises(NotImplementedError, match="Queue 1 #5c"):
-        _loop(tmp_path, arch_name="granite-moe-1b-a400m", mesh=make_mesh(2, devices=["cpu", "cpu"]))
-    _loop(tmp_path, arch_name="granite-moe-1b-a400m", mesh=make_mesh(1, devices=["cpu"]))
+        _loop(tmp_path, arch_name="whisper-medium", mesh=make_mesh(2, devices=["cpu", "cpu"]))
+    _loop(tmp_path, arch_name="whisper-medium", mesh=make_mesh(1, devices=["cpu"]))
     _loop(tmp_path, mesh=make_mesh(2, devices=["cpu", "cpu"]))  # dense: data-parallel over two
+    _loop(tmp_path, arch_name="granite-moe-1b-a400m", mesh=make_mesh(2, devices=["cpu", "cpu"]))
 
 
 def test_default_device_is_the_card(tmp_path):
