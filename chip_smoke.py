@@ -198,11 +198,32 @@ result line):
    embeddings and M-RoPE positions against one device, a 2 x 4096 int8
    prefill (256 patches a sequence); again on distinct cards where there
    are two or four;
-18. a ``kernels`` JSON line (launches on phases 3-7 and 9-17, times,
+18. whisper-medium and the sequence-sharded KV decode over the same (2, 2)
+   mesh of card 0 (``models/sharded_whisper.py``; ``shard_cache_seq``'s
+   two-pass softmax in ``models/sharded.py``): (a) train steps at 2 clips
+   x 2048 frames + 448 tokens at f32 against one device (phase 16a's
+   limits, parameters where AdamW's update is conditioned), then at bf16
+   timed with the mesh step's device split; (b) int8 ``serve_optimized``,
+   a 2 x 4096-frame prefill and 16 greedy decode steps at f32 and at bf16
+   compute, one device first, then the mesh fed its tokens: every
+   ``flash_attention`` launch (local heads) and ``quant_matmul`` launch
+   held to plain as it is made, the counts equal to the launches checked,
+   each shard's block of every cross and self cache against its slice of
+   the one-device cache, the logits within 1e-4 of max at f32 (at bf16
+   within 17c's limit from one device's own bf16-vs-f32 distance) with the
+   greedy tokens equal where decided; (c) the same at f32 for one
+   clip of 32768 frames with the cross cache's sequence over ``data``
+   (``whisper_prefill(..., shard_seq=True)``, ``shard_cache_seq``); (d)
+   jamba-v0.1-52b cut to one 8-layer group at long_500k's layout (batch 1,
+   a 524288-deep cache filled from a seeded generator at lengths 262144
+   and 393216, then a real 4096-token prefill grown into a 6144-deep
+   buffer) decoded with ``shard_cache_seq`` at f32 compute against one
+   device; ms a step on both;
+19. a ``kernels`` JSON line (launches on phases 3-7 and 9-18, times,
    bounds); phases 3-5 and 9-12 also print the SNN kernels' launches by
    size; phase 2 also times non-causal ``flash_attention`` at
    [1,16,4096,64] and [1,16,32768,64] beside SDPA and the bound;
-19. the result line.
+20. the result line.
 """
 
 from __future__ import annotations
@@ -4083,7 +4104,7 @@ def routing(fn) -> dict:
     return rec
 
 
-def mesh_train_f32(arch, cfg, mesh, batches, what: str, hold_all: bool = False) -> str:
+def mesh_train_f32(arch, cfg, mesh, batches, what: str, hold_all: bool = False, shape=None) -> str:
     """``cfg`` (f32 compute) one device then ``mesh``, the loop's AdamW over
     ``batches``: gradients at the initial parameters within 1e-4 of each
     leaf's max |g|, each step's loss and grad norm 1e-5 relative, the
@@ -4091,13 +4112,15 @@ def mesh_train_f32(arch, cfg, mesh, batches, what: str, hold_all: bool = False) 
     conditioned (every element with ``hold_all``).  An MoE's mesh replays
     the one-device routes (its forward and remat's recompute alike), and
     each token its own top k would route apart must be within the runs'
-    rounding (flip ratio <= 1).  Returns the summary."""
-    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rounding (flip ratio <= 1).  ``shape``: the batches' (default seq
+    TRAIN_SEQ x batch TRAIN_BATCH).  Returns the summary."""
+    shape = shape or ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    moe = getattr(cfg, "moe", None)  # Whisper's config has none
     init = lambda: arch.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg)
     loss_fn = arch.loss_fn(cfg)
     opt = loop_optimizer()
     params = init()
-    stats = routing(lambda: loss_fn(params, batches[0])) if cfg.moe else None
+    stats = routing(lambda: loss_fn(params, batches[0])) if moe else None
     with record_routing(keep=True) as kept:
         leaves = [t.detach().requires_grad_(True) for _, t in tree_leaves(params)]
         loss, _ = loss_fn(tree_unflatten(params, leaves), batches[0])
@@ -4123,11 +4146,11 @@ def mesh_train_f32(arch, cfg, mesh, batches, what: str, hold_all: bool = False) 
         state = init_opt_state(opt, params)
         got = mesh_steps(build_train_step(arch, shape, mesh, cfg, optimizer=opt).jitted, params, state, batches)
     check(route["next"] == len(kept["routes"]), f"{what}: replayed {route['next']} of {len(kept['routes'])} routes")
-    p_err, p_all = 0.0, 0.0
-    for (_, t), w, h in zip(tree_leaves(params), p_one, held):
+    (p_err, p_worst), p_all = (0.0, ""), 0.0
+    for (path, t), w, h in zip(tree_leaves(params), p_one, held):
         diff = (t.full() - w).abs()
         scale = float(w.abs().max().clamp_min(1e-30))
-        p_err = max(p_err, float(diff[h].max()) / scale if h.any() else 0.0)
+        p_err, p_worst = max((p_err, p_worst), (float(diff[h].max()) / scale if h.any() else 0.0, path))
         p_all = max(p_all, float(diff.max()) / scale)
     share = sum(int(h.sum()) for h in held) / sum(h.numel() for h in held)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(got[0], one[0]))
@@ -4135,7 +4158,7 @@ def mesh_train_f32(arch, cfg, mesh, batches, what: str, hold_all: bool = False) 
     check(g_err <= MESH_LIMITS["grad"], f"{what}: gradients on the mesh {g_err:.3e} of max |g|")
     check(loss_err <= MESH_LIMITS["loss"], f"{what}: losses {got[0]} vs one device {one[0]}")
     check(gn_err <= MESH_LIMITS["loss"], f"{what}: grad norms {got[1]} vs one device {one[1]}")
-    check(p_err <= MESH_LIMITS["param"], f"{what}: parameters after {len(batches)} steps {p_err:.3e}")
+    check(p_err <= MESH_LIMITS["param"], f"{what}: parameters after {len(batches)} steps {p_err:.3e} ({p_worst})")
     check(route["flips"] == 0 or route["flip_ratio"] <= 1,
           f"{what}: a token routed apart by its own top k beyond rounding: {route}")
     out = (
@@ -4143,11 +4166,11 @@ def mesh_train_f32(arch, cfg, mesh, batches, what: str, hold_all: bool = False) 
         f"{MESH_LIMITS['grad']}), "
         f"{len(batches)} steps' losses {[round(x, 6) for x in got[0]]} vs one device "
         f"{[round(x, 6) for x in one[0]]} ({loss_err:.3e} relative), grad norms {gn_err:.3e}, "
-        f"parameters after the steps {p_err:.3e} of max |w| over the {100 * share:.4f} % held "
+        f"parameters after the steps {p_err:.3e} of max |w| ({p_worst}) over the {100 * share:.4f} % held "
         f"({p_all:.3e} over all); "
         f"f32 steps (s) one device {[round(x, 3) for x in one[2]]}, mesh {[round(x, 3) for x in got[2]]}"
     )
-    if cfg.moe:
+    if moe:
         out += (
             f"; routing at the initial parameters: {stats['drops']} of {stats['assigned']} "
             f"token-expert assignments dropped at capacity, smallest top-k margin "
@@ -4160,12 +4183,16 @@ def mesh_train_f32(arch, cfg, mesh, batches, what: str, hold_all: bool = False) 
     return out
 
 
-def mesh_train_bf16(arch, cfg, mesh, batches, what: str, smi: str) -> tuple[list, str]:
+def mesh_train_bf16(arch, cfg, mesh, batches, what: str, smi: str, shape=None,
+                    flops: float | None = None) -> tuple[list, str]:
     """``cfg`` at bf16 compute, one device then ``mesh``, the steps after the
     first timed: ms a step, model-FLOPs share, peak memory, the losses
-    within 5 % of one device's, and the mesh step's device split.  Returns
+    within 5 % of one device's, and the mesh step's device split.
+    ``shape`` / ``flops``: the batches' shape and a step's FLOPs (default:
+    seq TRAIN_SEQ x batch TRAIN_BATCH, ``model_flops_per_token``).  Returns
     one device's losses and the summary."""
-    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tokens = None if shape else TRAIN_SEQ * TRAIN_BATCH
+    shape = shape or ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
     opt = loop_optimizer()
     walls, losses, peaks = {}, {}, {}
     for where in ("one", "mesh"):
@@ -4184,12 +4211,13 @@ def mesh_train_bf16(arch, cfg, mesh, batches, what: str, smi: str) -> tuple[list
         torch.cuda.empty_cache()
     err = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["one"]))
     check(err <= 0.05, f"{what} bf16: losses {losses['mesh']} vs one device {losses['one']}")
-    tokens = TRAIN_SEQ * TRAIN_BATCH
-    flops = model_flops_per_token(arch, cfg, TRAIN_SEQ) * tokens
+    if flops is None:
+        flops = model_flops_per_token(arch, cfg, TRAIN_SEQ) * tokens
+    rate = f"{tokens / walls['mesh']:.1f} tokens/s, " if tokens else ""
     return losses["one"], (
         f"bf16 compute (the config's): {1e3 * walls['mesh']:.3f} ms a step on the mesh vs "
         f"{1e3 * walls['one']:.3f} ms on one device ({walls['mesh'] / walls['one']:.3f}x; mean of "
-        f"steps 2-{len(batches)}), {tokens / walls['mesh']:.1f} tokens/s, model FLOPs {flops:.4e} a "
+        f"steps 2-{len(batches)}), {rate}model FLOPs {flops:.4e} a "
         f"step = {flops / walls['mesh'] / BF16_TC_FLOPS:.4f} of the dense bf16 peak on the mesh "
         f"({flops / walls['one'] / BF16_TC_FLOPS:.4f} on one device); peak memory "
         f"{peaks['mesh'] / 2**30:.3f} GiB on the mesh, {peaks['one'] / 2**30:.3f} GiB on one device; "
@@ -4215,27 +4243,39 @@ def grow_kv(caches, extra: int):
     return tree_map(grow, caches)
 
 
+def block_err(t: Sharded, whole: torch.Tensor) -> float:
+    """Each shard's block of ``t`` against its slice of ``whole`` (the
+    one-device tensor): max error / max."""
+    err = 0.0
+    for i, block in enumerate(t.shards):
+        idx = []
+        for n, entry in zip(t.shape, t.spec):
+            k = n // t.mesh.axis_size(entry)
+            b = t.mesh.block_index(i, entry)
+            idx.append(slice(b * k, (b + 1) * k))
+        err = max(err, leaf_err(block, whole[tuple(idx)]))
+    return err
+
+
 def conv_blocks_err(caches, caches_one) -> tuple[float, int]:
     """Each shard's block of every SSM conv cache against the one-device
     cache's rows and columns of that block: (max error / max, blocks)."""
-    err, n = 0.0, 0
-    for pos, c in caches.items():
-        if "conv" not in c:
-            continue
-        t = c["conv"]
-        for i, block in enumerate(t.shards):
-            idx = [slice(None)] * 4
-            for d, entry in enumerate(t.spec):
-                if entry is not None:
-                    k = t.shape[d] // t.mesh.axis_size(entry)
-                    b = t.mesh.block_index(i, entry)
-                    idx[d] = slice(b * k, (b + 1) * k)
-            err, n = max(err, leaf_err(block, caches_one[pos]["conv"][tuple(idx)])), n + 1
-    return err, n
+    convs = [(c["conv"], caches_one[pos]["conv"]) for pos, c in caches.items() if "conv" in c]
+    err = max((block_err(t, w) for t, w in convs), default=0.0)
+    return err, sum(len(t.shards) for t, _ in convs)
 
 
 def dtype_name(cfg) -> str:
     return str(cfg.compute_dtype).removeprefix("torch.")
+
+
+def timed_s(fn) -> float:
+    """Seconds ``fn`` takes, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def mesh_serve(arch, cfgs: list, mesh, qparams, batch, flash: int, qdots: int, decode: int,
@@ -4271,13 +4311,6 @@ def mesh_serve(arch, cfgs: list, mesh, qparams, batch, flash: int, qdots: int, d
     warm = {"tokens": batch["tokens"][:, :8]}
     cur = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
 
-    def timed(fn) -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
     def greedy(dec, caches, toks, steps: int = T) -> list:
         outs = []
         for t in range(steps):
@@ -4300,8 +4333,8 @@ def mesh_serve(arch, cfgs: list, mesh, qparams, batch, flash: int, qdots: int, d
                 outs = greedy(dec, grown, toks)
             ones.append(dict(logits=logits, caches=caches, grown=grown, outs=outs, pre=r_pre, dec=r_dec))
         pre, dec = steps(None, cfgs[0][0])
-        one_s = timed(lambda: pre(qparams, batch))
-        one_ms = 1e3 * timed(lambda: greedy(dec, grow_kv(ones[0]["caches"], T), toks, n_timed)) / max(n_timed, 1)
+        one_s = timed_s(lambda: pre(qparams, batch))
+        one_ms = 1e3 * timed_s(lambda: greedy(dec, grow_kv(ones[0]["caches"], T), toks, n_timed)) / max(n_timed, 1)
         steps(mesh, cfgs[0][0])[0](qparams, warm)  # places the tree: qparams' leaves are now sharded
         counts = {}
         for (cfg, logit_tol, cache_tol), one in zip(cfgs, ones):
@@ -4361,8 +4394,8 @@ def mesh_serve(arch, cfgs: list, mesh, qparams, batch, flash: int, qdots: int, d
             check(conv_d[0] <= cache_tol, f"{what} decode: conv cache blocks {conv_d[0]:.3e} of max apart")
             timing = ""
             if cfg is cfgs[0][0]:
-                mesh_s = timed(lambda: pre(qparams, batch))
-                mesh_ms = 1e3 * timed(lambda: greedy(dec, grow_kv(caches, T), toks, n_timed)) / max(n_timed, 1)
+                mesh_s = timed_s(lambda: pre(qparams, batch))
+                mesh_ms = 1e3 * timed_s(lambda: greedy(dec, grow_kv(caches, T), toks, n_timed)) / max(n_timed, 1)
                 timing = (f"{B} x {S} prefill {mesh_s:.3f} s warm, unrecorded vs {one_s:.3f} s on one device "
                           f"({mesh_s / one_s:.3f}x)"
                           + (f"; the first {n_timed} decode steps unrecorded {mesh_ms:.3f} ms a step vs "
@@ -4525,6 +4558,323 @@ def phase_mesh_families(smi: str, launches: dict) -> None:
             for k, v in counts.items():
                 launches[k] += v
     print(f"phase 17 took {time.perf_counter() - t0:.3f} s; on {smi}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: Whisper over the mesh, and the sequence-sharded KV decode
+# ---------------------------------------------------------------------------
+
+# 18a: train_4k's shape, batch 256 -> 2 (one clip a data shard) and 4096 ->
+# 2048 frames (448 decoder tokens): a step keeps its f32 attention
+# probabilities for the backward, ~0.5 GB a layer and clip at 2048 frames,
+# ~1 GB (the chunked plain code) at 4096, where 15c's one clip took 47.9 GiB
+# at bf16: two clips would not fit one card, at bf16 or f32
+W18_TRAIN_FRAMES, W18_TRAIN_B, W18_F32_STEPS = 2048, 2, 1
+# 18b: prefill_32k's 4096 frames, batch 32 -> 2 (one clip a data shard), at
+# f32 and bf16 compute; 18c: decode_32k's 32768 encoder frames, batch 128 ->
+# 1, the cross cache's sequence over data (shard_cache_seq) and its heads
+# over model, at f32 compute only: f32 attention at 32768 frames takes 9.1 s
+# a prefill on one device and 18.7 s on the mesh (my run C, PR 24), and a
+# bf16 pass (run C: within its limits) would need an f32 one beside it
+# for its limit.  W18_TIMED decode steps timed after the checked ones
+W18_SERVE_B, W18_SERVE_S, W18_DECODE, W18_TIMED = 2, 4096, 16, 8
+# 18d: long_500k (batch 1, a 524288-deep cache), jamba's one 8-layer group
+# (phase 14's cut); decode steps from two seeded caches, then a real prefill
+# grown into a buffer whose valid entries span both data blocks
+L500_DEPTH, L500_LENS, L500_STEPS = 524_288, (262_144, 393_216), 4
+L500_PREFILL, L500_BUFFER = 4096, 6144
+
+
+def phase18_whisper_train(mesh, smi: str) -> dict:
+    """18a: whisper-medium, all 24 + 24 layers, train steps at 2048 frames x
+    448 tokens x batch 2 on ``mesh``: at f32 compute against one device
+    (phase 16a's limits; parameters where AdamW's update is conditioned),
+    then timed at the config's bf16 with the mesh step's device split."""
+    arch = get_arch(WHISPER_ARCH)
+    cfg = arch.config
+    shape = ShapeSpec("train", W18_TRAIN_FRAMES, W18_TRAIN_B, "train")
+    batches = [arch.input_concrete(torch.Generator(device=DEVICE).manual_seed(180 + i), shape, cfg)
+               for i in range(MESH_STEPS)]
+    T = batches[0]["tokens"].shape[1]
+    reset_counts()
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    what = f"{W18_TRAIN_B} clips x {W18_TRAIN_FRAMES} frames + {T} tokens"
+    print(f"mesh train (18a) {WHISPER_ARCH} full width (24 + 24 layers), {what}, on {mesh}, f32 "
+          f"compute: {mesh_train_f32(arch, f32, mesh, batches[:W18_F32_STEPS], '18a', shape=shape)}; on {smi}")
+    flops = W18_TRAIN_B * whisper_train_flops(cfg, W18_TRAIN_FRAMES, T)
+    print(f"mesh train (18a) {WHISPER_ARCH} {what} (FLOPs executed, counted from the shapes): "
+          f"{mesh_train_bf16(arch, cfg, mesh, batches, '18a', smi, shape=shape, flops=flops)[1]}")
+    counts = read_counts()
+    check(sum(counts.values()) == 0, f"18a: a train step launched a kernel: {counts}")
+    return counts
+
+
+def whisper_mesh_serve(mesh, B: int, S: int, shard_seq: bool, bf16: bool, what: str, smi: str) -> dict:
+    """whisper-medium, int8 ``serve_optimized`` weights (seeded), ``B`` clips
+    of ``S`` frames at f32 compute, then (``bf16``) at the config's bf16.
+    One device first, each config: the prefill and W18_DECODE greedy steps
+    from token 0 (the bf16 pass fed the f32 pass's tokens).  Then the tree
+    placed on ``mesh`` and, each config: ``whisper_prefill`` (``shard_seq``:
+    the cross cache's sequence over ``data``) and the decode steps fed the
+    same tokens, every ``quant_matmul`` launch held to plain at QM_TOL and
+    every ``flash_attention`` launch at FA_TOL as it is made (a 32k launch
+    on sampled query blocks), the kernels' counts equal to the launches
+    checked; each shard's block of every layer's cross K / V, and after the
+    steps of the self cache, against its slice of the one-device cache; the
+    logits within the config's limit of max |one device's| with the greedy
+    token equal wherever decided.  The limits: at f32 17c's (logits 1e-4,
+    caches 1e-3); at bf16 max(MESH17_TWIN_FLOOR, twice one device's own
+    bf16-vs-f32 distance), 17c's rule, since the random 48 layers compound
+    bf16 rounding (my run B, PR 24: the mesh's first decode step 1.710e-02
+    of max from one device's at bf16).  Timed, unrecorded, at the last
+    config: W18_TIMED decode steps on each side, continuing the checked
+    caches (one device's on a copy of its self caches), a mesh decode
+    step's device split and, below 32768 frames, the prefill on each side.
+    Returns the mesh's launches."""
+    from repro_torch.models.whisper import whisper_prefill
+
+    arch = get_arch(WHISPER_ARCH)
+    cfg = arch.config
+    n, L = mesh.size, cfg.n_enc_layers
+    per_prefill, per_step = whisper_qdots(cfg)
+    qparams = quantize_tree(init_bf16(arch, cfg), lm_policy(8))
+    frames = torch.randn(B, S, cfg.d_model, generator=torch.Generator(device=DEVICE).manual_seed(181),
+                         device=DEVICE).to(torch.bfloat16)
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    cfgs = [(f32, MESH17_F32_LOGIT_TOL, MESH17_F32_CACHE_TOL)] + ([(cfg, None, None)] if bf16 else [])
+    kw = dict(quant=lm_policy(8), serve_optimized=True)
+    pshape, dshape = ShapeSpec("prefill", S, B, "prefill"), ShapeSpec("decode", S, B, "decode")
+    steps = lambda m, c: (build_prefill_step(arch, pshape, m, c, **kw).jitted,
+                          build_decode_step(arch, dshape, m, c, shard_cache_seq=shard_seq and m is not None,
+                                            **kw).jitted)
+    toks = [torch.zeros(B, 1, dtype=torch.int32, device=DEVICE)]
+    batch, warm = {"audio_frames": frames}, {"audio_frames": frames[:, :64]}
+    timed_prefill = S < LONG_FRAMES  # a 32k prefill's time is phase 15b's
+
+    def decode_all(dec, caches, n_steps: int = W18_DECODE, cur0: int = 0) -> list:
+        outs = []
+        for t in range(n_steps):
+            cur = torch.full((B,), cur0 + t, dtype=torch.int32, device=DEVICE)
+            lg, _ = dec(qparams, caches, {"tokens": toks[t], "cur_len": cur})
+            outs.append(lg)
+            if len(toks) == t + 1:  # one device's f32 pass: its own greedy tokens
+                toks.append(lg.argmax(-1).to(torch.int32))
+        return outs
+
+    ones, one_s = [], None
+    with torch.no_grad():
+        for c, _, _ in cfgs:
+            pre, dec = steps(None, c)
+            pre(qparams, warm)
+            caches = pre(qparams, batch)
+            ones.append(dict(caches=caches, outs=decode_all(dec, caches)))
+        if timed_prefill:
+            one_s = timed_s(lambda: pre(qparams, batch))
+        copy = {"self": {k: t.clone() for k, t in caches["self"].items()}, "cross": caches["cross"]}
+        one_ms = 1e3 * timed_s(lambda: decode_all(dec, copy, W18_TIMED, W18_DECODE)) / W18_TIMED
+        del copy
+        torch.cuda.empty_cache()
+        steps(mesh, cfgs[0][0])[0](qparams, warm)  # places the tree: qparams' leaves are now sharded
+        counts = {}
+        for (c, logit_tol, cache_tol), one in zip(cfgs, ones):
+            twin = ""
+            if logit_tol is None:  # bf16: the limits from one device's own bf16-vs-f32 distance
+                ref = ones[0]
+                d_l = max(leaf_err(a, b) for a, b in zip(one["outs"], ref["outs"]))
+                d_c = max(leaf_err(one["caches"]["cross"][k], ref["caches"]["cross"][k]) for k in ("k", "v"))
+                logit_tol, cache_tol = max(MESH17_TWIN_FLOOR, 2 * d_l), max(MESH17_TWIN_FLOOR, 2 * d_c)
+                twin = (f"; one device's own bf16 logits lie {d_l:.3e} of max from its f32 ones and its "
+                        f"cross caches {d_c:.3e}, so the limits are max({MESH17_TWIN_FLOOR}, twice those)")
+            _, dec = steps(mesh, c)
+            prefill = lambda: whisper_prefill(c, qparams, frames, shard_seq=shard_seq)
+            with checked_launches(f"{what} prefill", sampled=S >= LONG_FRAMES) as stats:
+                reset_counts()
+                caches = prefill()
+                torch.cuda.synchronize()
+                pc = read_counts()
+            check(pc["flash_attention"] == L * n == stats["flash_attention"],
+                  f"{what}: {L * n} flash launches, each checked, not {pc} ({stats['flash_attention']} checked)")
+            check(pc["quant_matmul"] == per_prefill * n == stats["quant_matmul"],
+                  f"{what}: {per_prefill * n} quant_matmul launches, each checked, not {pc}")
+            seq = "data" if shard_seq else None
+            for part in ("cross", "self"):
+                check(caches[part]["k"].spec == (None, None if B == 1 else "data", seq if part == "cross" else None,
+                                                 "model", None), f"{what}: {part} cache spec {caches[part]['k'].spec}")
+            c_err = max(block_err(caches["cross"][k], one["caches"]["cross"][k]) for k in ("k", "v"))
+            check(c_err <= cache_tol, f"{what} {dtype_name(c)}: cross cache blocks {c_err:.3e} of max apart")
+            with checked_launches(f"{what} decode", sampled=False) as dstats:
+                reset_counts()
+                outs = decode_all(dec, caches)
+                torch.cuda.synchronize()
+                dc = read_counts()
+            check(dc["quant_matmul"] == per_step * n * W18_DECODE == dstats["quant_matmul"]
+                  and dc["flash_attention"] == 0, f"{what} decode: launches {dc} ({dstats['quant_matmul']} checked)")
+            s_err = max(block_err(caches["self"][k], one["caches"]["self"][k]) for k in ("k", "v"))
+            check(s_err <= cache_tol, f"{what} {dtype_name(c)}: self cache blocks after the steps {s_err:.3e} of max apart")
+            check(all(torch.equal(caches[p]["len"].full(), one["caches"][p]["len"]) for p in ("self", "cross")),
+                  f"{what}: cache lengths")
+            d_err, d_dec, d_same = 0.0, 0, 0
+            for t, (a, b) in enumerate(zip(outs, one["outs"])):
+                e, dd, ss = logits_agree(a, b, f"{what} {dtype_name(c)} decode step {t}", logit_tol)
+                d_err, d_dec, d_same = max(d_err, e), d_dec + dd, d_same + ss
+            timing = ""
+            if c is cfgs[-1][0]:
+                mesh_ms = 1e3 * timed_s(lambda: decode_all(dec, caches, W18_TIMED, W18_DECODE)) / W18_TIMED
+                last = {"tokens": toks[0], "cur_len": torch.full((B,), W18_DECODE + W18_TIMED, dtype=torch.int32,
+                                                                 device=DEVICE)}
+                split = device_split(lambda: dec(qparams, caches, last), n=2, top=6, width=60)
+                if timed_prefill:
+                    mesh_s = timed_s(prefill)
+                    timing = (f"prefill {mesh_s:.3f} s warm, unrecorded vs {one_s:.3f} s on one device "
+                              f"({mesh_s / one_s:.3f}x), ")
+                timing += (f"{W18_TIMED} more decode steps unrecorded {mesh_ms:.3f} ms a step vs {one_ms:.3f} ms "
+                           f"on one device ({mesh_ms / one_ms:.3f}x); a mesh decode step's split: {split}; ")
+            fa = json.dumps({k: {f: round(u, 4) for f, u in d.items()} for k, d in stats["fa_used"].items()})
+            print(
+                f"mesh serve ({what}) {WHISPER_ARCH} full width int8 serve_optimized, {dtype_name(c)} compute, "
+                f"{B} x {S} frames{', shard_cache_seq' if shard_seq else ''}, on {mesh}: {timing}"
+                f"{pc['quant_matmul']} prefill quant_matmul launches and {dc['quant_matmul']} decode ones each "
+                f"within QM_TOL of plain (max_abs_err {max(stats['qm_err'], dstats['qm_err']):.3e}), "
+                f"{pc['flash_attention']} flash_attention launches (local heads) within FA_TOL (max_abs_err "
+                f"{stats['fa_err']:.3e}; tolerance used, then by each planted fault: {fa}); each shard's "
+                f"block of every layer's cross K / V {c_err:.3e} of max from one device's (limit "
+                f"{cache_tol:.3e}), of the self caches after {W18_DECODE} steps {s_err:.3e}; {W18_DECODE} "
+                f"greedy decode steps fed the one-device tokens: {d_same}/{B * W18_DECODE} tokens equal "
+                f"({d_dec} decided), logits {d_err:.3e} of max apart (limit {logit_tol:.3e}){twin}; tokens "
+                f"{torch.cat(toks[1:], dim=1)[0, :8].tolist()}...; on {smi}"
+            )
+            counts = {k: counts.get(k, 0) + pc[k] + dc[k] for k in pc}
+            del caches
+    del qparams, ones
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase18_long500k(mesh, smi: str) -> dict:
+    """18d: jamba-v0.1-52b at full width cut to one 8-layer group (phase 14's
+    cut), int8 ``serve_optimized`` weights at f32 compute, long_500k's
+    layout: batch 1 and a L500_DEPTH-deep cache, its attention layer's
+    sequence over ``data`` (``shard_cache_seq``) and its kv heads over
+    ``model``.  One device first: L500_STEPS greedy decode steps from a
+    cache filled from a seeded generator at each of L500_LENS (the SSM
+    layers' conv / state drawn too), then a real L500_PREFILL-token prefill
+    grown into a L500_BUFFER-deep buffer (its valid entries in both data
+    blocks) and W18_DECODE decode steps; each timed.  Then the tree placed
+    on ``mesh`` and the same caches (drawn again from the same seeds)
+    decoded with the one-device tokens fed, every ``quant_matmul`` launch
+    held to plain as it is made: logits within 1e-4 of max with equal
+    tokens, each shard's K / V block against its slice of the one-device
+    cache; ms a step on the mesh and on one device."""
+    arch = get_arch(HYBRID_ARCH)
+    cfg = dataclasses.replace(arch.config, n_layers=len(tfm.layer_pattern(arch.config)))
+    arch = dataclasses.replace(arch, config=cfg)
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    qparams = quantize_tree(init_bf16(arch, cfg), lm_policy(8))
+    kw = dict(quant=lm_policy(8), serve_optimized=True)
+    qdots = 30  # a decode step's quant_matmul launches on one device (phase 17c's)
+
+    def filled(length: int) -> dict:
+        caches = tfm.cache_init(f32, 1, L500_DEPTH, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(length)
+        for c in caches.values():
+            for name, t in c.items():
+                t.fill_(length) if name == "len" else t.normal_(generator=gen)
+        return caches
+
+    def run(dec, caches, cur0: int, toks: list, n_steps: int) -> tuple[list, list]:
+        outs, secs = [], []
+        for t in range(n_steps):
+            cur = torch.full((1,), cur0 + t, dtype=torch.int32, device=DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = dec(qparams, caches, {"tokens": toks[t], "cur_len": cur})
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            outs.append(lg)
+            if len(toks) == t + 1:
+                toks.append(lg.argmax(-1).to(torch.int32))
+        return outs, secs
+
+    long = ShapeSpec("decode", L500_DEPTH, 1, "decode")
+    grown_shape = ShapeSpec("decode", L500_BUFFER, 1, "decode")
+    start = torch.zeros(1, 1, dtype=torch.int32, device=DEVICE)
+    cases = [(f"len {n}", long, n, L500_STEPS) for n in L500_LENS]
+    cases.append((f"a {L500_PREFILL}-token prefill in a {L500_BUFFER}-deep buffer", grown_shape, L500_PREFILL,
+                  W18_DECODE))
+    one = {}
+    with torch.no_grad():
+        tokens = torch.from_numpy(np.random.default_rng(185).integers(0, cfg.vocab, (1, L500_PREFILL))).to(DEVICE)
+        logits, prefilled = build_prefill_step(arch, ShapeSpec("prefill", L500_PREFILL, 1, "prefill"), None, f32,
+                                               **kw).jitted(qparams, {"tokens": tokens})
+        for name, shape, n, k in cases:
+            dec = build_decode_step(arch, shape, None, f32, **kw).jitted
+            toks = [logits.argmax(-1).to(torch.int32)] if shape is grown_shape else [start]
+            caches = grow_kv(prefilled, L500_BUFFER - L500_PREFILL) if shape is grown_shape else filled(n)
+            outs, secs = run(dec, caches, n, toks, k)
+            one[name] = dict(outs=outs, secs=secs, toks=toks, caches=caches)
+            if shape is long:  # keep the K / V of the attention layer only
+                one[name]["caches"] = {p: {x: c[x] for x in ("k", "v")} for p, c in caches.items() if "k" in c}
+            del caches
+            torch.cuda.empty_cache()
+        counts, lines = {}, []
+        for name, shape, n, k in cases:
+            dec = build_decode_step(arch, shape, mesh, f32, shard_cache_seq=True, **kw).jitted
+            caches = grow_kv(prefilled, L500_BUFFER - L500_PREFILL) if shape is grown_shape else filled(n)
+            ref = one[name]
+            with checked_launches(f"18d {name}", sampled=False) as stats:
+                reset_counts()
+                outs, secs = run(dec, caches, n, ref["toks"], k)
+                dc = read_counts()
+            check(dc["quant_matmul"] == qdots * mesh.size * k == stats["quant_matmul"] and dc["flash_attention"] == 0,
+                  f"18d {name}: launches {dc} ({stats['quant_matmul']} checked)")
+            d_err, d_dec, d_same = 0.0, 0, 0
+            for t, (a, b) in enumerate(zip(outs, ref["outs"])):
+                e, dd, ss = logits_agree(a, b, f"18d {name} step {t}", MESH17_F32_LOGIT_TOL)
+                d_err, d_dec, d_same = max(d_err, e), d_dec + dd, d_same + ss
+            kv_err, specs = 0.0, set()
+            for p, c in caches.items():
+                if "k" in c:
+                    specs.add(c["k"].spec)
+                    kv_err = max(kv_err, *(block_err(c[x], ref["caches"][p][x]) for x in ("k", "v")))
+            check(specs == {(None, None, "data", "model", None)}, f"18d {name}: K / V specs {specs}")
+            check(kv_err <= MESH17_F32_CACHE_TOL, f"18d {name}: K / V blocks {kv_err:.3e} of max apart")
+            mesh_ms, one_ms = 1e3 * statistics.mean(secs[1:]), 1e3 * statistics.mean(ref["secs"][1:])
+            lines.append(
+                f"mesh long (18d) {HYBRID_ARCH} one 8-layer group int8 serve_optimized, f32 compute, batch 1, "
+                f"{name} ({shape.seq_len}-deep cache, its sequence over data, kv heads over model), on {mesh}: "
+                f"{k} decode steps {mesh_ms:.3f} ms a step vs {one_ms:.3f} ms on one device ({mesh_ms / one_ms:.3f}x; "
+                f"mean of steps 2-{k}); {d_same}/{k} greedy tokens equal ({d_dec} decided), logits {d_err:.3e} of "
+                f"max apart (limit {MESH17_F32_LOGIT_TOL}); each shard's K / V block {kv_err:.3e} of max from its "
+                f"slice of one device's; {dc['quant_matmul']} quant_matmul launches within QM_TOL (max_abs_err "
+                f"{stats['qm_err']:.3e}); tokens {torch.cat(ref['toks'][1:], dim=1)[0].tolist()}; on {smi}"
+            )
+            counts = {x: counts.get(x, 0) + dc[x] for x in dc}
+            del caches, ref["caches"]
+            torch.cuda.empty_cache()
+    for line in lines:
+        print(line)
+    del qparams, prefilled, one
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_whisper_mesh(smi: str, launches: dict) -> None:
+    """Phase 18: whisper-medium over the (2, 2) mesh of four shards of card 0
+    (18a-c) and the sequence-sharded decode of long_500k (18d)."""
+    t0 = time.perf_counter()
+    mesh = card_mesh2(MESH_SHAPE)
+    for name, phase in [
+        ("mesh_whisper_train", lambda: phase18_whisper_train(mesh, smi)),
+        ("mesh_whisper_serve", lambda: whisper_mesh_serve(mesh, W18_SERVE_B, W18_SERVE_S, False, True, "18b", smi)),
+        ("mesh_whisper_seq", lambda: whisper_mesh_serve(mesh, 1, LONG_FRAMES, True, False, "18c", smi)),
+        ("mesh_long500k", lambda: phase18_long500k(mesh, smi)),
+    ]:
+        t1 = time.perf_counter()
+        counts = phase()
+        print(f"launches[{name}]: {counts} ({time.perf_counter() - t1:.3f} s)")
+        for k, v in counts.items():
+            launches[k] += v
+    print(f"phase 18 took {time.perf_counter() - t0:.3f} s; on {smi}")
 
 
 def main() -> int:
@@ -4760,6 +5110,9 @@ def main() -> int:
     print(f"the script so far {time.perf_counter() - t_start:.3f} s")
 
     phase_mesh_families(smi, launches)
+    print(f"the script so far {time.perf_counter() - t_start:.3f} s")
+
+    phase_whisper_mesh(smi, launches)
     print(f"the script so far {time.perf_counter() - t_start:.3f} s")
 
     for k, v in launches.items():

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "DuplicateSpecError",
     "Mesh",
     "P",
     "NamedSharding",
@@ -40,9 +41,14 @@ __all__ = [
 ]
 
 
+class DuplicateSpecError(ValueError):
+    """A partition spec maps one mesh axis to two dimensions (JAX's
+    ``DuplicateSpecError``)."""
+
+
 class P(tuple):
     """A partition spec: one entry per dimension (``None``, an axis name or
-    a tuple of axis names)."""
+    a tuple of axis names).  A one-name tuple is normalised to the name."""
 
     def __new__(cls, *axes):
         return super().__new__(
@@ -130,10 +136,20 @@ class Mesh:
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A mesh and a partition spec (``jax.sharding.NamedSharding``)."""
+    """A mesh and a partition spec (``jax.sharding.NamedSharding``).  A mesh
+    axis splits one dimension at most: a spec that names it twice raises
+    :class:`DuplicateSpecError`, as JAX's ``NamedSharding`` does."""
 
     mesh: Mesh
     spec: P
+
+    def __post_init__(self):
+        names = [n for e in self.spec for n in axis_names_of(e)]
+        for n in names:
+            if names.count(n) > 1:
+                raise DuplicateSpecError(
+                    f"{self.spec!r} maps the mesh axis {n!r} to more than one dimension"
+                )
 
 
 _RULES: ContextVar[dict | None] = ContextVar("sharding_rules", default=None)

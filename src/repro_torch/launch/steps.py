@@ -18,15 +18,15 @@ works on flat lists in ``models/common.py::tree_leaves`` order.
 ``mesh``: ``None`` or a one-shard mesh runs on the device the tensors live
 on.  A named :class:`~repro_torch.distributed.sharding.Mesh` of several
 shards (``launch/mesh.py``; a ``core/shard.py`` ``DeviceMesh`` counts as
-(n, 1) over ("data", "model")) runs the decoder LM sharded -- the dense,
-MoE, SSM, hybrid and VLM families (``models/sharded.py``, ``sharded_moe.py``,
-``sharded_ssm.py``): parameters and both AdamW moments placed by
-``param_pspecs`` (serving: ``serve_optimized``'s TP-only specs and
+(n, 1) over ("data", "model")) runs every architecture sharded -- the
+dense, MoE, SSM, hybrid and VLM families of the decoder LM
+(``models/sharded.py``, ``sharded_moe.py``, ``sharded_ssm.py``) and Whisper
+(``models/sharded_whisper.py``): parameters and both AdamW moments placed
+by ``param_pspecs`` (serving: ``serve_optimized``'s TP-only specs and
 ``_quant_pspecs``), batches by ``input_pspecs`` and caches by
-``cache_pspecs``.  A leaf passed whole is placed on entry and the caller's
-tree is rebound to the placed leaf (JAX's ``in_shardings`` with donation).
-Whisper, and ``shard_cache_seq``, raise under such a mesh (ROADMAP
-Queue 1 #5c).
+``cache_pspecs`` (``shard_cache_seq``: their sequence over ``data``).  A
+leaf passed whole is placed on entry and the caller's tree is rebound to
+the placed leaf (JAX's ``in_shardings`` with donation).
 """
 
 from __future__ import annotations
@@ -39,12 +39,11 @@ import torch
 from repro_torch._device import full_f32_matmul
 from repro_torch.core.precision import PrecisionPolicy, QTensor, tree_map
 from repro_torch.core.shard import DeviceMesh
-from repro_torch.distributed.sharding import Mesh, P, axis_names_of
+from repro_torch.distributed.sharding import Mesh, NamedSharding, P, axis_names_of
 from repro_torch.distributed.spmd import Sharded, all_reduce, place
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.common import tree_leaves, tree_unflatten
 from repro_torch.models.registry import Arch, ShapeSpec
-from repro_torch.models.sharded import check_sharded
 from repro_torch.train import optimizer as opt_lib
 
 __all__ = [
@@ -164,7 +163,6 @@ def build_train_step(
     if mesh is None:
         return StepBundle(_one_device_step(loss_fn, optimizer, grad_clip), (abs_params, None, abs_batch), name)
 
-    check_sharded(cfg, "build_train_step", mesh.size)
     p_specs = arch.param_pspecs(mesh, cfg)
     b_specs = arch.input_pspecs(mesh, shape, cfg)
     leaf_specs = [s for _, s in tree_leaves(p_specs)]
@@ -340,12 +338,10 @@ def _quant_pspecs(p_specs, abs_params):
     return p_specs
 
 
-def _serving(arch, shape, mesh, cfg, quant, serve_optimized, what):
+def _serving(arch, mesh, cfg, quant, serve_optimized):
     mesh = as_mesh(mesh)
     cfg = cfg or arch.config
     abs_params, p_specs = _serve_params(arch, cfg, quant, serve_optimized, mesh)
-    if mesh is not None:
-        check_sharded(cfg, what, mesh.size)
     return mesh, cfg, abs_params, p_specs
 
 
@@ -357,9 +353,7 @@ def build_prefill_step(
     by the caller where ``quant`` is given (its template says so).  On a
     mesh the logits come back whole on the mesh's first device and the
     caches sharded by ``cache_pspecs``."""
-    mesh, cfg, abs_params, p_specs = _serving(
-        arch, shape, mesh, cfg, quant, serve_optimized, "build_prefill_step"
-    )
+    mesh, cfg, abs_params, p_specs = _serving(arch, mesh, cfg, quant, serve_optimized)
     abs_batch = arch.input_template(shape, cfg)
     name = f"prefill:{arch.name}:{shape.name}"
     prefill = arch.prefill_fn(cfg)
@@ -386,24 +380,23 @@ def build_decode_step(
 ) -> StepBundle:
     """``decode(params, caches, batch) -> (logits, caches)``: one new token
     against a ``seq_len``-deep cache, written in place (JAX donates it).
-    ``shard_cache_seq`` (the cache's sequence over ``data``, the long_500k
-    layout) is a layout of several shards only: on one device it changes
-    nothing, on a mesh it is not ported yet (ROADMAP Queue 1 #5c)."""
-    mesh, cfg, abs_params, p_specs = _serving(
-        arch, shape, mesh, cfg, quant, serve_optimized, "build_decode_step"
-    )
+    ``shard_cache_seq`` puts the KV caches' sequence over ``data`` (the
+    long_500k layout, batch 1) and the attention takes its two-pass softmax
+    over that axis (``models/sharded.py``); Whisper's cross cache takes it,
+    its self cache does not, and SSM caches have no sequence.  It is a
+    layout of several shards: on one device it changes nothing; where the
+    batch already splits over ``data`` its spec names ``data`` twice and
+    raises :class:`~repro_torch.distributed.sharding.DuplicateSpecError`,
+    as JAX's does."""
+    mesh, cfg, abs_params, p_specs = _serving(arch, mesh, cfg, quant, serve_optimized)
     abs_cache = arch.cache_abstract(shape, cfg)
     abs_batch = arch.input_template(shape, cfg)
     name = f"decode:{arch.name}:{shape.name}"
     decode = arch.decode_fn(cfg)
     if mesh is None:
         return StepBundle(decode, (abs_params, abs_cache, abs_batch), name)
-    if shard_cache_seq:
-        raise NotImplementedError(
-            "build_decode_step(shard_cache_seq=True) over a mesh is not ported yet: the "
-            "seq-sharded decode with a two-pass softmax (ROADMAP Queue 1 #5c)"
-        )
-    c_specs = arch.cache_pspecs(mesh, shape, cfg)
+    c_specs = arch.cache_pspecs(mesh, shape, cfg, shard_seq=shard_cache_seq)
+    tree_map(lambda _, s: NamedSharding(mesh, s), c_specs)  # a duplicated axis raises here, as in JAX
     b_specs = arch.input_pspecs(mesh, shape, cfg)
 
     def step(params, caches, batch):

@@ -11,8 +11,7 @@ for JAX's 256 / 512-device mesh and refuses below that, as JAX does.
 Every decoder family (dense, MoE, SSM, hybrid, VLM) trains on a mesh of
 several devices.  ``TrainLoop`` feeds token batches only, as JAX's does,
 so whisper-medium (which trains on audio frames) takes
-``launch/steps.py::build_train_step`` instead, on one device (Whisper under
-a mesh: ROADMAP Queue 1 #5c).
+``launch/steps.py::build_train_step`` instead, on one device or a mesh.
 """
 
 from __future__ import annotations

@@ -210,6 +210,13 @@ class Arch:
         return tfm.cache_template(cfg, shape.global_batch, shape.seq_len)
 
     def cache_pspecs(self, mesh, shape: ShapeSpec, cfg=None, shard_seq: bool = False):
+        """The decode caches' specs: batch over ``input_pspecs``' axes, kv
+        heads over ``model`` where they divide; ``shard_seq`` puts the
+        sequence of the KV caches (Whisper's cross cache) over ``data``.
+        Where the batch already splits over ``data`` that names the axis
+        twice: placing by such a spec (a
+        :class:`~repro_torch.distributed.sharding.NamedSharding`) raises
+        ``DuplicateSpecError``, as JAX's does."""
         cfg = cfg or self.config
         b = _batch_axes(mesh, shape.global_batch)
         tp = "model" if "model" in mesh.axis_names else None
@@ -220,8 +227,7 @@ class Arch:
             if n_kv % mesh.shape["model"]:
                 tp = None
         if isinstance(cfg, WhisperConfig):
-            kv = lambda s: {"k": P(None, b, s, tp, None), "v": P(None, b, s, tp, None), "len": P(None, b)}
-            return {"self": kv(None), "cross": kv(seq)}
+            return whs.whisper_cache_specs(b, tp, seq)
         return tfm.cache_specs(cfg, b, tp, seq)
 
 

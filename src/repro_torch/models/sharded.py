@@ -28,7 +28,16 @@ run shard by shard from one process through
 
 A dimension that does not divide over its axis was left replicated by
 ``partition_spec``; the same code then runs it whole on every shard.
-Whisper (``WhisperConfig``) raises :class:`NotImplementedError`.
+
+Decode caches whose sequence is split over ``data`` (``cache_pspecs(...,
+shard_seq=True)``, the long_500k layout) take the decode path XLA makes of
+``decode_attend`` under that spec: only the shard whose block holds a
+row's ``len`` writes the new K / V there, every shard's ``len`` advances,
+and the softmax runs in two passes over ``data`` -- an all-reduce of the
+blocks' maxima, then of their f32 sums of ``exp(s - max)`` and of
+``exp(s - max) @ v`` -- and divides.  A block with no valid position adds
+exact zeros.  Whisper runs through the same pieces
+(``models/sharded_whisper.py``).
 """
 
 from __future__ import annotations
@@ -50,34 +59,24 @@ from repro_torch.distributed.spmd import (
     reshard,
     shard,
 )
+from repro_torch.models.attention import NEG_INF, _gqa_scores, _softcap
 from repro_torch.models.common import rms_norm, unstack
 from repro_torch.models.mlp import MLPConfig, mlp_hidden
 from repro_torch.models.transformer import (
     ModelConfig,
     _attend,
+    _cache_entry,
     _ce_chunk,
     _default_pos3,
     _head_logits,
     _qkv,
+    _rotary_heads,
     cache_specs,
     layer_pattern,
     n_groups,
 )
 
-__all__ = ["check_sharded", "lm_loss", "prefill", "decode_step"]
-
-UNPORTED = (
-    "{what} over a mesh of {n} shards is not ported for {name} (family {family}): "
-    "Whisper and shard_cache_seq shard next (ROADMAP Queue 1 #5c)"
-)
-
-
-def check_sharded(cfg, what: str, n_shards: int) -> None:
-    """Refuse a config whose blocks have no sharded execution yet (Whisper)."""
-    if not isinstance(cfg, ModelConfig):
-        raise NotImplementedError(
-            UNPORTED.format(what=what, n=n_shards, name=cfg.name, family=getattr(cfg, "family", "?"))
-        )
+__all__ = ["lm_loss", "prefill", "decode_step"]
 
 
 def _spec(leaf) -> P:
@@ -145,19 +144,7 @@ class _Run:
     batch's layout."""
 
     def __init__(self, cfg: ModelConfig, params, batch_spec):
-        self.cfg = cfg
-        self.mesh = _mesh_of(params)
-        check_sharded(cfg, "the LM", self.mesh.size)
-        self.n = self.mesh.size
-        self.tp = self.mesh.shape.get("model", 1)
-        self.m = [self.mesh.coord(i).get("model", 0) for i in range(self.n)]
-        self.batch_spec = batch_spec
-        self.batch_axes = axis_names_of(batch_spec)
-        # one shard per batch block: what counts each token once
-        self.reps = _representatives(self.mesh, batch_spec)
-        has_model = "model" in self.mesh.axis_names
-        # the kv heads' (and the SSM caches') axis, as cache_pspecs places them
-        self.kv_axis = "model" if has_model and cfg.n_kv_heads % self.tp == 0 else None
+        self.on_mesh(cfg, params, batch_spec, cfg.n_kv_heads)
         pattern = layer_pattern(cfg)
         attn = [params["blocks"][f"pos{i}"]["attn"] for i, k in enumerate(pattern) if k.mixer == "attn"]
         self.heads_local = self.tp > 1 and self.kv_axis is not None and bool(attn)
@@ -169,6 +156,24 @@ class _Run:
             )
         else:
             self.lcfg = cfg
+
+    def on_mesh(self, cfg, params, batch_spec, n_kv: int) -> None:
+        """The mesh's fields: shards, ``model`` coordinates, the batch's
+        layout and the kv heads' axis (``n_kv`` heads)."""
+        self.cfg = cfg
+        self.mesh = _mesh_of(params)
+        self.n = self.mesh.size
+        self.tp = self.mesh.shape.get("model", 1)
+        self.m = [self.mesh.coord(i).get("model", 0) for i in range(self.n)]
+        self.batch_spec = batch_spec
+        self.batch_axes = axis_names_of(batch_spec)
+        # one shard per batch block: what counts each token once
+        self.reps = _representatives(self.mesh, batch_spec)
+        has_model = "model" in self.mesh.axis_names
+        # the kv heads' (and the SSM caches') axis, as cache_pspecs places them
+        self.kv_axis = "model" if has_model and n_kv % self.tp == 0 else None
+        # the decode caches' sequence axis (``decode_step`` reads it off the caches)
+        self.seq_axis = None
 
     def psum(self, xs: list) -> list:
         return all_reduce(xs, self.mesh, ("model",))
@@ -212,12 +217,75 @@ class _Run:
                 for c, w in zip(zip(*qkv), ("wq", "wk", "wv"))
             ]
             qkv = list(zip(*cols))
-        outs, new = zip(*(
-            _attend(self.lcfg, kind, *qkv[i], positions[i], None if pos3 is None else pos3[i], mode,
-                    None if caches is None else caches[i])
-            for i in range(self.n)
-        ))
+        if mode == "decode" and self.seq_axis is not None:
+            outs, new = self.seq_decode(kind, qkv, positions, pos3, caches), caches
+        else:
+            outs, new = zip(*(
+                _attend(self.lcfg, kind, *qkv[i], positions[i], None if pos3 is None else pos3[i],
+                        mode, None if caches is None else caches[i])
+                for i in range(self.n)
+            ))
         return self.row(list(outs), self.heads_local, p["wo"]), list(new)
+
+    def seq_decode(self, kind, qkv, positions, pos3, caches) -> list:
+        """``_attend``'s decode against caches split over ``seq_axis`` on
+        their sequence: rotary, the append, then :meth:`seq_attend`."""
+        cfg, qs = self.lcfg, []
+        for i, (q, k, v) in enumerate(qkv):
+            q, k, v = _rotary_heads(cfg, q, k, v, positions[i], None if pos3 is None else pos3[i], "decode")
+            k, v, inv = _cache_entry(cfg, k, v, caches[i]["k"].dtype)
+            self.seq_append(i, caches[i], k, v)
+            qs.append(q)
+        outs = self.seq_attend(qs, caches, softcap=cfg.attn_softcap, window=kind.window, kv_inv_scale=inv)
+        return [o.reshape(o.shape[0], 1, -1) for o in outs]
+
+    def seq_append(self, i: int, cache: dict, k_new, v_new) -> None:
+        """``KVCache.append_one`` on shard ``i``'s block of a sequence-split
+        cache, in place: each row's K / V lands where its (clamped) ``len``
+        falls, on the shard whose block holds it (the others write back
+        what they hold), and this shard's ``len`` advances."""
+        S_l = cache["k"].shape[1]
+        S = S_l * self.mesh.axis_size(self.seq_axis)
+        at = cache["len"].clamp(max=S - 1).long() - self.mesh.block_index(i, self.seq_axis) * S_l
+        mine = (at >= 0) & (at < S_l)
+        rows, at = torch.arange(at.shape[0], device=at.device), at.clamp(0, S_l - 1)
+        for name, new in (("k", k_new), ("v", v_new)):
+            t = cache[name]
+            t[rows, at] = torch.where(mine[:, None, None], new[:, 0], t[rows, at])
+        cache["len"] += 1
+
+    def seq_attend(self, qs: list, caches: list, *, softcap=None, window=None, kv_inv_scale=None) -> list:
+        """``decode_attend`` over caches split over ``seq_axis`` on their
+        sequence, in two passes over that axis: the global max of the masked
+        scores, then the f32 sums of ``exp(s - max)`` and of ``exp(s - max)
+        @ v``, each all-reduced; their quotient is the softmax's output.
+        q [B, 1, Hq, D] per shard -> [B, 1, Hq, D] per shard."""
+        axes, scores = (self.seq_axis,), []
+        for i, (q, c) in enumerate(zip(qs, caches)):
+            S_l = c["k"].shape[1]
+            k_pos = self.mesh.block_index(i, self.seq_axis) * S_l + torch.arange(S_l, device=q.device)
+            valid = k_pos[None] < c["len"][:, None]
+            if window is not None:
+                valid &= k_pos[None] >= (c["len"][:, None] - window)
+            s = _gqa_scores(q, c["k"], q.shape[-1] ** -0.5)  # [B,Hk,G,1,S_l]
+            if kv_inv_scale is not None:
+                s = s * kv_inv_scale
+            s = _softcap(s, softcap)
+            scores.append(torch.where(valid[:, None, None, None], s, NEG_INF))
+        mx = all_reduce([s.amax(-1, keepdim=True) for s in scores], self.mesh, axes, op="max")
+        ex = [torch.exp(s - m) for s, m in zip(scores, mx)]  # a block with nothing valid: zeros
+        den = all_reduce([e.sum(-1) for e in ex], self.mesh, axes)  # [B,Hk,G,1]
+        num = all_reduce(
+            [torch.einsum("bhgqk,bkhd->bqhgd", e, c["v"].to(torch.float32)) for e, c in zip(ex, caches)],
+            self.mesh, axes,
+        )
+        outs = []
+        for q, n, d in zip(qs, num, den):
+            out = n / d.permute(0, 3, 1, 2)[..., None]
+            if kv_inv_scale is not None:
+                out = out * kv_inv_scale
+            outs.append(out.reshape(q.shape).to(q.dtype))
+        return outs
 
     def block(self, kind, p, xs, positions, pos3, mode, caches):
         """One pre-norm block on every shard; ``p`` is the layer's leaves in
@@ -297,7 +365,7 @@ class _Run:
             rows = [E.shards[i][t] for i, t in enumerate(tokens)]
         dt = self.cfg.compute_dtype
         h = [r.to(dt) for r in rows]
-        if self.cfg.embed_scale:
+        if getattr(self.cfg, "embed_scale", False):  # Whisper has none
             h = [x * torch.tensor(self.cfg.d_model**0.5, dtype=dt, device=x.device) for x in h]
         if vision is not None:
             h = [torch.cat([v.to(dt), x], dim=1) for v, x in zip(vision, h)]
@@ -312,9 +380,13 @@ class _Run:
             return list(placed.shards)
         return [_default_pos3(self.cfg, x, None) for x in xs]
 
+    def head_logits(self, h, head) -> torch.Tensor:
+        """f32 logits of normed ``h`` against a head block [D, V_local]."""
+        return _head_logits(self.cfg, h, head)
+
     def heads(self, top) -> tuple[list, bool]:
         """Each shard's head block [D, V_local] and whether it is vocab-split."""
-        if self.cfg.tie_embeddings:
+        if getattr(self.cfg, "tie_embeddings", True):  # Whisper's head is its embedding
             E = top["embed"]
             return [t.T for t in E.shards], _model_dim(E) == 0
         H = top["lm_head"]
@@ -324,9 +396,11 @@ class _Run:
         """The last position's f32 logits [B, 1, V], whole on the first device."""
         heads, split = self.heads(top)
         fn = top["final_norm"]
-        out = [
-            _head_logits(self.cfg, rms_norm(x, fn.shards[i]), heads[i]) for i, x in enumerate(xs)
-        ]
+        out = [self.head_logits(rms_norm(x, fn.shards[i]), heads[i]) for i, x in enumerate(xs)]
+        return self.whole_logits(out, split)
+
+    def whole_logits(self, out: list, split: bool) -> torch.Tensor:
+        """Per-shard logit blocks [B_l, 1, V_l] whole on the first device."""
         spec = P(self.batch_spec, None, "model" if split else None)
         return Sharded.from_local(out, self.mesh, spec).full()
 
@@ -338,7 +412,7 @@ class _Run:
         chunk = _ce_chunk(S, 512)
         totals = [torch.zeros((), dtype=torch.float32, device=h.device) for h in hs]
         for c in range(0, S, chunk):
-            lg = [_head_logits(self.cfg, h[:, c : c + chunk], hd) for h, hd in zip(hs, heads)]
+            lg = [self.head_logits(h[:, c : c + chunk], hd) for h, hd in zip(hs, heads)]
             tc = [t[:, c : c + chunk].to(torch.int64) for t in targets]
             if not split:
                 ll = [
@@ -386,6 +460,15 @@ def _placed(mesh, batch: dict) -> dict:
             spec = P(_batch_axes(mesh, x.shape[0]), *(None,) * (x.dim() - 1))
         out[k] = shard(x, NamedSharding(mesh, spec))
     return out
+
+
+def seq_axis_of(caches):
+    """The mesh axis of the attention caches' sequence (dim 2 of a stacked
+    ``k``), or None: ``cache_pspecs(..., shard_seq=True)``'s ``data``."""
+    for c in caches.values():
+        if "k" in c:
+            return c["k"].spec[2]
+    return None  # SSM caches only: no sequence axis
 
 
 def _representatives(mesh, batch_spec) -> list[int]:
@@ -452,6 +535,7 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, cur_len):
     blocks of the sharded ``caches`` in place; returns (logits whole on the
     mesh's first device, caches)."""
     run, b, top, xs = _start(cfg, params, {"tokens": tokens, "cur_len": cur_len})
+    run.seq_axis = seq_axis_of(caches)
     positions = [c[:, None] for c in b["cur_len"].shards]
     pos3 = [p[None].expand(3, *p.shape) for p in positions] if cfg.mrope else None
     local_caches = [local_tree(caches, i) for i in range(run.n)]

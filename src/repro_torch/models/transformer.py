@@ -234,9 +234,10 @@ def _qkv(cfg, p, x):
     return q, k, v
 
 
-def _attend(cfg, kind, q, k, v, positions, pos3, mode, cache):
-    """Rotary, attention and the cache over ``cfg``'s head counts:
-    q / k / v [B, S, heads * d_head] -> (out [B, S, n_heads * d_head], new_cache)."""
+def _rotary_heads(cfg, q, k, v, positions, pos3, mode):
+    """q / k / v [B, S, heads * d_head] -> per-head [B, S, heads, d_head],
+    rotated (k / v repeated to every query head under ``gqa_flat`` outside
+    decode)."""
     B, S, _ = q.shape
     q = q.reshape(B, S, cfg.n_heads, cfg.d_head)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.d_head)
@@ -256,17 +257,29 @@ def _attend(cfg, kind, q, k, v, positions, pos3, mode, cache):
         t_rot = attn_lib.rope(t[..., :rot], positions, cfg.rope_theta)
         return torch.cat([t_rot, t[..., rot:]], dim=-1)
 
-    q = apply_rope(q)
-    k = apply_rope(k)
+    return apply_rope(q), apply_rope(k), v
+
+
+def _cache_entry(cfg, k, v, dtype):
+    """A new token's K / V as the decode cache stores them (``dtype``), and
+    the inverse scale that dequantizes them (None unless the cache is int8)."""
+    if cfg.kv_cache_bits != 8:
+        return k.to(dtype), v.to(dtype), None
+    k = torch.clamp(torch.round(k.float() * cfg.kv_scale), -127, 127)
+    v = torch.clamp(torch.round(v.float() * cfg.kv_scale), -127, 127)
+    return k.to(dtype), v.to(dtype), 1.0 / cfg.kv_scale
+
+
+def _attend(cfg, kind, q, k, v, positions, pos3, mode, cache):
+    """Rotary, attention and the cache over ``cfg``'s head counts:
+    q / k / v [B, S, heads * d_head] -> (out [B, S, n_heads * d_head], new_cache)."""
+    B, S, _ = q.shape
+    q, k, v = _rotary_heads(cfg, q, k, v, positions, pos3, mode)
 
     new_cache = None
     if mode == "decode":
-        kv_inv_scale = None
-        if cfg.kv_cache_bits == 8:
-            k = torch.clamp(torch.round(k.float() * cfg.kv_scale), -127, 127)
-            v = torch.clamp(torch.round(v.float() * cfg.kv_scale), -127, 127)
-            kv_inv_scale = 1.0 / cfg.kv_scale
-        cache = KVCache.append_one(cache, k.to(cache["k"].dtype), v.to(cache["v"].dtype))
+        k, v, kv_inv_scale = _cache_entry(cfg, k, v, cache["k"].dtype)
+        cache = KVCache.append_one(cache, k, v)
         out = attn_lib.decode_attend(
             q, cache, softcap=cfg.attn_softcap, window=kind.window, kv_inv_scale=kv_inv_scale
         )

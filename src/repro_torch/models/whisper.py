@@ -14,8 +14,10 @@ is skipped (full-attention encoder).
 Layers are stacked over a leading axis, as in JAX; JAX's ``scan`` over
 them becomes a Python loop over :func:`~repro_torch.models.common.unstack`'s
 per-layer views.  JAX's ``constrain`` calls are dropped: on one device
-they do nothing, and Whisper has no sharded execution yet (ROADMAP Queue 1
-#5c).  Attention from 4096 queries on goes through
+they do nothing.  Parameters placed on a mesh (``launch/steps.py``) run
+sharded (``models/sharded_whisper.py``): ``whisper_loss``,
+``whisper_prefill`` and ``whisper_decode_step`` dispatch there.
+Attention from 4096 queries on goes through
 ``attend_chunked`` (the ``flash_attention`` kernel on the card) outside
 training, and through the plain query-chunked code in training, as JAX
 trains through no Pallas kernel.  Decode appends each layer's K/V to the
@@ -30,6 +32,8 @@ import math
 import torch
 
 from repro_torch.core.precision import qdot, tree_map
+from repro_torch.distributed.sharding import P
+from repro_torch.distributed.spmd import is_sharded
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import AttnMask, KVCache
 from repro_torch.models.common import FSDP, TP, dense, layer_norm, unstack
@@ -44,6 +48,7 @@ __all__ = [
     "whisper_prefill",
     "whisper_decode_step",
     "whisper_cache_template",
+    "whisper_cache_specs",
 ]
 
 
@@ -142,19 +147,26 @@ def _heads(cfg, t):
     return t.reshape(t.shape[0], t.shape[1], cfg.n_heads, cfg.d_head)
 
 
+def _attention(q, k, v, mask: AttnMask, train: bool):
+    """Full-sequence attention [B, Sq, H, d_head]: plain below 4096 queries,
+    else ``attend_chunked`` (the kernel on the card) or, in training, the
+    plain query-chunked code (the kernel has no backward; JAX trains
+    through no Pallas kernel)."""
+    if q.shape[1] < 4096:
+        attend_fn = attn_lib.attend
+    elif train:
+        attend_fn = attn_lib.attend_query_chunked
+    else:
+        attend_fn = attn_lib.attend_chunked
+    return attend_fn(q, k, v, mask=mask)
+
+
 def _mha(cfg, p, xq, xkv, mask: AttnMask, train: bool):
     """Full-sequence MHA: self-attention (``xkv`` None) or cross-attention."""
     B, Sq, D = xq.shape
     xkv = xq if xkv is None else xkv
     q, k, v = (_heads(cfg, qdot(x, p[w])) for x, w in ((xq, "wq"), (xkv, "wk"), (xkv, "wv")))
-    if Sq < 4096:
-        attend_fn = attn_lib.attend
-    elif train:  # the kernel has no backward; JAX trains through the plain chunked code
-        attend_fn = attn_lib.attend_query_chunked
-    else:
-        attend_fn = attn_lib.attend_chunked
-    out = attend_fn(q, k, v, mask=mask)
-    return qdot(out.reshape(B, Sq, D), p["wo"])
+    return qdot(_attention(q, k, v, mask, train).reshape(B, Sq, D), p["wo"])
 
 
 def _decode_mha(cfg, p, x, cache):
@@ -221,6 +233,10 @@ def whisper_forward(cfg: WhisperConfig, params, frames, tokens):
 
 def whisper_loss(cfg: WhisperConfig, params, batch):
     """Mean next-token cross-entropy over the whole vocab -> (loss, {"ce": loss})."""
+    if is_sharded(params["embed"]):
+        from repro_torch.models import sharded_whisper
+
+        return sharded_whisper.whisper_loss(cfg, params, batch)
     logits = whisper_forward(cfg, params, batch["audio_frames"], batch["tokens"])
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, batch["targets"].to(torch.int64)[..., None])[..., 0]
@@ -239,12 +255,31 @@ def whisper_cache_template(cfg: WhisperConfig, batch: int, enc_len: int):
     return tree_map(lambda _, s: ((cfg.n_dec_layers, *s[0]), s[1]), one)
 
 
-def whisper_prefill(cfg: WhisperConfig, params, frames):
+def whisper_cache_specs(batch_axes, tp_axis, seq_axis=None) -> dict:
+    """Partition specs matching :func:`whisper_cache_template`: K / V
+    [layers, batch, seq, heads, d_head] over the batch axes, ``seq_axis``
+    (the cross cache only) and ``tp_axis``; ``len`` over the batch."""
+    kv = lambda s: {
+        "k": P(None, batch_axes, s, tp_axis, None),
+        "v": P(None, batch_axes, s, tp_axis, None),
+        "len": P(None, batch_axes),
+    }
+    return {"self": kv(None), "cross": kv(seq_axis)}
+
+
+def whisper_prefill(cfg: WhisperConfig, params, frames, *, shard_seq: bool = False):
     """Encode audio and precompute every decoder layer's cross-attention K/V.
 
     Returns the caches of :func:`whisper_cache_template`: the cross cache
     filled (``len`` = S_enc), the self cache zeros with ``len`` 0, each
-    layer's its own storage (decode appends in place)."""
+    layer's its own storage (decode appends in place).  Parameters placed
+    on a mesh run sharded and return caches sharded by ``cache_pspecs``
+    (``shard_seq``: the cross cache's sequence over ``data``; on one device
+    it changes nothing)."""
+    if is_sharded(params["embed"]):
+        from repro_torch.models import sharded_whisper
+
+        return sharded_whisper.whisper_prefill(cfg, params, frames, shard_seq=shard_seq)
     enc_out = whisper_encode(cfg, params, frames)
     B, Se, _ = enc_out.shape
     t = whisper_cache_template(cfg, B, Se)
@@ -261,7 +296,12 @@ def whisper_prefill(cfg: WhisperConfig, params, frames):
 def whisper_decode_step(cfg: WhisperConfig, params, caches, tokens, cur_len):
     """One decoder token against the self and cross caches. tokens [B, 1];
     cur_len [B] -> (logits [B, 1, V] f32, caches, the self caches appended
-    in place)."""
+    in place).  Parameters placed on a mesh run sharded against caches
+    sharded by ``cache_pspecs``; the logits come back whole."""
+    if is_sharded(params["embed"]):
+        from repro_torch.models import sharded_whisper
+
+        return sharded_whisper.whisper_decode_step(cfg, params, caches, tokens, cur_len)
     h = _embed(cfg, params, tokens)
     pos = torch.clamp(cur_len.to(torch.int64), 0, cfg.dec_max_len - 1)
     h = h + params["dec_pos"][pos][:, None, :].to(h.dtype)

@@ -22,8 +22,10 @@ Fault tolerance (JAX's model, the same events in ``metrics.jsonl``):
 several shards trains FSDP + TP over it (``launch/steps.py``), inside
 ``activation_rules(mesh)`` as JAX's loop does: the state is made on
 ``device`` and placed by the first step; checkpoints hold whole leaves, so
-a run resumes on another mesh than the one that wrote them.  Every
-decoder family shards; Whisper raises there (ROADMAP Queue 1 #5c).
+a run resumes on another mesh than the one that wrote them.  The loop
+feeds token batches only, as JAX's does: Whisper (which trains on audio
+frames) trains, on one device or a mesh, through
+``launch/steps.py::build_train_step``.
 """
 
 from __future__ import annotations

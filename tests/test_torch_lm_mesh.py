@@ -16,7 +16,9 @@ bf16 with the greedy token equal wherever the top-2 margin is wider than
 that (``tests/test_torch_lm_serve.py``'s rule).  Also ``bf16_gather``,
 replicas written as distinct tensors on a mesh that repeats a device, a
 checkpoint written under 2 x 2 restored under 4 x 1, a ``TrainLoop``
-killed and resumed on a mesh, and the refusals of what is not ported.
+killed and resumed on a mesh, Whisper's steps built on a mesh, and
+``shard_cache_seq`` refused only where the batch already splits over
+``data``.
 """
 
 import dataclasses
@@ -38,6 +40,7 @@ from repro.models.registry import get_arch as j_get_arch
 from repro.train import optimizer as jopt
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core import precision as tp
+from repro_torch.distributed.sharding import DuplicateSpecError
 from repro_torch.distributed.spmd import Sharded, gather_tree, shard_tree
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch.mesh import make_mesh
@@ -414,24 +417,44 @@ def test_train_loop_resumes_on_a_mesh(tmp_path):
 
 @pytest.mark.parametrize("name", ["whisper-medium"])
 def test_families_not_ported_refuse_a_mesh(name, tmp_path):
+    """Every family now shards: Whisper's train, prefill and decode steps
+    build and run on a (2, 2) mesh (``tests/test_torch_whisper_mesh.py``
+    holds them to one device and JAX), and a ``TrainLoop`` takes the mesh
+    (it feeds token batches only, as JAX's does: Whisper trains through
+    ``build_train_step``).  One shard is the one-device code."""
     arch = get_arch(name)
+    cfg = arch.reduced_config
     mesh = _mesh((2, 2))
+    params = arch.init_params(torch.Generator().manual_seed(0), cfg)
     for build, shape in [
         (tsteps.build_train_step, ShapeSpec("t", 16, 4, "train")),
         (tsteps.build_prefill_step, ShapeSpec("p", 16, 4, "prefill")),
         (tsteps.build_decode_step, ShapeSpec("d", 16, 4, "decode")),
     ]:
-        with pytest.raises(NotImplementedError, match="Queue 1 #5c"):
-            build(arch, shape, mesh, arch.reduced_config)
-        build(arch, shape, _mesh((1, 1)), arch.reduced_config)  # one shard: the one-device code
-    if name != "whisper-medium":
-        with pytest.raises(NotImplementedError, match="Queue 1 #5c"):
-            TrainLoop(name, 16, 4, mesh, str(tmp_path), device="cpu")
+        assert build(arch, shape, mesh, cfg).mesh == mesh
+        assert build(arch, shape, _mesh((1, 1)), cfg).mesh is None  # one shard: the one-device code
+    batch = arch.input_concrete(torch.Generator().manual_seed(1), ShapeSpec("p", 16, 4, "prefill"), cfg)
+    with torch.no_grad():
+        caches = tsteps.build_prefill_step(arch, ShapeSpec("p", 16, 4, "prefill"), mesh, cfg).jitted(params, batch)
+        assert caches["cross"]["k"].spec == (None, "data", None, "model", None)
+        dec = tsteps.build_decode_step(arch, ShapeSpec("d", 16, 4, "decode"), mesh, cfg).jitted
+        logits, caches = dec(params, caches, {"tokens": torch.zeros((4, 1), dtype=torch.int32),
+                                              "cur_len": torch.zeros((4,), dtype=torch.int32)})
+    assert logits.shape == (4, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
+    assert TrainLoop(name, 16, 4, mesh, str(tmp_path), device="cpu").mesh is mesh
 
 
 def test_shard_cache_seq_is_refused_on_a_mesh_and_inert_on_one_device():
+    """``shard_cache_seq`` puts the caches' sequence over ``data``; it is
+    refused (``DuplicateSpecError``, as JAX's) only where the batch already
+    splits over ``data``, and changes nothing on one device.
+    ``tests/test_torch_decode_seq_shard.py`` holds the decode to one device
+    and JAX."""
     arch = get_arch("stablelm-1.6b")
     shape = ShapeSpec("d", 16, 4, "decode")
-    with pytest.raises(NotImplementedError, match="Queue 1 #5c"):
+    with pytest.raises(DuplicateSpecError, match="'data'"):
         tsteps.build_decode_step(arch, shape, _mesh((2, 2)), arch.reduced_config, shard_cache_seq=True)
     tsteps.build_decode_step(arch, shape, None, arch.reduced_config, shard_cache_seq=True)
+    one = tsteps.build_decode_step(arch, ShapeSpec("d", 16, 1, "decode"), _mesh((2, 2)), arch.reduced_config,
+                                   shard_cache_seq=True)
+    assert one.specs[1]["pos0"]["k"] == (None, None, "data", "model", None)

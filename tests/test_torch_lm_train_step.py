@@ -135,15 +135,14 @@ def test_train_step_takes_over_the_state_it_is_given():
 
 
 def test_step_builders_refuse_a_multi_device_mesh():
-    """A mesh of several shards runs the decoder families sharded; Whisper,
-    not sharded yet, refuses it, naming its ROADMAP item.  A 1-D DeviceMesh
-    counts as (n, 1) over ("data", "model"); one shard is one device."""
+    """A mesh of several shards runs every family sharded, Whisper too (no
+    builder refuses it any more).  A 1-D DeviceMesh counts as (n, 1) over
+    ("data", "model"); one shard is one device."""
     shape = ShapeSpec("t", 16, 2, "train")
     two = make_mesh(2, devices=["cpu", "cpu"])
     audio = get_arch("whisper-medium")
     for build in (tsteps.build_train_step, tsteps.build_prefill_step, tsteps.build_decode_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 #5c"):
-            build(audio, shape, two, audio.reduced_config)
+        assert build(audio, shape, two, audio.reduced_config).mesh.shape == {"data": 2, "model": 1}
         assert build(audio, shape, make_mesh(1, devices=["cpu"]), audio.reduced_config).mesh is None
     moe = get_arch("granite-moe-1b-a400m")
     assert tsteps.build_train_step(moe, shape, two, moe.reduced_config).mesh.shape == {"data": 2, "model": 1}
