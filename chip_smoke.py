@@ -219,11 +219,23 @@ result line):
    and 393216, then a real 4096-token prefill grown into a 6144-deep
    buffer) decoded with ``shard_cache_seq`` at f32 compute against one
    device; ms a step on both;
-19. a ``kernels`` JSON line (launches on phases 3-7 and 9-18, times,
+19. the dry run (``launch/dryrun.py``): (a) stablelm-1.6b x decode_32k x
+   serve_q8 through ``run_cell`` on the meta (16, 16) mesh at full size,
+   its per-device peak, FLOPs, wire bytes, dominant term and ``fits_hbm``
+   (predictions from ``HW``); (b) stablelm at full width and 2 layers on
+   the (2, 2) mesh of card 0, its serve_q8 prefill of 2 x 4096 tokens and
+   bf16 train step run for real under the dry run's counters and as a
+   meta pass: FLOPs, collectives by op (backward included), wire bytes and
+   the kernels' reports equal, every ``quant_matmul`` / ``flash_attention``
+   launch held to plain; (c) on one device, the meta pass's peak against
+   ``torch.cuda.max_memory_allocated()`` within DRY_MEM_BAND; (d) (b)'s
+   steps timed warm, wall and busy, beside ``roofline_terms`` and the share
+   of the bound the card reaches;
+20. a ``kernels`` JSON line (launches on phases 3-7 and 9-19, times,
    bounds); phases 3-5 and 9-12 also print the SNN kernels' launches by
    size; phase 2 also times non-causal ``flash_attention`` at
    [1,16,4096,64] and [1,16,32768,64] beside SDPA and the bound;
-20. the result line.
+21. the result line.
 """
 
 from __future__ import annotations
@@ -314,7 +326,8 @@ from repro_torch.kernels.quant_matmul.spike_matmul import (  # noqa: E402
 from repro_torch.kernels.sparse_accum.ops import fixed_capacity_events  # noqa: E402
 from repro_torch.kernels.sparse_accum.ref import sparse_accum_ref  # noqa: E402
 from repro_torch.kernels.sparse_accum.sparse_accum import sparse_accum  # noqa: E402
-from repro_torch.launch import serve_snn  # noqa: E402
+from repro_torch.launch import dryrun, serve_snn  # noqa: E402
+from repro_torch.distributed.hlo_analysis import HW, roofline_terms  # noqa: E402
 from repro_torch.launch.serve import QUANT_RULES  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     build_decode_step,
@@ -1148,10 +1161,10 @@ def lm_requests(n: int, max_new: int, vocab: int, max_prompt: int = 32) -> list[
     return [Request(uid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
 
 
-def device_split(fn, n: int = 5, top: int = 4, width: int = 40) -> str:
-    """Wall vs device-busy time of ``n`` calls of ``fn`` under torch.profiler,
-    and the ``top`` kernels that took the most device time (names cut to
-    ``width`` characters)."""
+def profiled(fn, n: int) -> tuple[float, float, list]:
+    """``fn`` once, then ``n`` calls under torch.profiler: wall and
+    device-busy milliseconds per call, and the device-side entries (kernels,
+    copies: no time is counted twice)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1160,12 +1173,18 @@ def device_split(fn, n: int = 5, top: int = 4, width: int = 40) -> str:
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / n
-    # device-side entries only (kernels, copies), so no time is counted twice
     events = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
     ]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+    return wall_ms, sum(e.self_device_time_total for e in events) / 1e3 / n, events
+
+
+def device_split(fn, n: int = 5, top: int = 4, width: int = 40) -> str:
+    """Wall vs device-busy time of ``n`` calls of ``fn`` under torch.profiler,
+    and the ``top`` kernels that took the most device time (names cut to
+    ``width`` characters)."""
+    wall_ms, busy_ms, events = profiled(fn, n)
     if not events:
         return f"wall {wall_ms:.3f} ms per call; device time not measured (the profiler saw none)"
     items = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
@@ -4877,6 +4896,204 @@ def phase_whisper_mesh(smi: str, launches: dict) -> None:
     print(f"phase 18 took {time.perf_counter() - t0:.3f} s; on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the dry run (launch/dryrun.py) against the card
+# ---------------------------------------------------------------------------
+
+DRY_CELL = ("stablelm-1.6b", "decode_32k", "serve_q8")  # 19a: full size, the meta (16, 16) mesh
+DRY_OUT = ROOT / "build" / "dryrun_torch"  # its record (git-ignored)
+DRY_LAYERS = 2  # 19b-d: stablelm at full width cut to 2 layers
+DRY_PREFILL = ShapeSpec("prefill", 4096, 2, "prefill")  # serve_q8: quant_matmul and flash_attention
+DRY_TRAIN = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")  # the config's bf16 compute
+# 19c: the card's peak allocation over the meta pass's predicted peak, on one
+# device.  The caching allocator rounds every block up to 512 B, which the
+# meta pass does not: +0.001 MiB of 1827 (prefill) and +0.005 MiB of 13328
+# (train) measured on an H100 80GB HBM3 at 700 W; cuBLAS's workspace was
+# taken at 19b's first product, before 19c's baseline
+DRY_MEM_BAND = (0.999, 1.001)
+
+
+def dry_step(name: str, mesh_shape, device: str):
+    """19b-d's step ``name`` ("prefill" or "train") of stablelm at full width
+    and DRY_LAYERS layers on a ``mesh_shape`` mesh of ``device`` repeated."""
+    arch = get_arch(LM_ARCH)
+    arch = dataclasses.replace(arch, config=dataclasses.replace(arch.config, n_layers=DRY_LAYERS))
+    mesh = make_named_mesh(mesh_shape, [device] * (mesh_shape[0] * mesh_shape[1]))
+    if name == "prefill":
+        return dryrun.build_step(arch, DRY_PREFILL, mesh, variant="serve_q8")
+    return dryrun.build_step(arch, DRY_TRAIN, mesh)
+
+
+def dry_args(name: str, bundle):
+    """19b-d's arguments for ``bundle`` (``dry_step``'s): stablelm's init
+    from torch.Generator('cuda').manual_seed(19) -- the prefill's bf16 and
+    int8 by the serving policy, as phase 16b serves them; the train step's
+    f32 with AdamW's state -- and seeded tokens, placed by the bundle's
+    specs on its mesh."""
+    arch = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(arch.config, n_layers=DRY_LAYERS)
+    if name == "prefill":
+        params = quantize_tree(init_bf16(arch, cfg, seed=19), lm_policy(8))
+        gen = torch.Generator(device=DEVICE).manual_seed(19)
+        shape = (DRY_PREFILL.global_batch, DRY_PREFILL.seq_len)
+        batch = {"tokens": torch.randint(0, cfg.vocab, shape, generator=gen, device=DEVICE, dtype=torch.int32)}
+    else:
+        params = arch.init_params(torch.Generator(device=DEVICE).manual_seed(19), cfg)
+        batch = train_batches(arch, cfg, 1, seed=19)[0]
+    if bundle.mesh is not None:
+        params = shard_tree(params, bundle.specs[0], bundle.mesh)
+        batch = shard_tree(batch, bundle.specs[-1], bundle.mesh)
+    if name == "prefill":
+        return params, batch
+    return params, init_opt_state(adamw(3e-4), params), batch
+
+
+def phase19_cell(smi: str) -> None:
+    """19a: one full-size cell through ``dryrun.run_cell`` on the meta (16,
+    16) mesh: the record's per-device peak, FLOPs, wire bytes, dominant
+    roofline term and ``fits_hbm`` (predictions from ``HW``)."""
+    name, shape, variant = DRY_CELL
+    shutil.rmtree(DRY_OUT, ignore_errors=True)
+    rec = dryrun.run_cell(name, shape, False, variant=variant, out_dir=DRY_OUT, verbose=False)
+    check(rec["status"] == "ok", f"19a: {name} x {shape} x {variant}: {rec.get('error')}")
+    check(rec["n_devices"] == 256 and rec["n_groups"] == get_arch(name).config.n_layers, f"19a: {rec['n_devices']}")
+    mem, r = rec["memory"], rec["roofline"]
+    check(0 < mem["argument_size_in_bytes"] <= mem["peak_memory_in_bytes"] < HW.hbm_bytes, f"19a: memory {mem}")
+    check(rec["flops_per_device"] > 0 and rec["wire_bytes_per_device"] > 0, "19a: FLOPs and wire bytes")
+    check(rec["kernels"]["quant_matmul"]["calls"] > 0, "19a: no quant_matmul call on the meta pass")
+    print(
+        f"dry run (19a, a prediction from HW, not a measurement) {name} x {shape} x single "
+        f"(16, 16) meta mesh, {variant}: peak {mem['peak_memory_in_bytes'] / 1e9:.3f} GB a device "
+        f"(arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB), fits_hbm {rec['fits_hbm']} "
+        f"(structural {rec['capacity_structural']['total'] / 1e9:.3f} GB of {HW.hbm_bytes / 1e9:g}), "
+        f"{rec['flops_per_device']:.4e} FLOPs and {rec['wire_bytes_per_device']:.4e} wire bytes a "
+        f"device, {rec['kernels']['quant_matmul']['calls']} quant_matmul calls; roofline compute "
+        f"{r['compute_s']:.3e} s, memory {r['memory_s']:.3e} s, collective {r['collective_s']:.3e} s, "
+        f"dominant {r['dominant']}; the meta pass took {rec['pass_s']} s on the host; on {smi}"
+    )
+
+
+def phase19_counters(smi: str) -> dict:
+    """19b and 19d: stablelm at full width and DRY_LAYERS layers on the (2, 2)
+    mesh of card 0, the serve_q8 prefill of 2 x 4096 tokens and the bf16
+    train step, run for real under the dry run's counters and as a meta
+    pass: FLOPs, the collectives by op (counts and wire bytes, backward
+    included) and the kernels' reports equal; every ``quant_matmul`` /
+    ``flash_attention`` launch held to its plain version at QM_TOL / FA_TOL;
+    then each step timed warm beside its ``roofline_terms``."""
+    counts_all = collections.Counter()
+    for name in ("prefill", "train"):
+        card, meta = dry_step(name, MESH_SHAPE, DEVICE), dry_step(name, MESH_SHAPE, "meta")
+        args = dry_args(name, card)
+        with recorded_quant_matmul() as seen_qm, recorded_flash_attention() as seen_fa:
+            reset_counts()
+            real = dryrun.run_pass(card, args)
+            counts = read_counts()
+        del args
+        pred = dryrun.run_pass(meta)
+        check(real["flops"] == pred["flops"] > 0, f"19b {name}: FLOPs {real['flops']} on the card, {pred['flops']} predicted")
+        check(real["collectives"].summary() == pred["collectives"].summary(),
+              f"19b {name}: collectives {real['collectives'].summary()} vs {pred['collectives'].summary()}")
+        check(real["backward_collectives"] == pred["backward_collectives"], f"19b {name}: backward collectives")
+        check(real["kernels"] == pred["kernels"], f"19b {name}: kernels {real['kernels']} vs {pred['kernels']}")
+        for k in ("quant_matmul", "flash_attention"):
+            check(counts[k] == real["kernels"].get(k, {}).get("calls", 0), f"19b {name}: {k} launches {counts}")
+        check(len(seen_qm) == counts["quant_matmul"] and len(seen_fa) == counts["flash_attention"],
+              f"19b {name}: recorded launches")
+        if name == "prefill":
+            check(counts["quant_matmul"] > 0 and counts["flash_attention"] > 0, f"19b prefill: launches {counts}")
+        else:
+            check(sum(counts.values()) == 0 and real["backward_collectives"]["n_ops"] > 0, f"19b train: {counts}")
+        qm_err = check_recorded_qm(seen_qm, f"19b {name}") if seen_qm else 0.0
+        fa_err = check_recorded_fa(seen_fa, f"19b {name}")[0] if seen_fa else 0.0
+        del seen_qm, seen_fa
+        counts_all.update(counts)
+        coll = real["collectives"].summary()
+        by_op = {op: v["count"] for op, v in coll["by_op"].items()}
+        print(
+            f"dry run (19b) {LM_ARCH} full width, {DRY_LAYERS} layers, {name} on (2, 2) shards of card 0: "
+            f"the card's run == the meta pass: {real['flops']:.6e} FLOPs, collectives {by_op} "
+            f"({coll['wire_bytes_per_device']:.6e} wire bytes a device; backward "
+            f"{real['backward_collectives']['n_ops']}), kernels "
+            f"{ {k: v['calls'] for k, v in real['kernels'].items()} }; launches {dict(counts)} each "
+            f"within tolerance of plain (quant_matmul {qm_err:.3e}, flash_attention {fa_err:.3e}); "
+            f"on {smi}"
+        )
+        # 19d: the same step warm, beside its bound from HW (the card runs
+        # all four shards, so the totals; its collectives are copies in HBM)
+        args = dry_args(name, card)
+        if name == "train":
+            state = list(args)
+
+            def fn():
+                state[0], state[1], _ = card.jitted(*state)
+        else:
+            def fn():
+                card.jitted(*args)
+        wall, busy, _ = profiled(fn, 3)
+        del args, fn
+        torch.cuda.empty_cache()
+        wire = real["collectives"].per_device_wire_bytes * real["n_shards"]
+        t = roofline_terms(real["flops"], real["bytes"], wire, HW)
+        bound_ms = 1e3 * t["roofline_bound_s"]
+        print(
+            f"dry run (19d) {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms a step (warm); "
+            f"roofline from HW over the four shards' totals ({real['flops']:.4e} FLOPs, "
+            f"{real['bytes']:.4e} operand + result bytes unfused, {wire:.4e} wire bytes): compute "
+            f"{1e3 * t['compute_s']:.3f} ms, memory {1e3 * t['memory_s']:.3f} ms, collective "
+            f"{1e3 * t['collective_s']:.3f} ms, dominant {t['dominant']}; the card reaches "
+            f"{bound_ms / wall:.4f} of the bound by the wall, {bound_ms / busy:.4f} by the busy "
+            f"time; on {smi}"
+        )
+    return dict(counts_all)
+
+
+def phase19_memory(smi: str) -> None:
+    """19c: on one device, the meta pass's predicted peak against
+    ``torch.cuda.max_memory_allocated()`` for 19b's prefill and train step,
+    within DRY_MEM_BAND."""
+    for name in ("prefill", "train"):
+        pred = dryrun.run_pass(dry_step(name, (1, 1), "meta"))["memory"]
+        card = dry_step(name, (1, 1), DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        m0 = torch.cuda.memory_allocated()
+        args = dry_args(name, card)
+        torch.cuda.synchronize()
+        arg_bytes = torch.cuda.memory_allocated() - m0
+        torch.cuda.reset_peak_memory_stats()
+        out = card.jitted(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - m0
+        del args, out
+        torch.cuda.empty_cache()
+        ratio = peak / pred["peak_memory_in_bytes"]
+        check(DRY_MEM_BAND[0] <= ratio <= DRY_MEM_BAND[1],
+              f"19c {name}: the card's peak {peak} B over the predicted {pred['peak_memory_in_bytes']} B "
+              f"= {ratio:.4f}, outside {DRY_MEM_BAND}")
+        print(
+            f"dry run (19c) {name} on one device: predicted peak {pred['peak_memory_in_bytes'] / 2**20:.3f} "
+            f"MiB (arguments {pred['argument_size_in_bytes'] / 2**20:.3f}), the card's "
+            f"max_memory_allocated {peak / 2**20:.3f} MiB (arguments {arg_bytes / 2**20:.3f}): "
+            f"{ratio:.4f} of the prediction (band {DRY_MEM_BAND}); on {smi}"
+        )
+
+
+def phase_dryrun(smi: str, launches: dict) -> None:
+    """Phase 19: the dry run's full-size cell (19a), its counters against a
+    real run on the (2, 2) mesh of card 0 (19b, with 19d's timing) and its
+    memory against the card's allocator on one device (19c)."""
+    t0 = time.perf_counter()
+    phase19_cell(smi)
+    t1 = time.perf_counter()
+    counts = phase19_counters(smi)
+    print(f"launches[dryrun]: {counts} (19a {t1 - t0:.3f} s, 19b-d {time.perf_counter() - t1:.3f} s)")
+    for k, v in counts.items():
+        launches[k] += v
+    phase19_memory(smi)
+    print(f"phase 19 took {time.perf_counter() - t0:.3f} s; on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA card", file=sys.stderr)
@@ -5113,6 +5330,9 @@ def main() -> int:
     print(f"the script so far {time.perf_counter() - t_start:.3f} s")
 
     phase_whisper_mesh(smi, launches)
+    print(f"the script so far {time.perf_counter() - t_start:.3f} s")
+
+    phase_dryrun(smi, launches)
     print(f"the script so far {time.perf_counter() - t_start:.3f} s")
 
     for k, v in launches.items():

@@ -23,16 +23,33 @@ for bit and every member of a group gets the same bits.  Autograd runs
 through them: the backward of a gather is a reduce-scatter of the
 gradients, the backward of a sum copied to the group members is the sum
 of their gradients broadcast back -- no backward is written by hand.
+
+:func:`count_collectives` records, while its block runs, one entry per
+collective call, as one HLO instruction is one: XLA's op name, the full
+tensor's bytes (the gathered side of a gather, the operand of a reduce, one
+shard's block of an all-to-all) in the dtype as issued -- ``all_reduce``
+adds 16-bit floats in f32 but sends them as issued -- and the group size.
+The backward pass issues no call here, so each collective whose outputs
+require grad also records its transpose when the first of their gradients
+arrives: a gather's reduce-scatter, an all-reduce's all-reduce, an
+all-to-all's inverse.  :meth:`Sharded.full` is recorded as ``full-gather``:
+it brings a tensor whole to one device (the prefill and decode logits),
+which XLA's partitioned step has no instruction for; it is costed as an
+all-gather of its distinct blocks.  Placement (:func:`shard`, :func:`place`)
+is not a collective and records nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+from typing import Callable
 
 import torch
 
 from repro_torch.core.precision import QTensor, tree_map
+from repro_torch.distributed.hlo_analysis import CollectiveStats, ring_wire_bytes
 from repro_torch.distributed.sharding import Mesh, NamedSharding, P, axis_names_of
 
 __all__ = [
@@ -48,7 +65,108 @@ __all__ = [
     "local",
     "local_tree",
     "is_sharded",
+    "CollectiveRecorder",
+    "count_collectives",
 ]
+
+
+@dataclasses.dataclass
+class CollectiveRecorder:
+    """The collectives issued inside :func:`count_collectives`: ``entries``
+    holds ``{"op", "bytes", "g", "backward"}`` per call.  ``hold``, where
+    given, is told which shards hold each collective's outputs (``hold(t,
+    shards)``), for a counter of the shards' live bytes; with it, the
+    members of an all-reduce on a mesh that repeats a device get their own
+    copies of the sum, as members on distinct cards do."""
+
+    entries: list = dataclasses.field(default_factory=list)
+    hold: Callable | None = None
+
+    def record(self, op: str, nbytes: int, g: int, backward: bool = False) -> None:
+        self.entries.append({"op": op, "bytes": int(nbytes), "g": int(g), "backward": backward})
+
+    def stats(self, backward: bool | None = None) -> CollectiveStats:
+        """:class:`~.hlo_analysis.CollectiveStats` of the entries (only the
+        forward or backward ones where ``backward`` says so), each costed by
+        :func:`~.hlo_analysis.ring_wire_bytes`."""
+        by_op: dict[str, dict] = {}
+        total = 0.0
+        for e in self.entries:
+            if backward is not None and e["backward"] != backward:
+                continue
+            wire = ring_wire_bytes(_COSTED_AS.get(e["op"], e["op"]), e["bytes"], e["g"])
+            total += wire
+            rec = by_op.setdefault(e["op"], {"count": 0, "wire_bytes": 0.0})
+            rec["count"] += 1
+            rec["wire_bytes"] += wire
+        return CollectiveStats(total, by_op, sum(r["count"] for r in by_op.values()))
+
+    def issued(self, op: str, nbytes: int, g: int, xs: list, outs: list, transpose: str) -> None:
+        """One collective ``op`` from the per-shard inputs ``xs`` to the
+        outputs ``outs`` (shard ``i`` holds ``outs[i]``); its backward is
+        ``transpose``, recorded once when the first of the outputs'
+        gradients arrives."""
+        self.record(op, nbytes, g)
+        if self.hold is not None:
+            for i, t in enumerate(outs):
+                self.hold(t, (i,))
+        if not torch.is_grad_enabled():
+            return
+        fired = []
+
+        def transposed(grad):
+            if not fired:
+                fired.append(True)
+                self.record(transpose, nbytes, g, backward=True)
+
+        for t in {id(t): t for t in outs if t.requires_grad}.values():
+            t.register_hook(transposed)
+        if self.hold is None:
+            return
+        # the gradient the backward delivers to each input arrives as that
+        # shard's own copy, as on distinct cards (where a mesh repeats a
+        # device, the backward of a sum hands every member one tensor)
+        seen = set()
+        for k, x in enumerate(xs):
+            if x.requires_grad and id(x) not in seen:
+                seen.add(id(x))
+                x.register_hook(lambda grad, k=k: self._arrived(grad, k))
+
+    def _arrived(self, grad: torch.Tensor, k: int) -> torch.Tensor:
+        grad = grad.clone()
+        self.hold(grad, (k,))
+        return grad
+
+
+# ops recorded under names of their own, costed as an XLA collective
+_COSTED_AS = {"full-gather": "all-gather"}
+
+# the recorders of the open count_collectives blocks, innermost last.  The
+# process's, not a context variable: a CUDA backward runs on autograd's
+# device threads, and ``checkpoint`` recomputes its forward (and its
+# gathers) there
+_ACTIVE: list[CollectiveRecorder] = []
+
+
+def _recorder() -> CollectiveRecorder | None:
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+@contextlib.contextmanager
+def count_collectives(hold: Callable | None = None):
+    """Record every collective issued inside the block (and the backward
+    collectives of those whose gradients arrive later); yields the
+    :class:`CollectiveRecorder`."""
+    rec = CollectiveRecorder(hold=hold)
+    _ACTIVE.append(rec)
+    try:
+        yield rec
+    finally:
+        _ACTIVE.remove(rec)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 @dataclasses.dataclass(eq=False)
@@ -95,6 +213,11 @@ class Sharded:
             if blocks not in seen:
                 seen.add(blocks)
                 out[_slices(self.mesh, self.spec, self.shape, i)] = t.to(device)
+        rec = _recorder()
+        if rec is not None and len(seen) > 1:
+            rec.record("full-gather", _nbytes(out), len(seen))
+            if rec.hold is not None:
+                rec.hold(out, (0,))
         return out
 
     def unbind0(self) -> list["Sharded"]:
@@ -151,6 +274,10 @@ def shard(x: torch.Tensor, sharding: NamedSharding) -> Sharded:
         )
         for i, dev in enumerate(mesh.flat)
     ]
+    rec = _recorder()
+    if rec is not None and rec.hold is not None:
+        for i, t in enumerate(shards):
+            rec.hold(t, (i,))
     return Sharded(shards, mesh, spec, tuple(x.shape))
 
 
@@ -224,6 +351,10 @@ def all_gather(xs: list, mesh: Mesh, axes, dim: int) -> list:
             for combo in itertools.product(*(range(mesh.shape[a]) for a in names))
         ]
         out.append(torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0])
+    g = mesh.axis_size(axes)
+    rec = _recorder()
+    if rec is not None and g > 1:
+        rec.issued("all-gather", _nbytes(out[0]), g, xs, out, "reduce-scatter")
     return out
 
 
@@ -248,6 +379,9 @@ def all_to_all(xs: list, mesh: Mesh, axis: str, split_dim: int, concat_dim: int)
                 raise ValueError(f"all_to_all: dimension {src.shape[split_dim]} does not divide over {n}")
             parts.append(src.narrow(split_dim, c[axis] * size, size).to(dev))
         out.append(torch.cat(parts, dim=concat_dim))
+    rec = _recorder()
+    if rec is not None:
+        rec.issued("all-to-all", _nbytes(xs[0]), n, xs, out, "all-to-all")
     return out
 
 
@@ -299,6 +433,10 @@ def all_reduce(xs: list, mesh: Mesh, axes: tuple[str, ...], op: str = "sum") -> 
     for i in range(mesh.size):
         c = mesh.coord(i)
         groups.setdefault(tuple(v for a, v in c.items() if a not in axes), []).append(i)
+    rec = _recorder()
+    # a memory counter attributes each member's sum to it: where the mesh
+    # repeats a device, give every member its own copy, as distinct cards hold
+    distinct = rec is not None and rec.hold is not None
     out = [None] * mesh.size
     for members in groups.values():
         dev, dt = xs[members[0]].device, xs[members[0]].dtype
@@ -308,6 +446,8 @@ def all_reduce(xs: list, mesh: Mesh, axes: tuple[str, ...], op: str = "sum") -> 
             y = xs[k].to(dev)
             acc = acc + (y.to(torch.float32) if wide else y) if op == "sum" else torch.maximum(acc, y)
         acc = acc.to(dt)
-        for k in members:
-            out[k] = acc.to(mesh.flat[k])
+        for j, k in enumerate(members):
+            out[k] = acc.to(mesh.flat[k], copy=distinct and j > 0)
+    if rec is not None:
+        rec.issued("all-reduce", _nbytes(xs[0]), mesh.axis_size(axes), xs, out, "all-reduce")
     return out

@@ -9,7 +9,12 @@ masks; ragged Sq / Sk; grouped-query attention by reading kv head
 ``h // (Hq // Hk)`` directly.
 
 For CPU tensors the wrapper runs :func:`~.ref.flash_attention_ref` (with the
-kv heads repeated); for CUDA tensors it launches the kernel or raises.  The
+kv heads repeated); for CUDA tensors it launches the kernel or raises; for
+``meta`` tensors (a dry run) it validates the call as for CUDA and returns
+the output's allocation, never the plain version's [B, H, Sq, Sk] scores.
+Each call reports 4 B Hq D times the (query, key) pairs its masks keep
+(:func:`~repro_torch.kernels.work.flash_pairs`) through
+:func:`~repro_torch.kernels.work.kernel`.  The
 kernel is forward-only (the JAX package has no flash backward either), so
 an input that requires grad raises on every device rather than being
 detached: training runs the plain attention
@@ -20,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 __all__ = ["flash_attention"]
@@ -58,13 +63,17 @@ def flash_attention(
     scale = scale if scale is not None else D**-0.5
     if not (q.device == k.device == v.device):
         raise ValueError(f"flash_attention: operands on {q.device}, {k.device}, {v.device}")
+    flops = 4 * B * Hq * D * work.flash_pairs(Sq, Sk, causal, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    call = work.kernel("flash_attention", flops, nbytes, (q, k, v))
     if q.device.type == "cpu":
         rep = Hq // Hk
-        return flash_attention_ref(
-            q, k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1),
-            causal=causal, window=window, softcap=softcap, scale=scale,
-        )
-    if q.device.type != "cuda":
+        with call:
+            return flash_attention_ref(
+                q, k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1),
+                causal=causal, window=window, softcap=softcap, scale=scale,
+            )
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attention: needs one bf16/f32 dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -74,18 +83,21 @@ def flash_attention(
         raise ValueError("flash_attention: the head dim must be contiguous")
     if max(t.numel() for t in (q, k, v)) >= 2**31 or max(B * Hq, -(-Sq // 64)) > 65535:
         raise ValueError("flash_attention: tensors exceed the kernel's 32-bit indexing or grid")
-    out = torch.empty_like(q)  # keeps q's strides, so [B, S, H, D] views stay that layout
-    launch = build.entry("flash_attention", "flash_attention_launch", 4, 21, 2)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hk, Sq, Sk, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(causal), int(window or 0), int(q.dtype == torch.bfloat16),
-            float(scale), float(softcap or 0.0), stream,
-        )
-        build.check(code, "flash_attention")
+    with call:
+        out = torch.empty_like(q)  # keeps q's strides, so [B, S, H, D] views stay that layout
+        if q.device.type == "meta":  # a dry run: the call's allocation and work, no launch
+            return out
+        launch = build.entry("flash_attention", "flash_attention_launch", 4, 21, 2)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            code = launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, Hq, Hk, Sq, Sk, D,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                int(causal), int(window or 0), int(q.dtype == torch.bfloat16),
+                float(scale), float(softcap or 0.0), stream,
+            )
+            build.check(code, "flash_attention")
     flash_attention.launches += 1
     return out
 

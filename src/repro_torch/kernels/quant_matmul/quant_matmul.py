@@ -12,7 +12,10 @@ kernel.  The kernel masks ragged M, N and K itself, so unlike the JAX
 wrapper there is no shape-dependent fallback; int4 needs only an even N.
 
 For CPU tensors the wrapper runs :func:`~.ref.quant_matmul_ref`; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises; for ``meta`` tensors (a dry run)
+it validates the call as for CUDA and returns the output's allocation.
+Each call reports its 2 M K N operations and its bytes through
+:func:`~repro_torch.kernels.work.kernel`.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
 __all__ = ["QMPlan", "plan", "quant_matmul"]
@@ -112,9 +115,12 @@ def quant_matmul(
         raise ValueError(f"quant_matmul: q {tuple(q.shape)} does not fit x {tuple(x.shape)}, N={N}")
     if not (x.device == q.device == scale.device):
         raise ValueError(f"quant_matmul: operands on {x.device}, {q.device}, {scale.device}")
+    nbytes = x.numel() * x.element_size() + q.numel() + 4 * N + M * N * out_dtype.itemsize
+    call = work.kernel("quant_matmul", 2 * M * K * N, nbytes, (x, q, scale))
     if x.device.type == "cpu":
-        return quant_matmul_ref(x, q, scale, bits, out_dtype)
-    if x.device.type != "cuda":
+        with call:
+            return quant_matmul_ref(x, q, scale, bits, out_dtype)
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"quant_matmul: no kernel for device {x.device}")
     if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
         raise ValueError(f"quant_matmul: the kernel takes bf16/f32, got {x.dtype} -> {out_dtype}")
@@ -125,22 +131,25 @@ def quant_matmul(
     p = plan(M, K, N, x.dtype == torch.bfloat16)
     if max(p.grid[1:]) > 65535:
         raise ValueError(f"quant_matmul: M={M} exceeds the kernel's grid")
-    out = torch.empty(M, N, dtype=out_dtype, device=x.device)
-    if p.splits > 1:
-        partial = torch.empty(p.workspace, dtype=torch.float32, device=x.device)
-        counters = _counters(x.device, p.grid[0] * p.grid[2])
-        extra = (partial.data_ptr(), counters.data_ptr())
-    else:
-        extra = (None, None)
-    launch = build.entry("quant_matmul", "quant_matmul_launch", 6, 8)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = launch(
-            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), *extra, M, K, N, bits,
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), KINDS[p.kind],
-            p.splits, stream,
-        )
-        build.check(code, "quant_matmul")
+    with call:
+        out = torch.empty(M, N, dtype=out_dtype, device=x.device)
+        partial = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.splits > 1 else None
+        if x.device.type == "meta":  # a dry run: the call's allocations and work, no launch
+            return out
+        if partial is not None:
+            counters = _counters(x.device, p.grid[0] * p.grid[2])
+            extra = (partial.data_ptr(), counters.data_ptr())
+        else:
+            extra = (None, None)
+        launch = build.entry("quant_matmul", "quant_matmul_launch", 6, 8)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            code = launch(
+                x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), *extra, M, K, N, bits,
+                int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), KINDS[p.kind],
+                p.splits, stream,
+            )
+            build.check(code, "quant_matmul")
     quant_matmul.launches += 1
     return out
 

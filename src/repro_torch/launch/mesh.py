@@ -35,13 +35,17 @@ def make_mesh(shape, devices, axes=("data", "model")) -> Mesh:
     return Mesh(grid.reshape(shape), tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
     """The target deployment mesh of JAX's dry run: (16, 16) over ("data",
-    "model"), or (2, 16, 16) over ("pod", "data", "model").  Refuses, as JAX
-    does, when fewer devices are visible."""
+    "model"), or (2, 16, 16) over ("pod", "data", "model").  On ``cuda`` it
+    refuses, as JAX does, when fewer cards are visible.  ``device="meta"``
+    builds it from the meta device repeated 256 or 512 times, the dry run's
+    mesh (``launch/dryrun.py``; JAX forces as many host devices)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = math.prod(shape)
+    if torch.device(device).type == "meta":
+        return make_mesh(shape, ["meta"] * n, axes)
     visible = torch.cuda.device_count()
     if visible < n:
         raise RuntimeError(f"mesh {shape} needs {n} devices but only {visible} are visible")

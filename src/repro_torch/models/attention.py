@@ -155,11 +155,14 @@ def attend_chunked(
     """Exact attention without the full [Sq, Sk] score matrix. Returns [B, Sq, Hq, D].
 
     CUDA tensors: the ``flash_attention`` kernel, which takes positions
-    0..Sq-1 and 0..Sk-1 only; other positions raise.  CPU tensors:
-    :func:`attend_query_chunked`.
+    0..Sq-1 and 0..Sk-1 only; other positions raise.  ``meta`` tensors (a
+    dry run) take the kernel's route as CUDA tensors do; their positions
+    hold no values to check.  CPU tensors: :func:`attend_query_chunked`.
     """
-    if q.device.type == "cuda":
-        if not (_is_arange(q_positions, q.shape[1]) and _is_arange(k_positions, k.shape[1])):
+    if q.device.type in ("cuda", "meta"):
+        if q.device.type == "cuda" and not (
+            _is_arange(q_positions, q.shape[1]) and _is_arange(k_positions, k.shape[1])
+        ):
             raise ValueError(
                 "attend_chunked: the flash_attention kernel takes positions 0..S-1 only"
             )

@@ -13,8 +13,10 @@ Sharding vocabulary (logical -> mesh axes), JAX's:
   "fsdp"  -> the data axis (a pod axis stays replicated; gradients sum over it)
   "tp"    -> the model axis (megatron column/row pairs, head/expert sharding)
 Batch dims of activations shard over ("pod", "data") when the pod axis exists.
-JAX's ``scan`` / ``unroll_scans`` serve its lower-and-compile dry run,
-which has no port yet (ROADMAP Queue 1 #6.5).
+JAX's ``scan`` / ``unroll_scans`` serve its lower-and-compile dry run
+(XLA's cost analysis counts a while body once); they are not ported: the
+port's loops are Python loops, and its dry run (``launch/dryrun.py``)
+counts every trip of one full-depth pass (ROADMAP, API differences).
 """
 
 from __future__ import annotations

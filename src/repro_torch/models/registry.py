@@ -230,6 +230,9 @@ class Arch:
             return whs.whisper_cache_specs(b, tp, seq)
         return tfm.cache_specs(cfg, b, tp, seq)
 
+    def runs_shape(self, shape_name: str) -> bool:
+        return shape_name not in self.skip_shapes
+
 
 def register(arch: Arch) -> Arch:
     _REGISTRY[arch.name] = arch

@@ -240,6 +240,18 @@ def test_wrappers_count_no_launch_on_cpu():
     }
 
 
+class _OtherDevice(torch.Tensor):
+    """A meta tensor that reports a device type no wrapper has a kernel for."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _other(*shape, dtype=torch.float32):
+    return torch.Tensor._make_subclass(_OtherDevice, torch.empty(*shape, dtype=dtype, device="meta"))
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     m = torch.device("meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -251,11 +263,15 @@ def test_wrappers_refuse_devices_without_a_kernel():
         sparse_accum(torch.empty(3, 2, dtype=torch.int32, device=m),
                      torch.empty(3, 2, dtype=torch.int32, device=m),
                      torch.empty(4, 5, dtype=torch.int32, device=m))
+    # the two LM kernels take meta tensors for the dry run (an allocation,
+    # no launch: tests/test_torch_dryrun.py) and refuse every other device
     with pytest.raises(ValueError, match="no kernel"):
-        quant_matmul(torch.empty(3, 4, device=m), torch.empty(4, 2, dtype=torch.int8, device=m),
-                     torch.empty(2, device=m))
+        quant_matmul(_other(3, 4), _other(4, 2, dtype=torch.int8), _other(2))
     with pytest.raises(ValueError, match="no kernel"):
-        flash_attention(*(torch.empty(1, 2, 3, 4, device=m) for _ in range(3)))
+        flash_attention(*(_other(1, 2, 3, 4) for _ in range(3)))
+    assert quant_matmul(torch.empty(3, 4, device=m), torch.empty(4, 2, dtype=torch.int8, device=m),
+                        torch.empty(2, device=m)).device == m
+    assert flash_attention(*(torch.empty(1, 2, 3, 4, device=m) for _ in range(3))).device == m
     with pytest.raises(ValueError, match="do not chain"):
         spike_matmul(torch.ones(3, 4, dtype=torch.int32), torch.ones(5, 2, dtype=torch.int32))
 
