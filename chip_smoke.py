@@ -64,10 +64,11 @@ result line):
    accuracy equal to serial ``eval_int(reference)``, best >= base, and the
    candidate-axis train step's ``spike_matmul`` launches = T x layers at K
    = 4 and K = 1, each bit-identical to plain;
-10. training at full width (examples/quickstart.py: 256-128-10 LIF w6/u8,
-   T = 25, 8 epochs): ``train_snn`` on the card, the trained net deployed
+10. training at full width (examples_torch/quickstart.py's ``main``: 256-128-10
+   LIF w6/u8, T = 25, 8 epochs): ``train_snn`` on the card, the trained net deployed
    through ``quantize_params`` -> ``eval_int`` on ``reference``, ``fused``
-   and ``event`` (identical accuracies, above a floor), one train step on
+   and ``event`` (identical accuracies, above a floor, equal to the one the
+   example printed), one train step on
    the card against the CPU, and a QAT epoch (``PrecisionConfig(w_bits=3)``)
    whose ``eval_qat`` equals ``eval_int`` of its deployment and whose every
    step launches ``spike_matmul`` T x layers times, each launch bit-identical
@@ -231,11 +232,28 @@ result line):
    ``torch.cuda.max_memory_allocated()`` within DRY_MEM_BAND; (d) (b)'s
    steps timed warm, wall and busy, beside ``roofline_terms`` and the share
    of the bound the card reaches;
-20. a ``kernels`` JSON line (launches on phases 3-7 and 9-19, times,
-   bounds); phases 3-5 and 9-12 also print the SNN kernels' launches by
+20. the examples and the chaos smoke on the card, each through its
+   ``main`` at the JAX example's own sizes, with its wall and launches by
+   kernel beside the card's name and power limit: (a) examples_torch/
+   quickstart.py (run by phase 10, which holds its printed accuracy to
+   ``eval_int(reference)`` of its qparams): 64 test samples card == CPU,
+   ``sparse_accum`` launched; (b) serve_snn.py: 11 / 11 requests bit-exact with serial
+   ``run_int``, ``sparse_accum`` launched; (c) flexplorer_dse.py (train,
+   anneal, QAT refine of the top 2) into ``build/phase20/``: the package
+   reloads and its sample runs card == CPU, ``spike_matmul`` and
+   ``lif_scan`` launched; (d) serve_quantized.py: every ``quant_matmul``
+   launch of its int8 / int4 pass at QM_TOL of plain, its structural bytes
+   == the CPU's; (e) lm_train_100m.py, 300 steps with the failure at 150:
+   one failure recovered, every step reached, the loss finite and falling;
+   (f) scripts/chaos_smoke_torch.py's ``smoke`` stage by stage: nothing
+   lost or served twice, 12 / 12 bit-exact; every tick of its supervised
+   engine takes the f32_exact route and the engine launches no SNN kernel;
+   the serial replays that judge it (its oracle) launch ``spike_matmul``;
+21. a ``kernels`` JSON line (launches on phases 3-7 and 9-20, times,
+   bounds); phases 3-5, 9-12 and 20 also print the SNN kernels' launches by
    size; phase 2 also times non-causal ``flash_attention`` at
    [1,16,4096,64] and [1,16,32768,64] beside SDPA and the bound;
-21. the result line.
+22. the result line.
 """
 
 from __future__ import annotations
@@ -250,8 +268,8 @@ import json
 import math
 import shutil
 import statistics
-import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -262,7 +280,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from examples_torch import flexplorer_dse as ex_dse  # noqa: E402
+from examples_torch import load_chaos_smoke  # noqa: E402
+from examples_torch import lm_train_100m as ex_lm  # noqa: E402
+from examples_torch import quickstart as ex_quickstart  # noqa: E402
+from examples_torch import serve_quantized as ex_quantized  # noqa: E402
+from examples_torch import serve_snn as ex_serve  # noqa: E402
 from repro_torch import kernels  # noqa: E402
+from repro_torch._device import device_label  # noqa: E402
 from repro_torch.core import backend as backend_mod  # noqa: E402
 from repro_torch.core.backend import (  # noqa: E402
     EventBackend,
@@ -296,6 +321,7 @@ from repro_torch.core.precision import (  # noqa: E402
 from repro_torch.core.network import (  # noqa: E402
     NetworkConfig,
     init_float_params,
+    int_params_from_numpy,
     quantize_params,
     run_int,
 )
@@ -345,7 +371,7 @@ from repro_torch.models import mlp as mlp_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import AttnMask, attend  # noqa: E402
 from repro_torch.models.common import materialize, rms_norm, tree_leaves, tree_unflatten  # noqa: E402
-from repro_torch.models.registry import ShapeSpec, get_arch  # noqa: E402
+from repro_torch.models.registry import SHAPES, ShapeSpec, get_arch  # noqa: E402
 from repro_torch.models.routing_probe import record_routing  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.faults import FaultInjector  # noqa: E402
@@ -999,11 +1025,12 @@ def read_counts() -> dict[str, int]:
 
 
 def assert_records_equal(a, b, what: str) -> None:
-    check(torch.equal(a.spike_counts, b.spike_counts), f"{what}: spike_counts")
+    """Two records equal field by field, on whichever devices they lie."""
+    check(torch.equal(a.spike_counts.cpu(), b.spike_counts.cpu()), f"{what}: spike_counts")
     check(len(a.layer_spikes) == len(b.layer_spikes), f"{what}: layer count")
     for x, y in zip(a.layer_spikes, b.layer_spikes):
-        check(torch.equal(x, y), f"{what}: layer_spikes")
-    check(torch.equal(a.input_events, b.input_events), f"{what}: input_events")
+        check(torch.equal(x.cpu(), y.cpu()), f"{what}: layer_spikes")
+    check(torch.equal(a.input_events.cpu(), b.input_events.cpu()), f"{what}: input_events")
 
 
 def phase_run_int(net, qparams, qparams_cpu) -> dict:
@@ -1926,14 +1953,13 @@ def phase_dse_refine(dse) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: training at full width (examples/quickstart.py)
+# Phase 10: training at full width (examples_torch/quickstart.py)
 # ---------------------------------------------------------------------------
 
 # The deployed accuracy must clear this floor (chance is 0.1): the port's
 # CPU run of the same configuration (scripts/torch_train_cpu.py) deploys at
 # 0.9903.
 QS_ACC_FLOOR = 0.90
-QS_EPOCHS = 8
 CARD_VS_CPU_TOL = 1e-5  # tests/test_torch_cuda.py: loss relative, parameters / max |w|
 # An SSD's gradients through exp(cs_i - cs_j) of chunk cumsums differ between
 # two f32 orders by more than 1e-5 of max |g| (reduced jamba card vs CPU on an
@@ -1944,21 +1970,6 @@ CARD_VS_CPU_TOL = 1e-5  # tests/test_torch_cuda.py: loss relative, parameters / 
 # better; the card's must lie no more than SSM_F64_RATIO times as far.
 SSM_GRAD_TOL = 1e-4
 SSM_F64_RATIO = 4.0
-
-
-def quickstart_setup():
-    """examples/quickstart.py's configuration: 256-128-10 LIF, w6/u8, beta
-    0.95, T = 25, on mnist_like(n=2048, T=25, seed=0) split 85/15."""
-    train, test = mnist_like(n=2048, T=25, seed=0).split()
-    net = NetworkConfig(
-        layers=(
-            LayerConfig(n_in=256, n_out=128, w_bits=6, u_bits=8, beta=0.95),
-            LayerConfig(n_in=128, n_out=10, w_bits=6, u_bits=8, beta=0.95),
-        ),
-        n_steps=25,
-        name="quickstart-mnist",
-    )
-    return net, train, test
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2023,22 +2034,28 @@ def step_card_vs_cpu(step, params0) -> str:
     )
 
 
-def phase_train(qs) -> dict:
-    """``train_snn`` at full width on the card (8 epochs, batch 128, lr
-    2e-3), the trained net deployed through ``quantize_params`` ->
-    ``eval_int`` on three backends, then a QAT epoch at w_bits = 3; after
-    the counts are read: eval_qat == eval_int of the QAT deployment, a QAT
-    forward's launches against plain, one train step card against CPU, and
-    the train and QAT steps' time and device-busy share.  Returns the main
-    path's launch counts."""
-    net, train, test = qs
+def phase_train(examples: dict) -> dict:
+    """examples_torch/quickstart.py's ``main`` on the card (``train_snn``, 8
+    epochs, batch 128, lr 2e-3; ``quantize_params``; ``eval_int`` on the
+    event backend with its statistics; the hardware model), its trained net
+    deployed through ``eval_int`` on three backends, then a QAT epoch at
+    w_bits = 3; after the counts are read: eval_qat == eval_int of the QAT
+    deployment, a QAT forward's launches against plain, one train step card
+    against CPU, and the train and QAT steps' time and device-busy share.
+    The example's own launches and result go to ``examples`` for phase 20.
+    Returns the main path's launch counts."""
     t_phase = time.perf_counter()
-    params0 = init_float_params(torch.Generator().manual_seed(0), net)
+    before = kernels.launch_counts()
     t0 = time.perf_counter()
-    res = train_snn(net, train, epochs=QS_EPOCHS, batch_size=128, lr=2e-3, init_params=params0)
+    qs = ex_quickstart.main([])
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    qparams, _ = quantize_params(net, res.params)
+    after = kernels.launch_counts()
+    examples["quickstart"] = dict(out=qs, wall=time.perf_counter() - t0,
+                                  launches={k: after[k] - before[k] for k in after})
+    net, train, test, res = qs["net"], qs["train"], qs["test"], qs["result"]
+    wall, epochs = qs["train_s"], len(qs["result"].history)
+    params0 = init_float_params(torch.Generator().manual_seed(0), net)  # the example's start
+    qparams = qs["qparams"]
     accs = {b: eval_int(net, qparams, test, backend=b) for b in ("reference", "fused", "event")}
     qat = PrecisionConfig(w_bits=3)
     n0 = spike_matmul.launches
@@ -2056,16 +2073,18 @@ def phase_train(qs) -> dict:
             f"{h['seconds']:.3f} s ({1e3 * h['seconds'] / steps:.2f} ms a step)"
         )
     print(
-        f"train: {net.name} (LIF 256-128-10 w6/u8, T={net.n_steps}) {QS_EPOCHS} epochs x "
+        f"train: {net.name} (LIF 256-128-10 w6/u8, T={net.n_steps}) {epochs} epochs x "
         f"{steps} steps on the card in {wall:.3f} s: "
-        f"{QS_EPOCHS * len(train.labels) / wall:.1f} samples/s, "
-        f"{1e3 * wall / (QS_EPOCHS * steps):.2f} ms a step"
+        f"{epochs * len(train.labels) / wall:.1f} samples/s, "
+        f"{1e3 * wall / (epochs * steps):.2f} ms a step"
     )
     check(len(set(accs.values())) == 1, f"deployed accuracy differs across backends: {accs}")
     acc = accs["reference"]
+    check(acc == qs["accuracy"], f"quickstart printed accuracy {qs['accuracy']} != "
+          f"eval_int(reference) {acc}")
     check(acc >= QS_ACC_FLOOR, f"deployed accuracy {acc} below the floor {QS_ACC_FLOOR}")
     print(f"train: deployed (quantize_params -> eval_int) accuracy {acc:.6f} on reference, fused "
-          f"and event (floor {QS_ACC_FLOOR})")
+          f"and event (floor {QS_ACC_FLOOR}), == the quickstart's printed accuracy")
 
     per_step = net.n_steps * len(net.layers)
     check(qat_launches == steps * per_step,
@@ -3094,8 +3113,12 @@ def recorded_quant_matmul():
         seen.append((x.clone(), q, scale, bits, out.clone()))
         return out
 
+    # the wrapper counts through its module's name, which names ``record``
+    # inside the block: the count moves there and back
+    record.launches = real.launches
     with mock.patch.object(qm_module, "quant_matmul", record):
         yield seen
+    real.launches = record.launches
 
 
 def phase_lm_serve_moe(smi: str) -> dict:
@@ -5094,17 +5117,184 @@ def phase_dryrun(smi: str, launches: dict) -> None:
     print(f"phase 19 took {time.perf_counter() - t0:.3f} s; on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the examples and the chaos smoke
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = ROOT / "build" / "phase20"  # the DSE package and the LM run (git-ignored)
+EX_LM_STEPS = 300  # examples/lm_train_100m.py's default; its failure at half of it
+EX_SLICE = 64  # the quickstart's test samples run card vs CPU
+
+
+def on_cpu(qparams) -> list:
+    return [IntLayerParams(*(t.cpu() for t in p)) for p in qparams]
+
+
+def ex_quickstart_checks(entry: dict) -> str:
+    """64 test samples through the event backend on the card == the CPU's
+    reference run (phase 10 held the printed accuracy to ``eval_int(
+    reference)`` of the same qparams on the card)."""
+    out = entry["out"]
+    net, qparams, test = out["net"], out["qparams"], out["test"]
+    x = test.spikes[:EX_SLICE].transpose(1, 0, 2)
+    card = run_int(net, qparams, raster_tensor(x, DEVICE), backend="event")
+    assert_records_equal(card, run_int(net, on_cpu(qparams), raster_tensor(x, "cpu")),
+                         "quickstart card vs CPU")
+    check(entry["launches"]["sparse_accum"] > 0, "quickstart launched no sparse_accum")
+    return (f"accuracy {out['accuracy']:.6f} (== eval_int(reference), phase 10); {EX_SLICE} "
+            f"samples card (event) == CPU (reference); train {out['train_s']:.3f} s, event "
+            f"evaluation {out['eval_s']:.3f} s")
+
+
+def ex_serve_checks(out: dict, counts: dict) -> str:
+    done = out["done"]
+    check(len(done) == 11 and not out["mismatches"],
+          f"serve_snn: {len(done)} served, mismatches {out['mismatches']}")
+    check(counts["sparse_accum"] > 0, "serve_snn launched no sparse_accum")
+    routes = collections.Counter(r.route for r in done)
+    return f"11 / 11 bit-exact with serial run_int; routes {dict(routes)}"
+
+
+def ex_dse_checks(found: dict, counts: dict) -> str:
+    """The package reloads; ``run_int`` of its weight tables (with the run's
+    recurrent registers and thresholds, which the package does not carry) on
+    its encoded sample gives the same records on the card and the CPU."""
+    out = found["out"]
+    design = json.loads((out / "design.json").read_text())
+    net, qparams = found["deploy_net"], found["deploy_qparams"]
+    check(design == ex_dse.design(net), "flexplorer: design.json differs from the deployed net")
+    weights = np.load(out / "weights_q.npz")
+    sample = np.load(out / "encoded_sample.npy")
+    check(sorted(weights.files) == [f"layer{i}_wff" for i in range(len(qparams))]
+          and all(weights[f].dtype == np.int32 for f in weights.files)
+          and sample.dtype == np.uint8 and sample.shape[0] == 16,
+          f"flexplorer: package arrays {weights.files}, sample {sample.dtype} {sample.shape}")
+    arrays = [(weights[f"layer{i}_wff"], q.w_rec.cpu().numpy(), q.theta_q.cpu().numpy())
+              for i, q in enumerate(qparams)]
+    x = sample.transpose(1, 0, 2)
+    card = run_int(net, int_params_from_numpy(net, arrays, DEVICE), raster_tensor(x, DEVICE))
+    cpu = run_int(net, int_params_from_numpy(net, arrays, "cpu"), raster_tensor(x, "cpu"))
+    assert_records_equal(card, cpu, "flexplorer package card vs CPU")
+    for k in ("spike_matmul", "lif_scan"):
+        check(counts[k] > 0, f"flexplorer_dse launched no {k}")
+    res = found["result"]
+    return (f"{len(res.search.cache)} candidates scored, deployed "
+            f"{[lc.w_bits for lc in net.layers]} ff bits "
+            f"({'refined' if found['deployed_refined'] else 'annealer incumbent'}); package "
+            f"reloaded, its sample card == CPU; train {found['train_s']:.3f} s, search and "
+            f"refine {found['explore_s']:.3f} s")
+
+
+def ex_quantized_checks(out: dict, counts: dict, seen: list) -> str:
+    check(counts["quant_matmul"] > 0, "serve_quantized launched no quant_matmul")
+    err = check_recorded_qm(seen, "serve_quantized")
+    arch, shape = get_arch(ex_quantized.ARCH), SHAPES["decode_32k"]
+    for label, bits in (("bf16/f32", None), ("int8", 8), ("int4", 4)):
+        want = structural.structural_bytes(arch, shape, quant_bits=bits)["total"]
+        check(out["traffic"][label]["bytes"] == want,
+              f"serve_quantized {label}: structural bytes {out['traffic'][label]} != {want}")
+    walls = {k: round(v[1], 3) for k, v in out["results"].items()}
+    return (f"{len(seen)} quant_matmul launches within QM_TOL of plain (max abs err {err:.3e}); "
+            f"structural bytes == the CPU's; greedy agreement {out['agree']} / 3; walls {walls} s")
+
+
+def ex_lm_checks(out: dict, steps: int) -> str:
+    check(out["failures"] == 1 and out["final_step"] == steps,
+          f"lm_train_100m: failures {out['failures']}, final step {out['final_step']}")
+    check(math.isfinite(out["final_loss"]) and out["final_loss"] < out["first_loss"],
+          f"lm_train_100m: loss {out['first_loss']} -> {out['final_loss']}")
+    return (f"{steps} steps (failure injected at {steps // 2}, one recovered), loss "
+            f"{out['first_loss']:.6f} -> {out['final_loss']:.6f}, {out['wall_s']:.3f} s")
+
+
+def ex_chaos(chaos) -> dict:
+    """scripts/chaos_smoke_torch.py's ``smoke`` on the card, stage by stage
+    with its ``main``'s weights, seed and request count, so that the
+    supervised engine's launches are read apart from those of the serial
+    replays that judge it (its oracle)."""
+    dev = torch.device(DEVICE)
+    qparams, rasters = chaos.deployed(0, dev), chaos.request_rasters(0, 12)
+    with tempfile.TemporaryDirectory(prefix="neura-chaos-wal-") as wal:
+        completed, sup, inj = chaos.serve_through_faults(qparams, rasters, dev, wal)
+    torch.cuda.synchronize()
+    engine = kernels.launch_counts()
+    chaos.check_bit_exact(qparams, rasters, completed, dev)
+    ticks = {k: v for k, v in sup.metrics.counters.items() if k.startswith("tick:")}
+    return dict(n=len(completed), faults=len(inj.fired), ticks=ticks, engine=engine)
+
+
+def ex_chaos_checks(out: dict, counts: dict) -> str:
+    """Nothing lost or served twice, every request bit-exact with serial
+    ``run_int`` (raised by the stages); every tick of the engine on the
+    f32_exact route, as JAX's engine takes for these rasters, so the
+    engine launches no SNN kernel; the oracle's replays launch
+    ``spike_matmul``."""
+    engine = out["engine"]
+    oracle = {k: counts[k] - engine[k] for k in counts}
+    check(out["n"] == 12 and out["faults"] == 3,
+          f"chaos smoke: {out['n']} served through {out['faults']} faults")
+    check(set(out["ticks"]) == {"tick:f32_exact"},
+          f"chaos smoke: the engine's ticks by route {out['ticks']}, not all f32_exact")
+    check(not any(engine.values()), f"chaos smoke: the engine launched {engine}")
+    check(oracle["spike_matmul"] > 0, "chaos smoke: the serial replays launched no spike_matmul")
+    return (f"12 / 12 bit-exact through 3 faults, nothing lost or served twice; the engine's "
+            f"ticks by route {out['ticks']}, its launches {engine}; the oracle's (serial "
+            f"run_int) launches {oracle}")
+
+
+def phase_examples(smi: str, launches: dict, examples: dict) -> None:
+    """Each ported example's ``main`` on the card at the JAX example's own
+    sizes, then the chaos smoke: the launches of each (the quickstart's
+    counted in phase 10, which drove it) and its checks."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    qs = examples["quickstart"]
+    print(f"examples: quickstart (driven in phase 10) {qs['wall']:.3f} s, launches "
+          f"{qs['launches']}: {ex_quickstart_checks(qs)}; on {smi}")
+    chaos = load_chaos_smoke()
+    seen_qm: list = []
+
+    def quantized():
+        with recorded_quant_matmul() as seen:
+            out = ex_quantized.main([])
+        seen_qm.extend(seen)
+        return out
+
+    runs = [
+        ("serve_snn", lambda: ex_serve.main([]), lambda out, c: ex_serve_checks(out, c)),
+        ("flexplorer_dse",
+         lambda: ex_dse.main(["--out", str(EXAMPLES_DIR / "flexplorer_pkg")]),
+         lambda out, c: ex_dse_checks(out, c)),
+        ("serve_quantized", quantized, lambda out, c: ex_quantized_checks(out, c, seen_qm)),
+        ("lm_train_100m",
+         lambda: ex_lm.main(["--steps", str(EX_LM_STEPS), "--run-dir",
+                             str(EXAMPLES_DIR / "lm100m")]),
+         lambda out, c: ex_lm_checks(out, EX_LM_STEPS)),
+        ("chaos_smoke", lambda: ex_chaos(chaos), ex_chaos_checks),
+    ]
+    for name, run, checks in runs:
+        reset_counts()
+        with launch_sizes() as tally:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        by_shape = {f"{k}{list(v)}": n for (k, v), n in sorted(tally.items())}
+        said = checks(out, counts)
+        print(f"examples: {name} {wall:.3f} s, launches {counts} (by size "
+              f"{json.dumps(by_shape)}): {said}; on {smi}")
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    print(f"phase 20 took {time.perf_counter() - t_phase:.3f} s; on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA card", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True,
-        text=True,
-        check=True,
-        timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = device_label(DEVICE)
     print(smi)
     t_start = time.perf_counter()
     # the certified f32 lowering and the LM's f32 logits head need full f32
@@ -5195,11 +5385,11 @@ def main() -> int:
     t0 = time.perf_counter()
     found: dict = {}
     dse = dse_setup()
-    qs = quickstart_setup()
+    examples: dict = {}
     for name, phase in [
         ("dse", lambda: phase_dse(dse, found)),
         ("dse_refine", lambda: phase_dse_refine(dse)),
-        ("train", lambda: phase_train(qs)),
+        ("train", lambda: phase_train(examples)),
     ]:
         reset_counts()
         with launch_sizes() as tally:
@@ -5333,6 +5523,9 @@ def main() -> int:
     print(f"the script so far {time.perf_counter() - t_start:.3f} s")
 
     phase_dryrun(smi, launches)
+    print(f"the script so far {time.perf_counter() - t_start:.3f} s")
+
+    phase_examples(smi, launches, examples)
     print(f"the script so far {time.perf_counter() - t_start:.3f} s")
 
     for k, v in launches.items():

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import subprocess
 
 import torch
 
@@ -37,3 +38,22 @@ def full_f32_matmul():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def device_label(device: str | torch.device = "cuda") -> str:
+    """What a printed time was taken on: a card's name and power limit as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+    them (a card below its maximum power runs slower under load), or
+    ``"the CPU"``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "the CPU"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        return subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return f"{torch.cuda.get_device_name(index)}, power limit not read"
