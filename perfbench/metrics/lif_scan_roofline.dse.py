@@ -1,0 +1,7 @@
+"""Sum of ``lif_scan``'s bounds over its device time in the traced window."""
+
+from perfbench.trace import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "lif_scan_kernel")
