@@ -74,6 +74,7 @@ from repro_torch.core.snn_layer import (
     int_layer_window_carry,
     int_layer_window_from_currents,
 )
+from repro_torch.kernels import work
 from repro_torch.kernels.lif_scan.lif_scan import lif_scan
 from repro_torch.kernels.quant_matmul.spike_matmul import spike_integrate, spike_matmul
 from repro_torch.kernels.sparse_accum.ops import fixed_capacity_events, sparse_accum_currents
@@ -564,25 +565,27 @@ _POPULATION_KNOBS = ("w_bits", "w_rec_bits", "leak_bits", "beta", "alpha")
 
 
 def check_population_structure(base, nets) -> None:
-    """Raise unless every candidate shares ``base``'s static structure."""
-    base_sig = [
-        {f.name: getattr(lc, f.name) for f in dataclasses.fields(lc) if f.name not in _POPULATION_KNOBS}
-        for lc in base.layers
-    ]
-    for net in nets:
-        if len(net.layers) != len(base.layers):
-            raise ValueError(
-                f"population candidate {net.name!r} has {len(net.layers)} layers, base has {len(base.layers)}"
-            )
-        for i, lc in enumerate(net.layers):
-            for name, want in base_sig[i].items():
-                got = getattr(lc, name)
-                if got != want:
-                    raise ValueError(
-                        f"population candidate {net.name!r} layer {i} differs from the "
-                        f"base net in static field {name!r} ({got!r} != {want!r}); only "
-                        f"{_POPULATION_KNOBS} may vary across a population sweep"
-                    )
+    """Raise unless every candidate shares ``base``'s static structure (the
+    span ``population.check``)."""
+    with work.span("population.check"):
+        base_sig = [
+            {f.name: getattr(lc, f.name) for f in dataclasses.fields(lc) if f.name not in _POPULATION_KNOBS}
+            for lc in base.layers
+        ]
+        for net in nets:
+            if len(net.layers) != len(base.layers):
+                raise ValueError(
+                    f"population candidate {net.name!r} has {len(net.layers)} layers, base has {len(base.layers)}"
+                )
+            for i, lc in enumerate(net.layers):
+                for name, want in base_sig[i].items():
+                    got = getattr(lc, name)
+                    if got != want:
+                        raise ValueError(
+                            f"population candidate {net.name!r} layer {i} differs from the "
+                            f"base net in static field {name!r} ({got!r} != {want!r}); only "
+                            f"{_POPULATION_KNOBS} may vary across a population sweep"
+                        )
 
 
 def stack_population(nets, qparams_list):
@@ -592,27 +595,29 @@ def stack_population(nets, qparams_list):
     structure; ``qparams_list`` the matching ``quantize_params`` outputs.
     Returns ``(stacked_qparams, beta_regs, alpha_regs)``: each stacked leaf
     gains a leading candidate axis, and the decay registers are int32 ``[P,
-    n_layers]`` packed DecayRate values on the parameters' device.
+    n_layers]`` packed DecayRate values on the parameters' device (the span
+    ``population.stack``).
     """
-    n_layers = len(nets[0].layers)
-    device = qparams_list[0][0].w_ff.device
-    stacked = [
-        IntLayerParams(
-            w_ff=torch.stack([qp[l].w_ff for qp in qparams_list]),
-            w_rec=torch.stack([qp[l].w_rec for qp in qparams_list]),
-            theta_q=torch.stack([qp[l].theta_q for qp in qparams_list]),
-        )
-        for l in range(n_layers)
-    ]
-    beta_regs = torch.tensor(
-        [[cfg.beta_code().decay_rate_register for cfg in net.layers] for net in nets],
-        dtype=torch.int32,
-    ).to(device)
-    alpha_regs = torch.tensor(
-        [[cfg.alpha_code().decay_rate_register for cfg in net.layers] for net in nets],
-        dtype=torch.int32,
-    ).to(device)
-    return stacked, beta_regs, alpha_regs
+    with work.span("population.stack"):
+        n_layers = len(nets[0].layers)
+        device = qparams_list[0][0].w_ff.device
+        stacked = [
+            IntLayerParams(
+                w_ff=torch.stack([qp[l].w_ff for qp in qparams_list]),
+                w_rec=torch.stack([qp[l].w_rec for qp in qparams_list]),
+                theta_q=torch.stack([qp[l].theta_q for qp in qparams_list]),
+            )
+            for l in range(n_layers)
+        ]
+        beta_regs = torch.tensor(
+            [[cfg.beta_code().decay_rate_register for cfg in net.layers] for net in nets],
+            dtype=torch.int32,
+        ).to(device)
+        alpha_regs = torch.tensor(
+            [[cfg.alpha_code().decay_rate_register for cfg in net.layers] for net in nets],
+            dtype=torch.int32,
+        ).to(device)
+        return stacked, beta_regs, alpha_regs
 
 
 def _per_candidate(p: IntLayerParams) -> IntLayerParams:

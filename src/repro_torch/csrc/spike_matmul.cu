@@ -74,6 +74,18 @@
 // bn = 16 and 128, the blocks the planner gives a candidate axis (16 for
 // N <= 16, such as a 10-class output layer; 128 otherwise).
 //
+// A route counter: where `macs` (int64[3]) is not null, lane 0 of a warp
+// adds to it, for each tile -- one 16-row strip x one 256-deep K chunk x
+// the block's columns -- the tile's multiply-adds (its rows below M x its
+// depth below K x its columns below N), in the slot of the route the tile
+// ran: [0] one tensor-core pass, [1] byte planes, [2] the CUDA cores.  So a
+// launch adds batch * M * K * N in all, however plan() cuts it into tiles.
+// An atomic a tile and no more: counting in a register or in shared memory
+// and adding once a block at the end made the narrow sweep's 128-column
+// launch 3-7 % slower on an H100 even with `macs` null (any epilogue after
+// the item loop did); this way a null `macs` leaves one predicated-off
+// branch a tile, and the outputs are the same either way.
+//
 // Ragged M and K are zero-filled, N pads its last n8 tile with zero columns
 // and the stores are masked.  The kernel is instantiated for bn = 8, 16, 32,
 // 64 and 128, so every tile loop has a compile-time trip count.  When the
@@ -319,13 +331,23 @@ __device__ __forceinline__ void run_tiles(const uint32_t (&a)[kSteps][4], const 
   }
 }
 
+// The route counter's add for the tile at rows r0.., K chunk k0.. and
+// columns col0.. (lane 0's item): its multiply-adds inside [M, K, N].
+__device__ __forceinline__ void count_macs(unsigned long long* macs, int route, int r0, int k0,
+                                           int col0, int bn, int M, int K, int N) {
+  atomicAdd(&macs[route], static_cast<unsigned long long>(min(kStrip, M - r0)) *
+                              static_cast<unsigned long long>(min(kChunk, K - k0)) *
+                              static_cast<unsigned long long>(min(bn, N - col0)));
+}
+
 // kTiles n8 tiles a block (bn = 8 * kTiles columns), so every tile and
 // step loop has a compile-time trip count and the mma chains interleave.
 template <int kTiles, bool kBatched>
 __global__ void __launch_bounds__(kThreads, 1)
 spike_matmul_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ w,
-                    int32_t* __restrict__ out, int M, int K, int N, bool use_tc, bool s_vec,
-                    bool w_vec, bool pair, bool s_batched, bool w_batched) {
+                    int32_t* __restrict__ out, unsigned long long* __restrict__ macs, int M,
+                    int K, int N, bool use_tc, bool s_vec, bool w_vec, bool pair, bool s_batched,
+                    bool w_batched) {
   constexpr int kBN = 8 * kTiles;
   // tiles whose fragments are live at once: half the block's in one pass, a
   // quarter in the byte planes, whose raw values stay live besides
@@ -371,6 +393,7 @@ spike_matmul_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ w
     if (w8 && __all_sync(0xffffffffu, s8)) {
       // every value fits int8: one pass on the tensor cores, the next
       // item's loads in flight meanwhile
+      if (macs != nullptr && lane == 0) count_macs(macs, 0, r0, k0, col0, kBN, M, K, N);
       if (i + 1 < n_items) {
         load_raw(x, s, item_row(i + 1), (i + 1) % n_chunks * kChunk, M, K, s_vec, t);
       }
@@ -382,6 +405,7 @@ spike_matmul_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ w
       // plane is one tensor-core pass (u8 x s8, the top one s8 x s8; a
       // chunk's plane sum |.| <= 256 * 255 * 128 < 2^31); all-zero planes
       // are skipped.
+      if (macs != nullptr && lane == 0) count_macs(macs, 1, r0, k0, col0, kBN, M, K, N);
       run_tiles<kTiles, kPlanePart, false>(a, ws, out, rb, k0, r0, col0, M, N, g, t, pair, 0,
                                            c > 0);
 #pragma unroll 1
@@ -403,6 +427,7 @@ spike_matmul_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ w
       // CUDA cores in the C-fragment layout (rows r0 and r0 + 8, columns n
       // and n + 1 of tile j), w from device memory
       const int k_end = min(K, k0 + kChunk);
+      if (macs != nullptr && lane == 0) count_macs(macs, 2, r0, k0, col0, kBN, M, K, N);
       for (int j = 0; j < kTiles; ++j) {
         const int n = col0 + 8 * j + 2 * t;
         uint32_t d[4] = {0u, 0u, 0u, 0u};
@@ -428,8 +453,8 @@ spike_matmul_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ w
 }
 
 template <int kTiles, bool kBatched>
-int launch(const void* s, const void* w, void* out, int M, int K, int N, int blocks, bool use_tc,
-           int batch, bool s_batched, bool w_batched, cudaStream_t stream) {
+int launch(const void* s, const void* w, void* out, void* macs, int M, int K, int N, int blocks,
+           bool use_tc, int batch, bool s_batched, bool w_batched, cudaStream_t stream) {
   auto fn = spike_matmul_kernel<kTiles, kBatched>;
   constexpr int kBN = 8 * kTiles;
   const int smem = use_tc ? kBN * row_bytes(K) + kChunk * staged_row_bytes(kBN) : 0;
@@ -445,8 +470,9 @@ int launch(const void* s, const void* w, void* out, int M, int K, int N, int blo
   const dim3 grid(blocks, (N + kBN - 1) / kBN, batch);
   fn<<<grid, kThreads, smem, stream>>>(static_cast<const int32_t*>(s),
                                        static_cast<const int32_t*>(w),
-                                       static_cast<int32_t*>(out), M, K, N, use_tc, s_vec, w_vec,
-                                       pair, s_batched, w_batched);
+                                       static_cast<int32_t*>(out),
+                                       static_cast<unsigned long long*>(macs), M, K, N, use_tc,
+                                       s_vec, w_vec, pair, s_batched, w_batched);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -459,26 +485,28 @@ int launch(const void* s, const void* w, void* out, int M, int K, int N, int blo
 // `batch` products run in one launch (grid.z); s and w advance by a whole
 // matrix per product where `s_batched` / `w_batched` is set, else every
 // product reads the same one.  With batch > 1, bn must be 16 or 128.
-extern "C" int spike_matmul_launch(const void* s, const void* w, void* out, int M, int K, int N,
-                                   int bn, int blocks, int use_tc, int batch, int s_batched,
-                                   int w_batched, void* stream) {
+// `macs` is null, or an int64[3] that the launch adds its multiply-adds to by
+// route (tensor-core pass, byte planes, CUDA cores).
+extern "C" int spike_matmul_launch(const void* s, const void* w, void* out, void* macs, int M,
+                                   int K, int N, int bn, int blocks, int use_tc, int batch,
+                                   int s_batched, int w_batched, void* stream) {
   if (M <= 0 || N <= 0 || batch == 0) return static_cast<int>(cudaGetLastError());
   if (blocks <= 0 || batch < 0 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const bool tc = use_tc != 0, sb = s_batched != 0, wb = w_batched != 0;
   if (batch > 1) {
     switch (bn) {
-      case 16: return launch<2, true>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
-      case 128: return launch<16, true>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
+      case 16: return launch<2, true>(s, w, out, macs, M, K, N, blocks, tc, batch, sb, wb, st);
+      case 128: return launch<16, true>(s, w, out, macs, M, K, N, blocks, tc, batch, sb, wb, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (bn) {
-    case 8: return launch<1, false>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
-    case 16: return launch<2, false>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
-    case 32: return launch<4, false>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
-    case 64: return launch<8, false>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
-    case 128: return launch<16, false>(s, w, out, M, K, N, blocks, tc, batch, sb, wb, st);
+    case 8: return launch<1, false>(s, w, out, macs, M, K, N, blocks, tc, batch, sb, wb, st);
+    case 16: return launch<2, false>(s, w, out, macs, M, K, N, blocks, tc, batch, sb, wb, st);
+    case 32: return launch<4, false>(s, w, out, macs, M, K, N, blocks, tc, batch, sb, wb, st);
+    case 64: return launch<8, false>(s, w, out, macs, M, K, N, blocks, tc, batch, sb, wb, st);
+    case 128: return launch<16, false>(s, w, out, macs, M, K, N, blocks, tc, batch, sb, wb, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

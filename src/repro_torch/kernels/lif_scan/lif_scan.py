@@ -9,7 +9,8 @@ sweep) they are int32 [P] tensors, one per candidate, and a single window
 [T, B, N] launches as the case P = 1.
 
 For a CPU tensor the wrapper runs :func:`lif_scan_ref`; for a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises.  Each call reports its work through
+:func:`~repro_torch.kernels.work.kernel` (:func:`_call`).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.fixed_point import int_max, int_min
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.lif_scan.ref import lif_scan_ref
 
 __all__ = ["lif_scan"]
@@ -51,7 +52,8 @@ def lif_scan(
         raise ValueError(f"lif_scan: decay_k must be in [0, 256], got {decay_k}")
     _check_u_bits(u_bits)
     if currents.device.type == "cpu":
-        return lif_scan_ref(currents, theta_q, decay_k, u_bits, reset_to_zero)
+        with _call(currents[None]):
+            return lif_scan_ref(currents, theta_q, decay_k, u_bits, reset_to_zero)
     _check_card(currents)
     dev = currents.device
     if isinstance(theta_q, torch.Tensor):
@@ -68,6 +70,17 @@ def lif_scan(
 
 
 lif_scan.launches = 0
+
+
+def _call(currents: torch.Tensor):
+    """The work of a scan of [P, T, B, N] currents: the currents read, the
+    spikes and the final membrane written, theta and the decay register read
+    once a candidate; 12 operations per element and step (saturating add,
+    compare, subtract, select).  The decay's shift-adds depend on the
+    registers, which live on the card, so they are left out."""
+    P, T, B, N = currents.shape
+    nbytes = 4 * (2 * P * T * B * N + P * B * N + 2 * P)
+    return work.kernel("lif_scan", 12 * P * T * B * N, nbytes, (currents,))
 
 
 def _check_u_bits(u_bits: int) -> None:
@@ -94,7 +107,8 @@ def _lif_scan_population(currents, theta_q, decay_k, u_bits, reset_to_zero):
         regs.append(t.contiguous())
     _check_u_bits(u_bits)
     if currents.device.type == "cpu":
-        return lif_scan_ref(currents, theta_q, decay_k, u_bits, reset_to_zero)
+        with _call(currents):
+            return lif_scan_ref(currents, theta_q, decay_k, u_bits, reset_to_zero)
     _check_card(currents)
     return _launch(currents, *regs, u_bits, reset_to_zero)
 
@@ -105,16 +119,17 @@ def _launch(currents, theta, k, u_bits, reset_to_zero):
     P, T, B, N = currents.shape
     if P > 65535:
         raise ValueError(f"lif_scan: {P} candidates exceed the kernel's grid (65535)")
-    spikes = torch.empty(P, T, B, N, dtype=torch.int32, device=currents.device)
-    u_final = torch.empty(P, B, N, dtype=torch.int32, device=currents.device)
-    launch = build.entry("lif_scan", "lif_scan_launch", 5, 6)
-    with torch.cuda.device(currents.device):
-        stream = torch.cuda.current_stream(currents.device).cuda_stream
-        code = launch(
-            currents.data_ptr(), spikes.data_ptr(), u_final.data_ptr(), theta.data_ptr(),
-            k.data_ptr(), P, T, B * N, int_min(u_bits), int_max(u_bits), int(reset_to_zero),
-            stream,
-        )
-        build.check(code, "lif_scan")
+    with _call(currents):
+        spikes = torch.empty(P, T, B, N, dtype=torch.int32, device=currents.device)
+        u_final = torch.empty(P, B, N, dtype=torch.int32, device=currents.device)
+        launch = build.entry("lif_scan", "lif_scan_launch", 5, 6)
+        with torch.cuda.device(currents.device):
+            stream = torch.cuda.current_stream(currents.device).cuda_stream
+            code = launch(
+                currents.data_ptr(), spikes.data_ptr(), u_final.data_ptr(), theta.data_ptr(),
+                k.data_ptr(), P, T, B * N, int_min(u_bits), int_max(u_bits), int(reset_to_zero),
+                stream,
+            )
+            build.check(code, "lif_scan")
     lif_scan.launches += 1
     return spikes, u_final

@@ -22,7 +22,14 @@ candidate's own spikes (later layers).
 
 For a CPU tensor the wrapper runs :func:`spike_matmul_plain` (int32
 ``torch.matmul``, which wraps mod 2**32 like the JAX product); for a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises.  Each call reports its 2 P M K N
+operations and its bytes (each operand read once, the output written once)
+through :func:`~repro_torch.kernels.work.kernel`.  While a sink keeps the
+``spike_matmul.macs`` device counter (:func:`~repro_torch.kernels.work.
+device_counter`), the kernel adds to it its P M K N multiply-adds by the
+route each tile -- one 16-row strip by one 256-deep K chunk by one block of
+columns -- ran: one tensor-core pass, byte planes, or the CUDA cores;
+otherwise it gets a null pointer and counts nothing.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 
 __all__ = ["SMPlan", "plan", "spike_matmul", "spike_matmul_plain", "spike_integrate"]
 
@@ -141,29 +148,35 @@ def spike_matmul(s: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     P, M, K, N = _operands(s, w_q)
     if s.device != w_q.device:
         raise ValueError(f"spike_matmul: operands on {s.device} and {w_q.device}")
+    batch = 1 if P is None else P
+    nbytes = 4 * (s.numel() + w_q.numel() + batch * M * N)
+    call = work.kernel("spike_matmul", 2 * batch * M * K * N, nbytes, (s, w_q))
     if s.device.type == "cpu":
-        return spike_matmul_plain(s, w_q)
+        with call:
+            return spike_matmul_plain(s, w_q)
     if s.device.type != "cuda":
         raise ValueError(f"spike_matmul: no kernel for device {s.device}")
     if s.dtype != torch.int32 or w_q.dtype != torch.int32:
         raise ValueError(f"spike_matmul: needs int32 operands, got {s.dtype} and {w_q.dtype}")
     if not (s.is_contiguous() and w_q.is_contiguous()):
         raise ValueError("spike_matmul: operands must be contiguous")
-    batch = 1 if P is None else P
     p = plan(M, K, N, batch)
     if p.grid[1] > 65535:
         raise ValueError(f"spike_matmul: N={N} exceeds the kernel's grid")
     if batch > 65535:
         raise ValueError(f"spike_matmul: {batch} candidates exceed the kernel's grid (65535)")
-    out = torch.empty(*(() if P is None else (P,)), M, N, dtype=torch.int32, device=s.device)
-    launch = build.entry("spike_matmul", "spike_matmul_launch", 3, 9)
-    with torch.cuda.device(s.device):
-        stream = torch.cuda.current_stream(s.device).cuda_stream
-        code = launch(
-            s.data_ptr(), w_q.data_ptr(), out.data_ptr(), M, K, N, p.bn, p.grid[0],
-            int(p.kind == "tensor"), batch, int(s.dim() == 3), int(w_q.dim() == 3), stream,
-        )
-        build.check(code, "spike_matmul")
+    macs = work.device_counter("spike_matmul.macs", s.device)
+    with call:
+        out = torch.empty(*(() if P is None else (P,)), M, N, dtype=torch.int32, device=s.device)
+        launch = build.entry("spike_matmul", "spike_matmul_launch", 4, 9)
+        with torch.cuda.device(s.device):
+            stream = torch.cuda.current_stream(s.device).cuda_stream
+            code = launch(
+                s.data_ptr(), w_q.data_ptr(), out.data_ptr(),
+                None if macs is None else macs.data_ptr(), M, K, N, p.bn, p.grid[0],
+                int(p.kind == "tensor"), batch, int(s.dim() == 3), int(w_q.dim() == 3), stream,
+            )
+            build.check(code, "spike_matmul")
     spike_matmul.launches += 1
     return out
 

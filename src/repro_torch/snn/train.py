@@ -13,6 +13,11 @@ candidates per data batch (the population DSE sweep).
 Training runs on ``device`` (the card unless the caller asks for the CPU)
 with float32 products at full precision, whatever the caller's TF32
 setting (``_device.full_f32_matmul``).
+
+:func:`eval_int` and :func:`eval_int_population` mark their stages with
+``repro_torch.kernels.work.span`` (``eval.gather`` and ``eval.h2d``,
+``population.*``), which cost one ``ContextVar`` read each while nothing
+listens.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from repro_torch.core.backend import _batch_mean
 from repro_torch.core.network import NetworkConfig, init_float_params, run_float
 from repro_torch.core.snn_layer import FloatLayerParams
 from repro_torch.data.snn_datasets import SpikeDataset, raster_tensor
+from repro_torch.kernels import work
 from repro_torch.snn import qat as qat_lib
 from repro_torch.snn.surrogate import fast_sigmoid
 from repro_torch.train import optimizer as opt_lib
@@ -282,10 +288,10 @@ def eval_int(
     correct = total = 0
     layer_ev = None
     in_ev = None
-    for spikes, labels in ds.batches(batch_size):
-        rec = shard_lib.run_int_sharded(
-            net, qparams, raster_tensor(spikes, device), dmesh, backend=resolved
-        )
+    for spikes, labels in work.spanned(ds.batches(batch_size), "eval.gather"):
+        with work.span("eval.h2d"):
+            x = raster_tensor(spikes, device)
+        rec = shard_lib.run_int_sharded(net, qparams, x, dmesh, backend=resolved)
         stats = rec.event_stats()
         correct += int((rec.predictions().cpu().numpy() == labels).sum())
         n = len(labels)
@@ -309,13 +315,15 @@ def _population_fwd(net, stacked_qparams, beta_regs, alpha_regs, spikes, dmesh=N
     [P, batch] predictions, [P, T, L] batch-mean emitted events and [T]
     batch-mean input events (numpy float32, as JAX's ``jnp.mean`` computes
     them: ``sum * fl32(1/batch)``)."""
-    counts, emitted = shard_lib.run_int_population_sharded(
-        net, stacked_qparams, beta_regs, alpha_regs, spikes, dmesh, return_events=True
-    )
-    P, T, L, B = emitted.shape
-    evs = _batch_mean(emitted.reshape(P * T * L, B)).reshape(P, T, L)
-    iev = _batch_mean(backend_lib._count(spikes != 0))
-    return torch.argmax(counts, dim=-1).cpu().numpy(), evs, iev
+    with work.span("population.forward"):
+        counts, emitted = shard_lib.run_int_population_sharded(
+            net, stacked_qparams, beta_regs, alpha_regs, spikes, dmesh, return_events=True
+        )
+    with work.span("population.readback"):
+        P, T, L, B = emitted.shape
+        evs = _batch_mean(emitted.reshape(P * T * L, B)).reshape(P, T, L)
+        iev = _batch_mean(backend_lib._count(spikes != 0))
+        return torch.argmax(counts, dim=-1).cpu().numpy(), evs, iev
 
 
 def eval_int_population(
@@ -345,38 +353,47 @@ def eval_int_population(
     each shard sweeps its slice of the population, so per-candidate results
     stay bit-exact with the one-device sweep and with serial
     :func:`eval_int` (see ``repro_torch.core.shard``).
-    """
-    backend_lib.check_population_structure(net, candidate_nets)
-    dmesh = shard_lib.resolve_mesh(mesh)
-    stacked, beta_regs, alpha_regs = backend_lib.stack_population(candidate_nets, qparams_list)
-    device = beta_regs.device
 
-    P = len(candidate_nets)
-    correct = np.zeros(P, np.int64)
-    total = 0
-    layer_ev = None  # [P, T, L] running size-weighted sum of batch means
-    in_ev = None  # [T]
-    for spikes, labels in ds.batches(batch_size):
-        preds, evs, iev = _population_fwd(
-            net, stacked, beta_regs, alpha_regs, raster_tensor(spikes, device), dmesh
-        )
-        correct += (preds == labels[None, :]).sum(axis=1)
-        n = len(labels)
-        total += n
-        # size-weighted like eval_int: partial batches must not bias traffic
-        evs, iev = evs * n, iev * n
-        layer_ev = evs if layer_ev is None else layer_ev + evs
-        in_ev = iev if in_ev is None else in_ev + iev
-    accs = correct / max(1, total)
-    if not return_stats:
-        return accs
-    layer_ev = layer_ev / max(1, total)
-    in_ev = in_ev / max(1, total)
-    stats = [
-        {
-            "input_events_per_step": in_ev,
-            "layer_events_per_step": [layer_ev[p, :, l] for l in range(layer_ev.shape[2])],
-        }
-        for p in range(P)
-    ]
-    return accs, stats
+    The whole call is the span ``population.sweep``; inside it
+    ``population.check``, ``population.stack``, and a ``population.batch``
+    a data batch (after its gather) holding ``population.h2d``,
+    ``population.forward`` (the kernels' spans below it) and
+    ``population.readback``; then ``population.stats``.
+    """
+    with work.span("population.sweep"):
+        backend_lib.check_population_structure(net, candidate_nets)
+        dmesh = shard_lib.resolve_mesh(mesh)
+        stacked, beta_regs, alpha_regs = backend_lib.stack_population(candidate_nets, qparams_list)
+        device = beta_regs.device
+
+        P = len(candidate_nets)
+        correct = np.zeros(P, np.int64)
+        total = 0
+        layer_ev = None  # [P, T, L] running size-weighted sum of batch means
+        in_ev = None  # [T]
+        for spikes, labels in ds.batches(batch_size):
+            with work.span("population.batch"):
+                with work.span("population.h2d"):
+                    x = raster_tensor(spikes, device)
+                preds, evs, iev = _population_fwd(net, stacked, beta_regs, alpha_regs, x, dmesh)
+                correct += (preds == labels[None, :]).sum(axis=1)
+                n = len(labels)
+                total += n
+                # size-weighted like eval_int: partial batches must not bias traffic
+                evs, iev = evs * n, iev * n
+                layer_ev = evs if layer_ev is None else layer_ev + evs
+                in_ev = iev if in_ev is None else in_ev + iev
+        accs = correct / max(1, total)
+        if not return_stats:
+            return accs
+        with work.span("population.stats"):
+            layer_ev = layer_ev / max(1, total)
+            in_ev = in_ev / max(1, total)
+            stats = [
+                {
+                    "input_events_per_step": in_ev,
+                    "layer_events_per_step": [layer_ev[p, :, l] for l in range(layer_ev.shape[2])],
+                }
+                for p in range(P)
+            ]
+        return accs, stats
