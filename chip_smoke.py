@@ -9,7 +9,8 @@ result line):
 1. the card (``nvidia-smi`` name and power limit) and the nvcc build of the
    five CUDA kernels from ``src/repro_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card at the main
-   path's shapes -- the three SNN kernels bit for bit (``spike_matmul`` at
+   path's shapes -- the three SNN kernels and ``ataf_scan`` (the population
+   sweep's ATA-F scan, at P = 512) bit for bit (``spike_matmul`` at
    its four main-path shapes, on a mixed raster, a graded serving tick and
    the 2^27 wraparound, and under the CUDA cores' int32 floor at
    [25600,256]x[256,128], which only its tensor-core route can reach;
@@ -52,9 +53,9 @@ result line):
    on the card as dse_bench trains it (``train_snn``, 6 epochs): a search on
    seeded random weights for comparison, then ``explore_snn`` NSGA-II
    (population 64, 3 generations, perf and bandwidth terms on) on the
-   trained weights, its population sweep through ``spike_matmul`` and
-   ``lif_scan``; every scored candidate's accuracy and stats equal to
-   serial ``eval_int(reference)``; a repeated search and a search killed
+   trained weights, its population sweep through ``spike_matmul``,
+   ``ataf_scan`` and ``lif_scan``; every scored candidate's accuracy and
+   stats equal to serial ``eval_int(reference)``; a repeated search and a search killed
    after generation 1 and resumed give the identical result; 4 candidates x
    32 samples card == CPU; the candidate-axis ``lif_scan`` bit-identical to
    its plain version at [64, 20, 231, 10]; the sweep's candidates/s at P =
@@ -340,8 +341,8 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attend  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref  # noqa: E402
-from repro_torch.kernels.lif_scan.lif_scan import lif_scan  # noqa: E402
-from repro_torch.kernels.lif_scan.ref import lif_scan_ref  # noqa: E402
+from repro_torch.kernels.lif_scan.lif_scan import ataf_scan, lif_scan  # noqa: E402
+from repro_torch.kernels.lif_scan.ref import ataf_scan_ref, lif_scan_ref  # noqa: E402
 from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref  # noqa: E402
 from repro_torch.kernels.quant_matmul.spike_matmul import (  # noqa: E402
@@ -623,6 +624,43 @@ def check_lif_scan(gen) -> dict:
         max_abs_err=err,
         ms=ms,
         plain_ms=time_ms(lambda: lif_scan_ref(cur, 496, 243, 16, False), reps=5, inner=2),
+        library_ms=None,
+        bound_ms=b_ms,
+        bound_by=b_by,
+    )
+
+
+def check_ataf_scan(gen) -> dict:
+    """The population sweep's ATA-F scan at the shape of the P = 512 sweep
+    (benchmarks/dse_bench.py's hidden layer, 231 samples, T = 20) and a
+    ragged one: self-weights up to +-2**15, per-candidate theta and decay
+    registers with the bypass among them, against its plain version."""
+    err = 0
+    for P, T, B, N in [(3, 7, 5, 37), (512, DSE_T, 231, 128)]:
+        cur = torch.randint(-300, 400, (P, T, B, N), device=DEVICE, generator=gen,
+                            dtype=torch.int32)
+        pick = lambda vals: torch.tensor(vals, dtype=torch.int32, device=DEVICE)[
+            torch.randint(0, len(vals), (P,), device=DEVICE, generator=gen)]
+        w = pick([0, -40, 90, -(2**15), 2**15, 2**15 - 1])
+        theta = pick([150, 496, 900])
+        regs = pick([0, 128, 243, 255, 256, 256 + 5])
+        for zero in (False, True):
+            s1 = ataf_scan(cur, w_self=w, theta_q=theta, decay_k=regs, u_bits=16,
+                           reset_to_zero=zero)
+            s2 = ataf_scan_ref(cur, w, theta, regs, 16, zero)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(s1, s2))
+            check(torch.equal(s1, s2), f"ataf_scan {[P, T, B, N]} zero={zero}")
+    b_ms, b_by = bound(4 * (2 * P * T * B * N + 3 * P), 14 * P * T * B * N, INT32_OPS_S)
+    kw = dict(w_self=w, theta_q=theta, decay_k=regs, u_bits=16, reset_to_zero=False)
+    return dict(
+        name="ataf_scan",
+        source="src/repro_torch/csrc/lif_scan.cu",
+        shape=f"[{P},{T},{B},{N}] int32, self-weight, theta and register per candidate",
+        replaces="none (JAX steps ATA-F with jnp under vmap)",
+        max_abs_err=err,
+        ms=time_ms(lambda: ataf_scan(cur, **kw)),
+        plain_ms=time_ms(lambda: ataf_scan_ref(cur, w, theta, regs, 16, False), reps=3, inner=2),
         library_ms=None,
         bound_ms=b_ms,
         bound_by=b_by,
@@ -975,12 +1013,14 @@ def check_flash_attention(gen, n_layers: int) -> dict:
 # ---------------------------------------------------------------------------
 
 # the sizes each SNN kernel is launched with, as its C entry point takes
-# them (positions among its int arguments): spike_matmul (M, K, N, batch,
-# s_batched, w_batched), sparse_accum (E, K, n_in, N), lif_scan (P, T, B*N)
+# them (positions among its int arguments), by the entry point's name less
+# "_launch": spike_matmul (M, K, N, batch, s_batched, w_batched),
+# sparse_accum (E, K, n_in, N), lif_scan and ataf_scan (P, T, B*N)
 TALLY_INTS = {
     "spike_matmul": (0, 1, 2, 6, 7, 8),
     "sparse_accum": (0, 1, 2, 3),
     "lif_scan": (0, 1, 2),
+    "ataf_scan": (0, 1, 2),
 }
 _SIZES = {"open": False, "tally": collections.Counter()}
 
@@ -994,13 +1034,14 @@ def launch_sizes():
 
     def entry(name, symbol, n_pointers, n_ints, n_floats=0):
         fn = real(name, symbol, n_pointers, n_ints, n_floats)
-        if name not in TALLY_INTS:
+        kernel = symbol.removesuffix("_launch")
+        if kernel not in TALLY_INTS:
             return fn
 
         def launch(*args):
             if _SIZES["open"]:
                 ints = args[n_pointers:]
-                _SIZES["tally"][(name, tuple(ints[i] for i in TALLY_INTS[name]))] += 1
+                _SIZES["tally"][(kernel, tuple(ints[i] for i in TALLY_INTS[kernel]))] += 1
             return fn(*args)
 
         return launch
@@ -1540,7 +1581,11 @@ DSE_T = 20
 DSE_WEIGHTS = dict(c_hw=0.4, c_acc=0.4, c_perf=0.2, c_lat=0.4, c_energy=0.4, c_bw=0.2)
 DSE_CKPT = ROOT / "build" / "dse_checkpoints"  # git-ignored, inside the checkout
 # the sweep's CUDA kernels, as torch.profiler names them
-SWEEP_KERNELS = {"spike_matmul": "spike_matmul_kernel", "lif_scan": "lif_scan_kernel"}
+SWEEP_KERNELS = {
+    "spike_matmul": "spike_matmul_kernel",
+    "lif_scan": "lif_scan_kernel",
+    "ataf_scan": "ataf_scan_kernel",
+}
 # The profiler starts recording late after the step into its recorded
 # steps: launched at once, the first recorded sweep lost its first device
 # events (its layer-0 ``spike_matmul`` in 6 of 300 windows on an H100); after
@@ -1712,7 +1757,8 @@ def phase_dse(dse, found: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    check(counts["spike_matmul"] > 0 and counts["lif_scan"] > 0, "the sweep ran its kernels")
+    check(counts["spike_matmul"] > 0 and counts["lif_scan"] > 0 and counts["ataf_scan"] > 0,
+          "the sweep ran its kernels")
     out = found["dse_json"] = res.to_json()
     cache = res.search.cache
     check(len(cache) > 64 and res.search.front, "the search scored more than one generation")
@@ -5332,6 +5378,7 @@ def main() -> int:
     rows = [
         check_spike_matmul(gen, [p.w_ff for p in qparams]),
         check_lif_scan(gen),
+        check_ataf_scan(gen),
         check_sparse_accum(gen, qparams[0].w_ff),
         check_quant_matmul(gen, arch.config.n_layers),
         check_flash_attention(gen, arch.config.n_layers),
@@ -5356,7 +5403,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s"
     )
 
-    launches = dict.fromkeys(build.KERNELS, 0)
+    launches = dict.fromkeys(kernels.wrappers(), 0)
     lm_qdots = QDOTS_PER_LAYER * arch.config.n_layers
     serve_results: dict = {}
     for name, phase in [
@@ -5536,7 +5583,7 @@ def main() -> int:
             {
                 "name": r["name"],
                 "route": "cuda",
-                "source": f"src/repro_torch/csrc/{r['name']}.cu",
+                "source": r.get("source", f"src/repro_torch/csrc/{r['name']}.cu"),
                 "replaces": r["replaces"],
                 "launches": launches[r["name"]],
                 "max_abs_err": r["max_abs_err"],

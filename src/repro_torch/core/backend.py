@@ -44,8 +44,9 @@ tensor carries an explicit candidate axis and the traversal is layer-major,
 as in ``fused``: each layer's feed-forward currents for the whole window are
 one ``spike_matmul`` launch over all candidates, a feed-forward IF/LIF
 layer's phase B is one ``lif_scan`` launch with per-candidate theta and
-decay registers read on the device, and every other layer runs the step
-loop with the candidate axis carried through.
+decay registers read on the device, an ATA-F IF/LIF layer's is one
+``ataf_scan`` launch (the same, with each candidate's self-weight), and every
+other layer runs the step loop with the candidate axis carried through.
 """
 
 from __future__ import annotations
@@ -61,7 +62,9 @@ from repro_torch.core.fixed_point import exact_f32_matmul, int_max
 from repro_torch.core.snn_layer import (
     IntLayerParams,
     LayerState,
+    NeuronModel,
     ResetMode,
+    Topology,
     fused_eligible,
     _scan_currents,
     _traced_decays,
@@ -75,7 +78,7 @@ from repro_torch.core.snn_layer import (
     int_layer_window_from_currents,
 )
 from repro_torch.kernels import work
-from repro_torch.kernels.lif_scan.lif_scan import lif_scan
+from repro_torch.kernels.lif_scan.lif_scan import ataf_scan, lif_scan
 from repro_torch.kernels.quant_matmul.spike_matmul import spike_integrate, spike_matmul
 from repro_torch.kernels.sparse_accum.ops import fixed_capacity_events, sparse_accum_currents
 from repro_torch.kernels.sparse_accum.sparse_accum import sparse_accum
@@ -666,18 +669,22 @@ def _population_currents(x, w_ff):
 
 def _population_window(cfg, p: IntLayerParams, currents, beta_reg, alpha_reg):
     """Spikes [P, T, batch, n_out] of one layer of every candidate from its
-    currents: ``lif_scan`` (one launch) for a feed-forward IF/LIF core, else
-    the step loop over the window with the candidate axis carried through
-    (per-step ATA-T recurrence products through ``spike_matmul``)."""
+    currents: ``lif_scan`` (one launch) for a feed-forward IF/LIF core,
+    ``ataf_scan`` (one launch) for an ATA-F IF/LIF core, else the step loop
+    over the window with the candidate axis carried through (ATA-T's
+    per-step recurrence products through ``spike_matmul``, Synaptic's
+    current)."""
+    scan = dict(
+        theta_q=p.theta_q,
+        decay_k=beta_reg,
+        u_bits=cfg.u_bits,
+        reset_to_zero=cfg.reset == ResetMode.ZERO,
+    )
     if fused_eligible(cfg):
-        spikes, _ = lif_scan(
-            currents,
-            theta_q=p.theta_q,
-            decay_k=beta_reg,
-            u_bits=cfg.u_bits,
-            reset_to_zero=cfg.reset == ResetMode.ZERO,
-        )
+        spikes, _ = lif_scan(currents, **scan)
         return spikes
+    if cfg.topology == Topology.ATA_F and cfg.neuron in (NeuronModel.IF, NeuronModel.LIF):
+        return ataf_scan(currents, w_self=p.w_rec.reshape(-1), **scan)
     P, T, B, N = currents.shape
     col = lambda t: t.reshape(P, 1, 1)  # broadcast a per-candidate scalar over [P, B, N]
     z = lambda: torch.zeros(P, B, N, dtype=torch.int32, device=currents.device)
@@ -704,9 +711,10 @@ def run_int_population(
     same state.
 
     Launches per data batch on the card: one ``spike_matmul`` per layer, one
-    ``lif_scan`` per feed-forward IF/LIF layer, and T more ``spike_matmul``
-    per ATA-T layer (its recurrence needs the previous step's spikes) --
-    none of it per candidate.
+    ``lif_scan`` per feed-forward IF/LIF layer, one ``ataf_scan`` per ATA-F
+    IF/LIF layer, and T more ``spike_matmul`` per ATA-T layer (its
+    recurrence needs the previous step's spikes) -- none of it per
+    candidate.  ATA-T and Synaptic layers step their phase B in PyTorch.
     """
     x = torch.as_tensor(spikes_in).to(device=beta_regs.device, dtype=torch.int32)
     emitted = []

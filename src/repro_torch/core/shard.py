@@ -375,8 +375,9 @@ def run_int_population_sharded(
     """``run_int_population`` with the *candidate* axis spread across devices.
 
     Each shard scores its slice of the population through the same sweep
-    (on the card: one ``spike_matmul`` per layer and one ``lif_scan`` per
-    feed-forward IF/LIF layer for the slice), so per-candidate results are
+    (on the card: one ``spike_matmul`` per layer, one ``lif_scan`` per
+    feed-forward IF/LIF layer and one ``ataf_scan`` per ATA-F IF/LIF layer
+    for the slice), so per-candidate results are
     bit-exact with the one-device sweep and with serial ``eval_int``.  A
     population that does not divide by the shard count is padded by
     repeating the last candidate -- its parameters, theta and decay

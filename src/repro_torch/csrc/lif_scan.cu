@@ -33,6 +33,17 @@
 // reads it.  u_bits and the reset mode are static across a population.  A
 // single window is the case P = 1.
 //
+// ataf_scan_kernel: the same scan for an ATA-F (self-feedback) IF/LIF layer
+// of the population sweep, whose step adds the neuron's own previous spike
+// times the candidate's self-weight (int32 [P], read on the device like
+// theta) to I[t].  It replaces no TPU kernel: JAX steps ATA-F with jnp
+// under vmap; it was added because the port's step loop launched dozens of
+// elementwise kernels a step over [P, B, N] (the leak's gated taps alone
+// take five a tap).  Bound by bytes as lif_scan_kernel is (one read of the
+// currents, one write of the spikes), with the same thread-per-neuron,
+// coalesced design.  It is a kernel of its own, so lif_scan_kernel compiles
+// as it did (the same SASS).
+//
 // Arithmetic: u + I[t] and u - theta wrap mod 2**32 *before* the saturation
 // in the JAX reference; signed overflow is undefined in C++, so both are
 // computed in uint32_t and reinterpreted.  `>>` on a signed int is an
@@ -92,6 +103,57 @@ lif_scan_kernel(const int32_t* __restrict__ cur, int32_t* __restrict__ spikes,
   u_final[p] = u;
 }
 
+// The CG shift-add leak of a saturated membrane v: the sum of v >> shift
+// over the taps set in the 9-bit register, saturated; 256 and above is the
+// IF bypass.  lif_scan_kernel keeps these lines inline: called through this
+// helper it compiled to other SASS under nvcc 12.8, and ran 6-8 % further
+// from its bound in the population sweep.
+__device__ __forceinline__ int32_t cg_leak(int32_t v, int32_t decay_k, int qmin, int qmax) {
+  int32_t u_leak = v;  // k = 256: the IF bypass path
+  if (decay_k < 256) {
+    uint32_t acc = 0;
+#pragma unroll
+    for (int shift = 1; shift <= 8; ++shift) {
+      if ((decay_k >> (8 - shift)) & 1) acc += static_cast<uint32_t>(v >> shift);
+    }
+    u_leak = clamp(static_cast<int32_t>(acc), qmin, qmax);
+  }
+  return u_leak;
+}
+
+// lif_scan_kernel's step with the ATA-F layer's self-feedback: the previous
+// step's own spike times the candidate's self-weight joins the step's
+// current (a select, since a spike is 0 or 1), both adds wrapping before
+// the saturation as _integrate_acc and saturate do in int32.  The membrane
+// and the previous spike stay in registers for all T steps; only the spikes
+// are written (the sweep reads no final membrane).
+__global__ void __launch_bounds__(kThreads)
+ataf_scan_kernel(const int32_t* __restrict__ cur, int32_t* __restrict__ spikes, int T, int BN,
+                 const int32_t* __restrict__ w_p, const int32_t* __restrict__ theta_p,
+                 const int32_t* __restrict__ k_p, int qmin, int qmax, int reset_to_zero) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= BN) return;
+  const size_t c = blockIdx.y;  // the candidate
+  const int32_t w_self = w_p[c];
+  const int32_t theta = theta_p[c];
+  const int32_t decay_k = k_p[c];
+  cur += c * T * BN;
+  spikes += c * T * BN;
+  int32_t u = 0;
+  bool prev = false;
+  for (int t = 0; t < T; ++t) {
+    const size_t off = static_cast<size_t>(t) * BN + p;
+    const int32_t acc = wrap_add(cur[off], prev ? w_self : 0);
+    const int32_t v = clamp(wrap_add(u, acc), qmin, qmax);
+    const bool spk = v >= theta;
+    const int32_t u_reset = reset_to_zero ? 0 : clamp(wrap_sub(v, theta), qmin, qmax);
+    const int32_t u_leak = cg_leak(v, decay_k, qmin, qmax);
+    u = spk ? u_reset : u_leak;
+    spikes[off] = spk ? 1 : 0;
+    prev = spk;
+  }
+}
+
 }  // namespace
 
 // P candidates' windows [P, T, B, N] (BN = B * N) in one launch: theta and
@@ -106,6 +168,23 @@ extern "C" int lif_scan_launch(const void* cur, void* spikes, void* u_final, con
     lif_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(cur), static_cast<int32_t*>(spikes),
         static_cast<int32_t*>(u_final), T, BN, static_cast<const int32_t*>(theta_p),
+        static_cast<const int32_t*>(k_p), qmin, qmax, reset_to_zero);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P candidates' ATA-F windows [P, T, B, N] (BN = B * N) in one launch, the
+// spikes only: candidate c's self-weight, theta and decay register are
+// w_p[c], theta_p[c] and k_p[c] (int32 [P] on the device).
+extern "C" int ataf_scan_launch(const void* cur, void* spikes, const void* w_p, const void* theta_p,
+                                const void* k_p, int P, int T, int BN, int qmin, int qmax,
+                                int reset_to_zero, void* stream) {
+  if (P > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (BN > 0 && P > 0) {
+    const dim3 grid((BN + kThreads - 1) / kThreads, P);
+    ataf_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(cur), static_cast<int32_t*>(spikes), T, BN,
+        static_cast<const int32_t*>(w_p), static_cast<const int32_t*>(theta_p),
         static_cast<const int32_t*>(k_p), qmin, qmax, reset_to_zero);
   }
   return static_cast<int>(cudaGetLastError());

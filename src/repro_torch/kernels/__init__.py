@@ -15,7 +15,7 @@ __all__ = ["wrappers", "launch_counts", "reset_launch_counts"]
 def wrappers() -> dict:
     """Kernel name -> wrapper function, for every kernel of the port."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-    from repro_torch.kernels.lif_scan.lif_scan import lif_scan
+    from repro_torch.kernels.lif_scan.lif_scan import ataf_scan, lif_scan
     from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul
     from repro_torch.kernels.quant_matmul.spike_matmul import spike_matmul
     from repro_torch.kernels.sparse_accum.sparse_accum import sparse_accum
@@ -23,6 +23,7 @@ def wrappers() -> dict:
     return {
         "spike_matmul": spike_matmul,
         "lif_scan": lif_scan,
+        "ataf_scan": ataf_scan,
         "sparse_accum": sparse_accum,
         "quant_matmul": quant_matmul,
         "flash_attention": flash_attention,

@@ -11,6 +11,14 @@ sweep) they are int32 [P] tensors, one per candidate, and a single window
 For a CPU tensor the wrapper runs :func:`lif_scan_ref`; for a CUDA tensor it
 launches the kernel or raises.  Each call reports its work through
 :func:`~repro_torch.kernels.work.kernel` (:func:`_call`).
+
+:func:`ataf_scan` runs the population sweep's ATA-F (self-feedback) IF/LIF
+windows the same way, one launch for every candidate: ``lif_scan``'s step
+with the neuron's previous spike times the candidate's self-weight added to
+its current.  Its kernel (``ataf_scan_kernel`` in the same source) replaces
+no TPU kernel -- JAX steps ATA-F with ``jnp`` under ``vmap`` -- and takes the
+place of the port's elementwise step loop; like ``lif_scan`` it is bound by
+bytes.  Its plain version is :func:`ataf_scan_ref`.
 """
 
 from __future__ import annotations
@@ -19,9 +27,9 @@ import torch
 
 from repro_torch.core.fixed_point import int_max, int_min
 from repro_torch.kernels import build, work
-from repro_torch.kernels.lif_scan.ref import lif_scan_ref
+from repro_torch.kernels.lif_scan.ref import ataf_scan_ref, lif_scan_ref
 
-__all__ = ["lif_scan"]
+__all__ = ["lif_scan", "ataf_scan"]
 
 _INT32_MIN, _INT32_MAX = int_min(32), int_max(32)
 
@@ -83,28 +91,40 @@ def _call(currents: torch.Tensor):
     return work.kernel("lif_scan", 12 * P * T * B * N, nbytes, (currents,))
 
 
-def _check_u_bits(u_bits: int) -> None:
+def _check_u_bits(u_bits: int, what: str = "lif_scan") -> None:
     if not 2 <= u_bits <= 31:
-        raise ValueError(f"lif_scan: u_bits must be in [2, 31], got {u_bits}")
+        raise ValueError(f"{what}: u_bits must be in [2, 31], got {u_bits}")
 
 
-def _check_card(currents: torch.Tensor) -> None:
+def _check_card(currents: torch.Tensor, what: str = "lif_scan") -> None:
     if currents.device.type != "cuda":
-        raise ValueError(f"lif_scan: no kernel for device {currents.device}")
+        raise ValueError(f"{what}: no kernel for device {currents.device}")
     if currents.dtype != torch.int32 or not currents.is_contiguous():
-        raise ValueError("lif_scan: currents must be contiguous int32")
+        raise ValueError(f"{what}: currents must be contiguous int32")
+
+
+def _check_grid(P: int, what: str) -> None:
+    if P > 65535:
+        raise ValueError(f"{what}: {P} candidates exceed the kernel's grid (65535)")
+
+
+def _registers(what: str, currents: torch.Tensor, **regs) -> list[torch.Tensor]:
+    """The per-candidate registers of a scan of [P, T, B, N] currents, each
+    checked to be int32 [P] beside the currents, made contiguous."""
+    P = currents.shape[0]
+    out = []
+    for name, t in regs.items():
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != (P,) or t.dtype != torch.int32:
+            raise ValueError(f"{what}: with currents [P, T, B, N] {name} must be int32 [{P}]")
+        if t.device != currents.device:
+            raise ValueError(f"{what}: {name} on {t.device}, currents on {currents.device}")
+        out.append(t.contiguous())
+    return out
 
 
 def _lif_scan_population(currents, theta_q, decay_k, u_bits, reset_to_zero):
     """The candidate-axis form of :func:`lif_scan`: P windows, one launch."""
-    P = currents.shape[0]
-    regs = []
-    for name, t in (("theta_q", theta_q), ("decay_k", decay_k)):
-        if not isinstance(t, torch.Tensor) or tuple(t.shape) != (P,) or t.dtype != torch.int32:
-            raise ValueError(f"lif_scan: with currents [P, T, B, N] {name} must be int32 [{P}]")
-        if t.device != currents.device:
-            raise ValueError(f"lif_scan: {name} on {t.device}, currents on {currents.device}")
-        regs.append(t.contiguous())
+    regs = _registers("lif_scan", currents, theta_q=theta_q, decay_k=decay_k)
     _check_u_bits(u_bits)
     if currents.device.type == "cpu":
         with _call(currents):
@@ -117,8 +137,7 @@ def _launch(currents, theta, k, u_bits, reset_to_zero):
     """One kernel launch over [P, T, B, N] currents on the card, theta and
     the register int32 [P] on the same card."""
     P, T, B, N = currents.shape
-    if P > 65535:
-        raise ValueError(f"lif_scan: {P} candidates exceed the kernel's grid (65535)")
+    _check_grid(P, "lif_scan")
     with _call(currents):
         spikes = torch.empty(P, T, B, N, dtype=torch.int32, device=currents.device)
         u_final = torch.empty(P, B, N, dtype=torch.int32, device=currents.device)
@@ -133,3 +152,62 @@ def _launch(currents, theta, k, u_bits, reset_to_zero):
             build.check(code, "lif_scan")
     lif_scan.launches += 1
     return spikes, u_final
+
+
+def ataf_scan(
+    currents: torch.Tensor,  # int32 [P, T, B, N]
+    *,
+    w_self: torch.Tensor,
+    theta_q: torch.Tensor,
+    decay_k: torch.Tensor,
+    u_bits: int = 16,
+    reset_to_zero: bool = False,
+) -> torch.Tensor:
+    """P candidates' ATA-F IF/LIF windows from zero state in one launch.
+    Returns the spikes int32 [P, T, B, N].
+
+    ``w_self``, ``theta_q`` and ``decay_k`` are int32 [P] tensors beside the
+    currents: each candidate's self-weight register, threshold and packed
+    9-bit DecayRate register (256 and above is the bypass).  Per step,
+    ``I[t] + prev_spk * w_self`` then ``u + acc`` wrap in int32 before the
+    ``u_bits`` saturation, as ``_integrate_acc`` does; the rest is
+    :func:`lif_scan`'s step.
+    """
+    if currents.dim() != 4:
+        raise ValueError(f"ataf_scan: currents must be [P, T, B, N], got {tuple(currents.shape)}")
+    regs = _registers("ataf_scan", currents, w_self=w_self, theta_q=theta_q, decay_k=decay_k)
+    _check_u_bits(u_bits, "ataf_scan")
+    if currents.device.type == "cpu":
+        with _ataf_call(currents):
+            return ataf_scan_ref(currents, *regs, u_bits, reset_to_zero)
+    _check_card(currents, "ataf_scan")
+    P, T, B, N = currents.shape
+    _check_grid(P, "ataf_scan")
+    w, theta, k = regs
+    with _ataf_call(currents):
+        spikes = torch.empty(P, T, B, N, dtype=torch.int32, device=currents.device)
+        launch = build.entry("lif_scan", "ataf_scan_launch", 5, 6)
+        with torch.cuda.device(currents.device):
+            stream = torch.cuda.current_stream(currents.device).cuda_stream
+            code = launch(
+                currents.data_ptr(), spikes.data_ptr(), w.data_ptr(), theta.data_ptr(),
+                k.data_ptr(), P, T, B * N, int_min(u_bits), int_max(u_bits), int(reset_to_zero),
+                stream,
+            )
+            build.check(code, "ataf_scan")
+    ataf_scan.launches += 1
+    return spikes
+
+
+ataf_scan.launches = 0
+
+
+def _ataf_call(currents: torch.Tensor):
+    """The work of an ATA-F scan of [P, T, B, N] currents, counted as
+    :func:`_call` counts ``lif_scan``'s: the currents read and the spikes
+    written, the self-weight, theta and the decay register read once a
+    candidate; 14 operations per element and step (``lif_scan``'s 12, and the
+    self-feedback's select and add)."""
+    P, T, B, N = currents.shape
+    nbytes = 4 * (2 * P * T * B * N + 3 * P)
+    return work.kernel("ataf_scan", 14 * P * T * B * N, nbytes, (currents,))

@@ -11,6 +11,11 @@ With a candidate axis (the population sweep) the window is [P, T, B, N] and
 theta and the 9-bit decay register are int32 [P], one per candidate; the
 leak then gates every tap arithmetically, as ``apply_decay_traced`` does.
 The ``lif_scan`` CUDA kernel must match it bit for bit.
+
+:func:`ataf_scan_ref` is the same scan for an ATA-F (self-feedback) layer of
+the population sweep, the plain version of the ``ataf_scan`` kernel: each
+step first adds the neuron's previous spike times the candidate's
+self-weight to I[t], as ``_integrate_acc`` does (int32, wrapping).
 """
 
 from __future__ import annotations
@@ -45,6 +50,24 @@ def lif_scan_ref(
     reset_to_zero: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (spikes int32 [..., T, B, N], final_u int32 [..., B, N])."""
+    return _scan(currents, theta_q, decay_k, u_bits, reset_to_zero)
+
+
+def ataf_scan_ref(
+    currents: torch.Tensor,  # int32 [P, T, B, N]
+    w_self: torch.Tensor,  # int32 [P], each candidate's self-weight register
+    theta_q: torch.Tensor,  # int32 [P]
+    decay_k: torch.Tensor,  # int32 [P], the 9-bit decay registers (256 and above: bypass)
+    u_bits: int = 16,
+    reset_to_zero: bool = False,
+) -> torch.Tensor:
+    """Spikes int32 [P, T, B, N] of P ATA-F IF/LIF windows from zero state."""
+    return _scan(currents, theta_q, decay_k, u_bits, reset_to_zero, w_self)[0]
+
+
+def _scan(currents, theta_q, decay_k, u_bits, reset_to_zero, w_self=None):
+    """The scan of :func:`lif_scan_ref`, with the previous spikes times
+    ``w_self`` (int32 [P]) added to each step's current where it is given."""
     *lead, T, B, N = currents.shape
     dev = currents.device
     if lead:
@@ -58,7 +81,10 @@ def lif_scan_ref(
     u = torch.zeros(*lead, B, N, dtype=torch.int32, device=dev)
     spikes = []
     for t in range(T):
-        u = saturate(u + currents[..., t, :, :].to(torch.int32), u_bits)
+        i_t = currents[..., t, :, :].to(torch.int32)
+        if w_self is not None and spikes:
+            i_t = i_t + spikes[-1] * w_self.reshape(-1, 1, 1)
+        u = saturate(u + i_t, u_bits)
         spk = (u >= theta_q).to(torch.int32)
         if reset_to_zero:
             u_reset = torch.zeros_like(u)
@@ -69,3 +95,4 @@ def lif_scan_ref(
     if not spikes:
         return torch.zeros(*lead, 0, B, N, dtype=torch.int32, device=dev), u
     return torch.stack(spikes, dim=len(lead)), u
+

@@ -17,8 +17,8 @@ import torch
 from repro_torch.core import backend as tbe
 from repro_torch.core import network as tnet
 from repro_torch.core import snn_layer as tsl
-from repro_torch.kernels.lif_scan.lif_scan import lif_scan
-from repro_torch.kernels.lif_scan.ref import lif_scan_ref
+from repro_torch.kernels.lif_scan.lif_scan import ataf_scan, lif_scan
+from repro_torch.kernels.lif_scan.ref import ataf_scan_ref, lif_scan_ref
 from repro_torch.kernels.quant_matmul.spike_matmul import spike_matmul, spike_matmul_plain
 from repro_torch.kernels.sparse_accum.ops import fixed_capacity_events
 from repro_torch.kernels.sparse_accum.ref import sparse_accum_ref
@@ -671,6 +671,64 @@ def test_lif_scan_candidate_axis_refuses_registers_off_the_card(cuda):
         lif_scan(cur, theta_q=regs, decay_k=regs.to(cuda))
 
 
+@pytest.mark.parametrize("P,T,B,N", [(512, 20, 231, 128), (3, 7, 5, 37)])
+@pytest.mark.parametrize("zero", [False, True], ids=["subtract", "zero"])
+def test_ataf_scan_matches_plain(cuda, P, T, B, N, zero):
+    """The ATA-F scan at the sweep's shape and a ragged one: self-weights
+    up to +-2**15 and currents near the int32 limits (both adds wrap),
+    per-candidate theta and registers with the bypass among them."""
+    rng = np.random.default_rng(P + T + zero)
+    gen = torch.Generator(device=cuda).manual_seed(P + T + zero)
+    shape = (P, T, B, N)
+    band = torch.randint(0, 3, shape, device=cuda, generator=gen)
+    cur = torch.randint(-(2**16), 2**16, shape, device=cuda, generator=gen, dtype=torch.int32)
+    offsets = torch.tensor([2**31 - 2**16, -(2**31 - 2**16), 0], dtype=torch.int32, device=cuda)
+    cur += offsets[band]  # near the int32 maximum, near its minimum, moderate
+    del band
+    w, theta, k = (torch.from_numpy(a).to(cuda) for a in (
+        rng.choice([0, -5, 300, -(2**15), 2**15, 2**15 - 1], P).astype(np.int32),
+        rng.integers(1, 30000, P).astype(np.int32),
+        rng.choice([0, 128, 192, 243, 255, 256, 256 + 5], P).astype(np.int32),
+    ))
+    n0 = ataf_scan.launches
+    spk = ataf_scan(cur, w_self=w, theta_q=theta, decay_k=k, u_bits=16, reset_to_zero=zero)
+    torch.cuda.synchronize()
+    assert ataf_scan.launches == n0 + 1 and spk.shape == cur.shape
+    assert torch.equal(spk, ataf_scan_ref(cur, w, theta, k, 16, zero))
+    assert 0 < int(spk.sum()) < spk.numel()
+
+
+@pytest.mark.parametrize(
+    "topology,neuron", [("ata_f", "lif"), ("ata_f", "if"), ("ata_t", "lif"), ("ata_f", "synaptic"),
+                        ("ff", "lif")]
+)
+def test_population_sweep_launches_one_scan_a_layer(cuda, topology, neuron):
+    """Each ``run_int_population`` call launches one ``ataf_scan`` per ATA-F
+    IF/LIF layer and one ``lif_scan`` per feed-forward IF/LIF layer, and
+    equals the step-major sweep on the card and the sweep on the CPU."""
+    net = _net(topology, neuron)
+    params = tnet.init_float_params(torch.Generator().manual_seed(3), net, device="cpu")
+    cands = [net.replace_precisions(w_bits=w, w_rec_bits=r, leak_bits=l)
+             for w, r, l in [(2, 3, 1), (6, 16, 3), (8, 8, 8), (16, 2, 5)]]
+    q_cpu = [tnet.quantize_params(c, params)[0] for c in cands]
+    q_gpu = [[tsl.IntLayerParams(*(a.to(cuda) for a in p)) for p in q] for q in q_cpu]
+    x = torch.from_numpy(_raster(10 * 20, 64, seed=9).reshape(10, 20, 64))
+    ataf = sum(c.topology == tsl.Topology.ATA_F and c.neuron != tsl.NeuronModel.SYNAPTIC
+               for c in net.layers)
+    fused = sum(tsl.fused_eligible(c) for c in net.layers)
+    stacked, b, a = tbe.stack_population(cands, q_gpu)
+    for _ in range(2):
+        n0 = (ataf_scan.launches, lif_scan.launches)
+        got = tbe.run_int_population(net, stacked, b, a, x.to(cuda), return_events=True)
+        torch.cuda.synchronize()
+        assert (ataf_scan.launches - n0[0], lif_scan.launches - n0[1]) == (ataf, fused)
+    want = tbe._run_int_dynamic(net, stacked, b, a, x.to(cuda))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    s_cpu, b_cpu, a_cpu = tbe.stack_population(cands, q_cpu)
+    cpu = tbe.run_int_population(net, s_cpu, b_cpu, a_cpu, x, return_events=True)
+    assert all(torch.equal(g.cpu(), c) for g, c in zip(got, cpu))
+
+
 @pytest.mark.parametrize("shared", ["s", "w", "none"])
 def test_spike_matmul_candidate_axis_matches_plain(cuda, shared):
     """P products in one launch, int8 and 16-bit candidates side by side (the
@@ -831,7 +889,7 @@ def _card_mesh(cuda, n=4):
 
 def _launches():
     return {"spike_matmul": spike_matmul.launches, "lif_scan": lif_scan.launches,
-            "sparse_accum": sparse_accum.launches}
+            "ataf_scan": ataf_scan.launches, "sparse_accum": sparse_accum.launches}
 
 
 def _delta(before):

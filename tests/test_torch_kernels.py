@@ -23,7 +23,7 @@ from repro.kernels.sparse_accum.ref import sparse_accum_ref as j_sparse_accum_re
 from repro_torch import kernels
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-from repro_torch.kernels.lif_scan.lif_scan import lif_scan
+from repro_torch.kernels.lif_scan.lif_scan import ataf_scan, lif_scan
 from repro_torch.kernels.lif_scan.ops import fused_lif_window
 from repro_torch.kernels.quant_matmul.quant_matmul import quant_matmul
 from repro_torch.kernels.quant_matmul.spike_matmul import spike_integrate, spike_matmul
@@ -228,6 +228,8 @@ def test_wrappers_count_no_launch_on_cpu():
     before = kernels.launch_counts()
     spike_matmul(torch.ones(3, 4, dtype=torch.int32), torch.ones(4, 2, dtype=torch.int32))
     lif_scan(torch.ones(2, 3, 4, dtype=torch.int32), theta_q=1, decay_k=128)
+    regs = torch.ones(2, dtype=torch.int32)
+    ataf_scan(torch.ones(2, 3, 1, 4, dtype=torch.int32), w_self=regs, theta_q=regs, decay_k=regs)
     sparse_accum(
         torch.ones(3, 2, dtype=torch.int32), torch.zeros(3, 2, dtype=torch.int32),
         torch.ones(4, 5, dtype=torch.int32),
@@ -236,7 +238,7 @@ def test_wrappers_count_no_launch_on_cpu():
     flash_attention(torch.ones(1, 2, 3, 4), torch.ones(1, 1, 3, 4), torch.ones(1, 1, 3, 4))
     assert kernels.launch_counts() == before
     assert set(before) == {
-        "spike_matmul", "lif_scan", "sparse_accum", "quant_matmul", "flash_attention",
+        "spike_matmul", "lif_scan", "ataf_scan", "sparse_accum", "quant_matmul", "flash_attention",
     }
 
 

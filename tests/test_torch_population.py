@@ -26,7 +26,8 @@ from repro_torch.core import network as tnet
 from repro_torch.core import shard
 from repro_torch.core import snn_layer as tsl
 from repro_torch.data import snn_datasets as tds
-from repro_torch.kernels.lif_scan.lif_scan import lif_scan
+from repro_torch.kernels import work
+from repro_torch.kernels.lif_scan.lif_scan import ataf_scan, lif_scan
 from repro_torch.kernels.lif_scan.ref import lif_scan_ref
 from repro_torch.snn import train as ttrain
 
@@ -220,6 +221,91 @@ def test_lif_scan_candidate_axis_checks_its_registers():
         lif_scan(cur, theta_q=good, decay_k=good.to(torch.int64))
     with pytest.raises(ValueError, match=r"decay_k must be int32 \[2\]"):
         lif_scan(cur, theta_q=good, decay_k=good[:1])
+
+
+# (neuron, reset, u_bits) of the ATA-F scan
+ATAF_SCAN_CASES = [(n, r, b) for n in ("if", "lif") for r in ("subtract", "zero") for b in (8, 16)]
+# self-weights: zero, negative, and the w_rec_bits = 16 extremes (twice each)
+W_SELF = [0, -3, 41, -(2**15), 2**15 - 1, 2**15, -(2**15), -700]
+
+
+@pytest.mark.parametrize(
+    "neuron,reset,u_bits", ATAF_SCAN_CASES, ids=["-".join(map(str, c)) for c in ATAF_SCAN_CASES]
+)
+def test_ataf_scan_equals_the_step_loop(neuron, reset, u_bits):
+    """``ataf_scan`` on the CPU equals ``_scan_currents`` with a candidate
+    axis (the population's step loop) bit for bit: per-candidate theta,
+    self-weight and decay register (the bypass always for IF, among others
+    for LIF), currents a third each near the int32 maximum, near its
+    minimum and moderate, so that I[t] + w_self and u + acc wrap."""
+    rng = np.random.default_rng(u_bits + 3 * (neuron == "if") + 7 * (reset == "zero"))
+    P, T, B, N = len(W_SELF), 9, 4, 13
+    band = rng.integers(0, 3, (P, T, B, N))
+    near_max = rng.integers(2**31 - 2**16, 2**31, (P, T, B, N))
+    near_min = rng.integers(-(2**31), -(2**31) + 2**16, (P, T, B, N))
+    moderate = rng.integers(-(2**u_bits), 2**u_bits, (P, T, B, N))
+    cur = np.choose(band, [near_max, near_min, moderate]).astype(np.int32)
+    cur[1] = moderate[1]  # one candidate on moderate currents alone
+    qmax = 2 ** (u_bits - 1) - 1
+    theta = rng.integers(1, qmax, P).astype(np.int32)
+    regs = [256, 256 + 77, 256 + 255] if neuron == "if" else [0, 1, 128, 243, 255, 256, 256 + 5]
+    k = rng.choice(regs, P).astype(np.int32)
+    cur_t, w_t, theta_t, k_t = (torch.from_numpy(a) for a in (cur, np.int32(W_SELF), theta, k))
+    n0 = ataf_scan.launches
+    with work.Recorder("cpu") as rec:
+        got = ataf_scan(cur_t, w_self=w_t, theta_q=theta_t, decay_k=k_t, u_bits=u_bits,
+                        reset_to_zero=reset == "zero")
+    assert ataf_scan.launches == n0  # the CPU runs the plain version
+    assert [s.name for s in rec.spans] == ["ataf_scan"]
+    cfg = tsl.LayerConfig(n_in=1, n_out=N, neuron=tsl.NeuronModel(neuron), u_bits=u_bits,
+                          topology=tsl.Topology.ATA_F, reset=tsl.ResetMode(reset))
+    col = lambda t: t.reshape(P, 1, 1)
+    params = tsl.IntLayerParams(w_ff=torch.zeros(1, N, dtype=torch.int32), w_rec=col(w_t),
+                                theta_q=col(theta_t))
+    z = lambda: torch.zeros(P, B, N, dtype=torch.int32)
+    _, want = tsl._scan_currents(cfg, params, tsl.LayerState(z(), z(), z()), cur_t.transpose(0, 1),
+                                 tsl._traced_decays(col(k_t), col(k_t)))
+    assert got.dtype == torch.int32 and torch.equal(got, want.transpose(0, 1))
+    assert 0 < int(got.sum()) < got.numel()
+    # the feedback add wrapped somewhere (int64 sums past the int32 range)
+    acc = cur[:, 1:].astype(np.int64) + got[:, :-1].numpy() * np.int64(W_SELF)[:, None, None, None]
+    assert (acc > 2**31 - 1).any() and (acc < -(2**31)).any()
+
+
+def test_ataf_scan_checks_its_registers():
+    cur = torch.zeros(2, 3, 1, 4, dtype=torch.int32)
+    good = torch.tensor([5, 6], dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"ataf_scan: .* w_self must be int32 \[2\]"):
+        ataf_scan(cur, w_self=good[:1], theta_q=good, decay_k=good)
+    with pytest.raises(ValueError, match=r"theta_q must be int32 \[2\]"):
+        ataf_scan(cur, w_self=good, theta_q=5, decay_k=good)
+    with pytest.raises(ValueError, match=r"decay_k must be int32 \[2\]"):
+        ataf_scan(cur, w_self=good, theta_q=good, decay_k=good.to(torch.int64))
+    with pytest.raises(ValueError, match=r"currents must be \[P, T, B, N\]"):
+        ataf_scan(cur[0], w_self=good, theta_q=good, decay_k=good)
+    with pytest.raises(ValueError, match="u_bits"):
+        ataf_scan(cur, w_self=good, theta_q=good, decay_k=good, u_bits=1)
+
+
+@pytest.mark.parametrize("neuron,topology,reset", CASES, ids=["-".join(c) for c in CASES])
+def test_population_phase_b_takes_one_scan_per_ff_or_ataf_layer(neuron, topology, reset):
+    """A sweep's kernel calls by layer: ``lif_scan`` for each feed-forward
+    IF/LIF layer, ``ataf_scan`` for each ATA-F IF/LIF layer; ATA-T and
+    Synaptic layers call neither (the step loop: only ATA-T's per-step
+    ``spike_matmul``)."""
+    jn, tn = _nets(neuron, topology, reset)
+    _, (tnets, tqs) = _population(jn, tn, candidates=CANDIDATES[:3])
+    ts, tb, ta = tbe.stack_population(tnets, tqs)
+    with work.Recorder("cpu") as rec:
+        tbe.run_int_population(tn, ts, tb, ta, torch.from_numpy(_raster(3, 5, 6, 24)))
+    names = [s.name for s in rec.spans]
+    ataf = [c.topology == tsl.Topology.ATA_F and c.neuron != tsl.NeuronModel.SYNAPTIC
+            for c in tn.layers]
+    assert names.count("lif_scan") == sum(map(tsl.fused_eligible, tn.layers))
+    assert names.count("ataf_scan") == sum(ataf)
+    T = tn.n_steps
+    per_step = T * sum(c.topology == tsl.Topology.ATA_T for c in tn.layers)
+    assert names.count("spike_matmul") == len(tn.layers) + per_step
 
 
 def test_check_population_structure_raises_jax_message():

@@ -178,8 +178,9 @@ def test_population_sweep_records_its_span_tree(shards):
         accs, stats = eval_int_population(
             net, cands, qps, ds, batch_size=4, return_stats=True, mesh=mesh
         )
-    # the ATA-F layer: its currents; the FF layer: currents and the scan
-    kernels = [("spike_matmul", []), ("spike_matmul", []), ("lif_scan", [])] * (shards or 1)
+    # the ATA-F layer: its currents and its scan; the FF layer: the same
+    layer = lambda scan: [("spike_matmul", []), (scan, [])]
+    kernels = (layer("ataf_scan") + layer("lif_scan")) * (shards or 1)
     batch = (
         "population.batch",
         [
