@@ -673,7 +673,7 @@ def _population_window(cfg, p: IntLayerParams, currents, beta_reg, alpha_reg):
     ``ataf_scan`` (one launch) for an ATA-F IF/LIF core, else the step loop
     over the window with the candidate axis carried through (ATA-T's
     per-step recurrence products through ``spike_matmul``, Synaptic's
-    current)."""
+    current), inside the span ``population.step_loop``."""
     scan = dict(
         theta_q=p.theta_q,
         decay_k=beta_reg,
@@ -685,13 +685,14 @@ def _population_window(cfg, p: IntLayerParams, currents, beta_reg, alpha_reg):
         return spikes
     if cfg.topology == Topology.ATA_F and cfg.neuron in (NeuronModel.IF, NeuronModel.LIF):
         return ataf_scan(currents, w_self=p.w_rec.reshape(-1), **scan)
-    P, T, B, N = currents.shape
-    col = lambda t: t.reshape(P, 1, 1)  # broadcast a per-candidate scalar over [P, B, N]
-    z = lambda: torch.zeros(P, B, N, dtype=torch.int32, device=currents.device)
-    state = LayerState(u=z(), i_syn=z(), prev_spk=z())
-    decays = _traced_decays(col(beta_reg), col(alpha_reg))
-    _, spikes = _scan_currents(cfg, _per_candidate(p), state, currents.transpose(0, 1), decays)
-    return spikes.transpose(0, 1).contiguous()  # [T, P, B, N] -> [P, T, B, N]
+    with work.span("population.step_loop"):
+        P, T, B, N = currents.shape
+        col = lambda t: t.reshape(P, 1, 1)  # broadcast a per-candidate scalar over [P, B, N]
+        z = lambda: torch.zeros(P, B, N, dtype=torch.int32, device=currents.device)
+        state = LayerState(u=z(), i_syn=z(), prev_spk=z())
+        decays = _traced_decays(col(beta_reg), col(alpha_reg))
+        _, spikes = _scan_currents(cfg, _per_candidate(p), state, currents.transpose(0, 1), decays)
+        return spikes.transpose(0, 1).contiguous()  # [T, P, B, N] -> [P, T, B, N]
 
 
 def run_int_population(

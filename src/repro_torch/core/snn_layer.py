@@ -179,7 +179,9 @@ def _integrate_acc(cfg: LayerConfig, params: IntLayerParams, state: LayerState, 
     """
     acc = ff_acc
     if cfg.topology == Topology.ATA_T:
-        acc = acc + spike_matmul(state.prev_spk.contiguous(), params.w_rec)
+        acc = acc + spike_matmul(
+            state.prev_spk.contiguous(), params.w_rec, counter="spike_matmul.rec_macs"
+        )
     elif cfg.topology == Topology.ATA_F:
         acc = acc + state.prev_spk * params.w_rec
     if cfg.neuron == NeuronModel.SYNAPTIC:

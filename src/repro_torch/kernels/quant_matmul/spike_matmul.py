@@ -29,7 +29,9 @@ through :func:`~repro_torch.kernels.work.kernel`.  While a sink keeps the
 device_counter`), the kernel adds to it its P M K N multiply-adds by the
 route each tile -- one 16-row strip by one 256-deep K chunk by one block of
 columns -- ran: one tensor-core pass, byte planes, or the CUDA cores;
-otherwise it gets a null pointer and counts nothing.
+otherwise it gets a null pointer and counts nothing.  A caller names another
+counter of the same parts with ``counter`` (an ATA-T layer's recurrence
+counts under ``spike_matmul.rec_macs``).
 """
 
 from __future__ import annotations
@@ -138,12 +140,16 @@ def _operands(s: torch.Tensor, w_q: torch.Tensor) -> tuple[int | None, int, int,
     return (ps.pop() if ps else None), s.shape[-2], s.shape[-1], w_q.shape[-1]
 
 
-def spike_matmul(s: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+def spike_matmul(
+    s: torch.Tensor, w_q: torch.Tensor, counter: str = "spike_matmul.macs"
+) -> torch.Tensor:
     """Exact int32 ``s @ w_q``: s int32 [M, K], w_q int32 [K, N] -> int32 [M, N].
 
     Either operand may carry a leading candidate axis of P (the other one is
     then shared by every candidate): the result is [P, M, N], all P products
-    in one launch.
+    in one launch.  ``counter``: the device counter of
+    :data:`~repro_torch.kernels.work.DEVICE_COUNTERS` that the call's
+    multiply-adds by route go to, where a sink keeps it.
     """
     P, M, K, N = _operands(s, w_q)
     if s.device != w_q.device:
@@ -165,7 +171,7 @@ def spike_matmul(s: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"spike_matmul: N={N} exceeds the kernel's grid")
     if batch > 65535:
         raise ValueError(f"spike_matmul: {batch} candidates exceed the kernel's grid (65535)")
-    macs = work.device_counter("spike_matmul.macs", s.device)
+    macs = work.device_counter(counter, s.device)
     with call:
         out = torch.empty(*(() if P is None else (P,)), M, N, dtype=torch.int32, device=s.device)
         launch = build.entry("spike_matmul", "spike_matmul_launch", 4, 9)

@@ -47,8 +47,12 @@ _SINKS: ContextVar[tuple] = ContextVar("kernel_work_sinks", default=())
 
 # Counters a kernel keeps on the device, by name, and the parts of each
 # (an int64 buffer of one element a part): csrc/spike_matmul.cu's
-# multiply-adds by the route they ran on
-DEVICE_COUNTERS = {"spike_matmul.macs": ("tensor", "planes", "cuda_cores")}
+# multiply-adds by the route they ran on, those of an ATA-T layer's
+# recurrence apart from the rest
+DEVICE_COUNTERS = {
+    "spike_matmul.macs": ("tensor", "planes", "cuda_cores"),
+    "spike_matmul.rec_macs": ("tensor", "planes", "cuda_cores"),
+}
 
 
 class _Off:

@@ -357,7 +357,8 @@ def eval_int_population(
     The whole call is the span ``population.sweep``; inside it
     ``population.check``, ``population.stack``, and a ``population.batch``
     a data batch (after its gather) holding ``population.h2d``,
-    ``population.forward`` (the kernels' spans below it) and
+    ``population.forward`` (the kernels' spans below it, and a
+    ``population.step_loop`` a layer stepped in PyTorch) and
     ``population.readback``; then ``population.stats``.
     """
     with work.span("population.sweep"):

@@ -2,14 +2,16 @@
 
 On the CPU: the off path, the recorder's tree, ``spanned``, sinks that take
 only kernel calls (the dry run's), the span trees of
-``eval_int_population`` and ``eval_int``.  On the card (``cuda`` marker,
-skipped here inside each test), with no JAX imported:
+``eval_int_population`` (an ATA-T layer's step loop too) and ``eval_int``.
+On the card (``cuda`` marker, skipped here inside each test), with no JAX
+imported:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_tracing.py
 
 spans and the profiler's device events on one clock, ``spike_matmul``'s
 route counter against the multiply-adds its inputs must send down each
-route, and outputs the same bit for bit whether or not a recorder listens.
+route (an ATA-T recurrence's counted apart), and outputs the same bit for
+bit whether or not a recorder listens.
 """
 
 from __future__ import annotations
@@ -204,6 +206,47 @@ def test_population_sweep_records_its_span_tree(shards):
     np.testing.assert_array_equal(accs, again[0])
 
 
+def _tiny_rec_net(T=4):
+    layers = (
+        LayerConfig(n_in=12, n_out=8, neuron=NeuronModel.LIF, topology=Topology.ATA_T),
+        LayerConfig(n_in=8, n_out=3, neuron=NeuronModel.LIF, topology=Topology.FF),
+    )
+    return NetworkConfig(layers=layers, n_steps=T, name="tiny-rec")
+
+
+def _precision_population(net, device="cpu", bits=(3, 5, 9)):
+    params = init_float_params(torch.Generator().manual_seed(2), net, device=device)
+    cands = [net.replace_precisions(w_bits=b, w_rec_bits=b, leak_bits=3) for b in bits]
+    return cands, [quantize_params(c, params)[0] for c in cands]
+
+
+def test_an_ata_t_layer_steps_inside_one_step_loop_span_a_batch():
+    net = _tiny_rec_net()
+    cands, qps = _precision_population(net)
+    with work.Recorder("cpu") as rec:
+        eval_int_population(net, cands, qps, _tiny_data(), batch_size=4, return_stats=True)
+    # the ATA-T layer: its currents, then T recurrence products in its step
+    # loop; the FF layer: its currents and its scan
+    forward = (
+        "population.forward",
+        [
+            ("spike_matmul", []),
+            ("population.step_loop", [("spike_matmul", [])] * net.n_steps),
+            ("spike_matmul", []),
+            ("lif_scan", []),
+        ],
+    )
+    batches = [kids for name, kids in _tree(rec)[0][1] if name == "population.batch"]
+    assert len(batches) == 3 and all(forward in kids for kids in batches)
+    assert sum(s.name == "population.step_loop" for s in rec.spans) == 3
+    # a sweep with FF and ATA-F layers only opens none
+    net = _tiny_net()
+    cands, qps = _precision_population(net)
+    with work.Recorder("cpu") as rec:
+        eval_int_population(net, cands, qps, _tiny_data(), batch_size=4)
+    assert not any(s.name == "population.step_loop" for s in rec.spans)
+
+
 def test_eval_int_records_its_spans():
     net = _tiny_net()
     params = init_float_params(torch.Generator().manual_seed(1), net, device="cpu")
@@ -345,3 +388,24 @@ def test_spans_hold_their_device_events_on_one_clock(cuda):
     offsets = [max(c.start_ns - e0, e1 - c.end_ns) for c, (e0, e1) in zip(calls, events)]
     print(f"largest offset {max(offsets)} ns (negative: every event inside its span)")
     assert max(offsets) < 0
+
+
+@pytest.mark.cuda
+def test_the_recurrence_counts_apart_from_the_feed_forward_products(cuda):
+    net = _tiny_rec_net(T=6)
+    cands, qps = _precision_population(net, device=cuda, bits=(3, 8, 12, 16))
+    ds = _tiny_data(n=10, T=6)
+    with work.Recorder(cuda) as rec:
+        accs, stats = eval_int_population(net, cands, qps, ds, batch_size=10, return_stats=True)
+    P, B, T = len(cands), 10, net.n_steps
+    ff = sum(P * T * B * cfg.n_in * cfg.n_out for cfg in net.layers)
+    rec_macs = [rec.counts[f"spike_matmul.rec_macs.{r}"] for r in ROUTES]
+    assert sum(rec_macs) == P * B * 8 * 8 * T
+    assert sum(rec.counts[f"spike_matmul.macs.{r}"] for r in ROUTES) == ff
+    # the same answers as the CPU's
+    cands_cpu, qps_cpu = _precision_population(net, bits=(3, 8, 12, 16))
+    want = eval_int_population(net, cands_cpu, qps_cpu, ds, batch_size=10, return_stats=True)
+    np.testing.assert_array_equal(accs, want[0])
+    for got, exp in zip(stats, want[1]):
+        for a, b in zip(got["layer_events_per_step"], exp["layer_events_per_step"]):
+            np.testing.assert_array_equal(a, b)
