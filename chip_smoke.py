@@ -500,9 +500,9 @@ def mixed_raster(gen, M: int, K: int) -> torch.Tensor:
 def check_spike_matmul(gen, w_main) -> dict:
     """Bit for bit against plain at every main-path shape (binary x w6, one
     int8 tensor-core pass), on a mixed raster and a graded serving tick (byte
-    planes), a ragged graded case with wide weights and the 2^27 wraparound
-    (CUDA cores); each main-path shape timed beside ``torch._int_mm`` and its
-    bound."""
+    planes), a ragged case with 10-bit weights (the two weight planes) and
+    the 2^27 wraparound (CUDA cores); each main-path shape timed beside
+    ``torch._int_mm`` and its bound."""
     dev = DEVICE
     w_of = {w.shape: w for w in w_main}
     main = {

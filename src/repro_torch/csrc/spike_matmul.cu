@@ -18,8 +18,12 @@
 // (33.5 TOP/s) could never come below 50 us.  Binary spikes times weights of
 // at most 8 bits fit int8 exactly, so this version runs them on the tensor
 // cores (mma.sync m16n8k32 s8 x s8 -> s32); larger spikes run there too, by
-// byte planes, and only weights beyond int8 fall back to the CUDA cores --
-// decided on the device with no host sync:
+// byte planes, and so do weights of 9-16 bits (every width a quantized layer
+// has), as two weight byte planes: two passes where int8 weights take one,
+// not the CUDA cores' 33.5 TOP/s (the sweep's [4620, 256] x [512, 256, 128]
+// takes 1.3x its int8 time on an H100, 1/48 of the CUDA cores').  Only
+// weights beyond int16, and graded spikes times weights beyond int8, stay
+// on the CUDA cores -- every route decided on the device with no host sync:
 //
 //   * Weights.  A block owns bn <= 128 output columns and narrows its K x bn
 //     slice of w to int8 into shared memory once per launch ([n][k], rows
@@ -50,10 +54,25 @@
 //     fragment, shifted into place and added with plain uint32_t adds:
 //     exact mod 2**32 for any int32 s.  A single large value degrades only
 //     its own strip and chunk, and only to 2-4 passes.
-//   * Where the block's weights do not fit int8 (wide weights, the 2^27
-//     wraparound case), every warp of the block runs int32 multiply-adds on
-//     the CUDA cores, reading s and w from device memory, into the same
-//     accumulator in the C-fragment layout.
+//   * Where the block's weights do not fit int8 but fit int16 (w_bits
+//     9-16), the block stages a second plane, w = 2^8 hi + lo: the plane
+//     above is lo = w & 0xff, read unsigned, and hi = w >> 8, signed, goes
+//     into the int32 staging area, which is free once the weights are
+//     narrowed (so the shared memory, and the int8 route's carveout, stay
+//     as they were; at K above ~1024 the plane does not fit and the block
+//     keeps the CUDA cores).  A chunk whose spikes fit int8 then runs each
+//     tile's fragment through the high plane (s8 x s8), shifts it left by
+//     8 and runs it on through the low plane (s8 x u8): |chunk sum| <= 256
+//     * 2^7 * 2^15 = 2^30, and every partial sum below 2^30 + 2^23, so the
+//     int32 fragment never overflows.  The two passes run a few of the
+//     block's tiles at a time in a loop kept rolled, so that the int8
+//     route's loop beside it runs as fast as it did.
+//   * Where the block's weights do not fit int16 (the 2^27 wraparound case)
+//     or a chunk of graded spikes meets int16 weights (graded serving
+//     requests at w_bits > 8; one mechanism, not spike planes times weight
+//     planes), the warp runs int32 multiply-adds on the CUDA cores, reading
+//     s and w from device memory, into the same accumulator in the
+//     C-fragment layout.
 
 // What holds it back (PERF.md): narrowing the weights is a fixed cost at the
 // start of every launch, when all 132 SMs read the same 128 KB from L2 at
@@ -78,8 +97,9 @@
 // adds to it, for each tile -- one 16-row strip x one 256-deep K chunk x
 // the block's columns -- the tile's multiply-adds (its rows below M x its
 // depth below K x its columns below N), in the slot of the route the tile
-// ran: [0] one tensor-core pass, [1] byte planes, [2] the CUDA cores.  So a
-// launch adds batch * M * K * N in all, however plan() cuts it into tiles.
+// ran: [0] one tensor-core pass, [1] byte planes (of graded spikes, or of
+// int16 weights), [2] the CUDA cores.  So a launch adds batch * M * K * N in
+// all, however plan() cuts it into tiles.
 // An atomic a tile and no more: counting in a register or in shared memory
 // and adding once a block at the end made the narrow sweep's 128-column
 // launch 3-7 % slower on an H100 even with `macs` null (any epilogue after
@@ -121,13 +141,21 @@ __device__ __forceinline__ uint32_t pack_i8x4(int32_t a, int32_t b, int32_t c, i
          ((static_cast<uint32_t>(c) & 0xffu) << 16) | (static_cast<uint32_t>(d) << 24);
 }
 
-// d += a * b on the tensor cores: a int8 (kSignedA) or uint8, b int8.
-template <bool kSignedA>
+// d += a * b on the tensor cores: a int8 (kSignedA) or uint8, b int8
+// (kSignedB) or uint8; not both unsigned.
+template <bool kSignedA, bool kSignedB = true>
 __device__ __forceinline__ void mma_8bit(int32_t (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  if constexpr (kSignedA) {
+  static_assert(kSignedA || kSignedB, "no u8 x u8 pass");
+  if constexpr (kSignedA && kSignedB) {
     asm volatile(
         "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else if constexpr (kSignedA) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
         "{%8, %9}, {%0, %1, %2, %3};\n"
         : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -279,6 +307,36 @@ __device__ __forceinline__ bool stage_w(uint8_t* ws, uint8_t* st, const int32_t*
   return bad;
 }
 
+// Whether the high plane of the block's weights (bn rows of row_bytes(K))
+// fits in the staging area it takes over once stage_w is done.
+__host__ __device__ constexpr bool planes_fit(int K, int bn) {
+  return bn * row_bytes(K) <= kChunk * staged_row_bytes(bn);
+}
+
+// The high plane of the block's weights, hi = w >> 8 as int8, into `hi` in
+// stage_w's layout ([n][k], zero past N and K); the low plane is what
+// stage_w left, w & 0xff.  Returns whether this thread saw a weight beyond
+// int16 (a high byte beyond int8).  The slice comes again from device
+// memory, just read by stage_w, so from L2: a thread takes 4 consecutive k
+// of one column.
+__device__ __forceinline__ bool stage_hi(uint8_t* hi, const int32_t* __restrict__ w, int K, int N,
+                                         int col0, int bn) {
+  const int rb = row_bytes(K), kr = rb - kPad;
+  bool bad = false;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < bn * (kr / 4); i += kThreads) {
+    const int n = i % bn, k = 4 * (i / bn), col = col0 + n;
+    int32_t r[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      r[q] = (col < N && k + q < K) ? __ldg(w + static_cast<size_t>(k + q) * N + col) >> 8 : 0;
+      bad = bad | !fits_i8(r[q]);
+    }
+    *reinterpret_cast<uint32_t*>(hi + n * rb + k) = pack_i8x4(r[0], r[1], r[2], r[3]);
+  }
+  return bad;
+}
+
 // Writes (a, b) to out[row, col..col+1] -- or, with `add`, adds them to what
 // the same thread wrote there for the earlier K chunks (uint32_t adds).
 __device__ __forceinline__ void store2(int32_t* __restrict__ out, int row, int col, uint32_t a,
@@ -331,6 +389,59 @@ __device__ __forceinline__ void run_tiles(const uint32_t (&a)[kSteps][4], const 
   }
 }
 
+// One 16-row strip's K chunk (A fragments `a`, values that fit int8)
+// against int16 weights as two byte planes, w = 2^8 hi + lo (`hi` signed,
+// `lo` unsigned, each in stage_w's layout): each tile's fragment runs
+// through the high plane, is shifted left by 8, runs on through the low
+// plane (|chunk sum| <= 256 * 2^7 * 2^15 = 2^30, every partial sum below
+// 2^30 + 2^23: the int32 fragment never overflows), then is written or
+// added as in run_tiles.  kPart tiles at a time, the groups in a loop that
+// is not unrolled: beside the int8 route's loop, the two passes unrolled
+// over every group changed how the compiler laid out that loop and slowed
+// it by ~10 % on an H100, with this loop it runs as before (PERF.md).
+template <int kTiles, int kPart>
+__device__ __forceinline__ void run_wide_tiles(const uint32_t (&a)[kSteps][4], const uint8_t* lo,
+                                               const uint8_t* hi, int32_t* __restrict__ out,
+                                               int rb, int k0, int r0, int col0, int M, int N,
+                                               int g, int t, bool pair, bool add) {
+#pragma unroll 1
+  for (int j0 = 0; j0 < kTiles; j0 += kPart) {
+    int32_t f[kPart][4] = {};
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+#pragma unroll
+      for (int j = 0; j < kPart; ++j) {
+        const uint8_t* wp = hi + (8 * (j0 + j) + g) * rb + k0 + 32 * st + 4 * t;
+        mma_8bit<true>(f[j], a[st], *reinterpret_cast<const uint32_t*>(wp),
+                       *reinterpret_cast<const uint32_t*>(wp + 16));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPart; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        f[j][q] = static_cast<int32_t>(static_cast<uint32_t>(f[j][q]) << 8);
+      }
+    }
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+#pragma unroll
+      for (int j = 0; j < kPart; ++j) {
+        const uint8_t* wp = lo + (8 * (j0 + j) + g) * rb + k0 + 32 * st + 4 * t;
+        mma_8bit<true, false>(f[j], a[st], *reinterpret_cast<const uint32_t*>(wp),
+                              *reinterpret_cast<const uint32_t*>(wp + 16));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPart; ++j) {
+      const int col = col0 + 8 * (j0 + j) + 2 * t;
+      const auto u = [&](int q) { return static_cast<uint32_t>(f[j][q]); };
+      store2(out, r0, col, u(0), u(1), M, N, pair, add);
+      store2(out, r0 + 8, col, u(2), u(3), M, N, pair, add);
+    }
+  }
+}
+
 // The route counter's add for the tile at rows r0.., K chunk k0.. and
 // columns col0.. (lane 0's item): its multiply-adds inside [M, K, N].
 __device__ __forceinline__ void count_macs(unsigned long long* macs, int route, int r0, int k0,
@@ -353,6 +464,10 @@ spike_matmul_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ w
   // quarter in the byte planes, whose raw values stay live besides
   constexpr int kPart = kTiles > 1 ? kTiles / 2 : 1;
   constexpr int kPlanePart = kTiles > 3 ? kTiles / 4 : 1;
+  // and in the weight planes' rolled loop: half the block's in the batched
+  // kernel, two in the single product's (the most each takes with its int8
+  // loop as fast as before, PERF.md)
+  constexpr int kWidePart = kBatched ? kPart : (kTiles > 7 ? kTiles / 8 : 1);
   extern __shared__ __align__(16) uint8_t ws[];
   if constexpr (kBatched) {
     const size_t z = blockIdx.z;  // the candidate
@@ -381,15 +496,20 @@ spike_matmul_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ w
   // current one; the first item's while the block stages the weights
   int4 x[kSteps][4];
   if (use_tc && n_items > 0) load_raw(x, s, item_row(0), 0, M, K, s_vec, t);
-  bool w8 = false;
+  // w16: weights beyond int8 that fit int16, as two planes, the high one in
+  // the staging area (ws + kBN * rb)
+  bool w8 = false, w16 = false;
   if (use_tc) {
     w8 = !__syncthreads_or(stage_w(ws, ws + kBN * rb, w, K, N, col0, kBN, w_vec));
+    if (!w8 && planes_fit(K, kBN)) {
+      w16 = !__syncthreads_or(stage_hi(ws + kBN * rb, w, K, N, col0, kBN));
+    }
   }
 
   for (int i = 0; i < n_items; ++i) {
     const int r0 = item_row(i), c = i % n_chunks, k0 = c * kChunk;
     uint32_t a[kSteps][4];
-    const bool s8 = w8 && pack_a(a, x);
+    const bool s8 = (w8 || w16) && pack_a(a, x);
     if (w8 && __all_sync(0xffffffffu, s8)) {
       // every value fits int8: one pass on the tensor cores, the next
       // item's loads in flight meanwhile
@@ -422,10 +542,20 @@ spike_matmul_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ w
       if (i + 1 < n_items) {
         load_raw(x, s, item_row(i + 1), (i + 1) % n_chunks * kChunk, M, K, s_vec, t);
       }
+    } else if (w16 && __all_sync(0xffffffffu, s8)) {
+      // int16 weights, spikes that fit int8: the two weight planes on the
+      // tensor cores, the next item's loads in flight meanwhile
+      if (macs != nullptr && lane == 0) count_macs(macs, 1, r0, k0, col0, kBN, M, K, N);
+      if (i + 1 < n_items) {
+        load_raw(x, s, item_row(i + 1), (i + 1) % n_chunks * kChunk, M, K, s_vec, t);
+      }
+      run_wide_tiles<kTiles, kWidePart>(a, ws, ws + kBN * rb, out, rb, k0, r0, col0, M, N, g, t,
+                                        pair, c > 0);
     } else {
-      // weights beyond int8 (the whole block): int32 multiply-adds on the
-      // CUDA cores in the C-fragment layout (rows r0 and r0 + 8, columns n
-      // and n + 1 of tile j), w from device memory
+      // weights beyond int16 (or beyond int8 where the high plane does not
+      // fit), or graded spikes times int16 weights: int32 multiply-adds on
+      // the CUDA cores in the C-fragment layout (rows r0 and r0 + 8, columns
+      // n and n + 1 of tile j), w from device memory
       const int k_end = min(K, k0 + kChunk);
       if (macs != nullptr && lane == 0) count_macs(macs, 2, r0, k0, col0, kBN, M, K, N);
       for (int j = 0; j < kTiles; ++j) {
@@ -447,6 +577,9 @@ spike_matmul_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ w
         }
         store2(out, r0, n, d[0], d[1], M, N, pair, c > 0);
         store2(out, r0 + 8, n, d[2], d[3], M, N, pair, c > 0);
+      }
+      if (w16 && i + 1 < n_items) {
+        load_raw(x, s, item_row(i + 1), (i + 1) % n_chunks * kChunk, M, K, s_vec, t);
       }
     }
   }

@@ -9,10 +9,14 @@ fallbacks all come here.  The CUDA source is ``csrc/spike_matmul.cu``.
 The kernel runs on the int8 tensor cores wherever the block's weights fit
 int8 (weights of at most 8 bits): a 16-row strip's 256-deep K chunk in one
 pass when its spikes fit int8 (binary spikes), else in up to four byte-plane
-passes -- exact for any int32 spikes.  Weights beyond int8 run on the CUDA
-cores.  The routes are decided on the device; :func:`plan` picks the
-block's columns, the number of persistent blocks and the shared memory from
-the shape alone.
+passes -- exact for any int32 spikes.  Weights that fit int16 but not int8
+(9 to 16 bits) run there too, as two weight byte planes (w = 2**8 hi + lo,
+one pass each) for a chunk whose spikes fit int8, where the high plane fits
+the block's staging area (:func:`planes_fit`: K up to about 1024).  Weights
+beyond int16, and graded spikes times weights beyond int8, run on the CUDA
+cores.  The routes are decided on the device from the block's own values;
+:func:`plan` picks the block's columns, the number of persistent blocks and
+the shared memory from the shape alone.
 
 A leading candidate axis on either operand ([P, M, K] @ [K, N], [M, K] @
 [P, K, N] or [P, M, K] @ [P, K, N] -> [P, M, N]) runs the P products in one
@@ -28,7 +32,8 @@ through :func:`~repro_torch.kernels.work.kernel`.  While a sink keeps the
 ``spike_matmul.macs`` device counter (:func:`~repro_torch.kernels.work.
 device_counter`), the kernel adds to it its P M K N multiply-adds by the
 route each tile -- one 16-row strip by one 256-deep K chunk by one block of
-columns -- ran: one tensor-core pass, byte planes, or the CUDA cores;
+columns -- ran: one tensor-core pass, byte planes (of spikes or of
+weights), or the CUDA cores;
 otherwise it gets a null pointer and counts nothing.  A caller names another
 counter of the same parts with ``counter`` (an ATA-T layer's recurrence
 counts under ``spike_matmul.rec_macs``).
@@ -42,7 +47,9 @@ import torch
 
 from repro_torch.kernels import build, work
 
-__all__ = ["SMPlan", "plan", "spike_matmul", "spike_matmul_plain", "spike_integrate"]
+__all__ = [
+    "SMPlan", "plan", "planes_fit", "spike_matmul", "spike_matmul_plain", "spike_integrate"
+]
 
 # The tiles of csrc/spike_matmul.cu, and the card's SM count (H100 SXM)
 STRIP = 16  # rows of s a warp takes at a time (the mma's M)
@@ -82,6 +89,13 @@ def block_smem(K: int, bn: int) -> int:
     """Shared-memory bytes of a tensor-core block: its int8 weights and one
     256-row piece of int32 weights staged on the way (rows padded by 16)."""
     return bn * weight_row_bytes(K) + CHUNK * (4 * bn + ROW_PAD)
+
+
+def planes_fit(K: int, bn: int) -> bool:
+    """Whether a tensor-core block of ``bn`` columns has room for the high
+    byte plane of int16 weights: it takes over the staging area of
+    :func:`block_smem` once the weights are narrowed."""
+    return bn * weight_row_bytes(K) <= CHUNK * (4 * bn + ROW_PAD)
 
 
 def plan(M: int, K: int, N: int, batch: int = 1) -> SMPlan:

@@ -750,6 +750,80 @@ def test_spike_matmul_candidate_axis_matches_plain(cuda, shared):
         np.testing.assert_array_equal(got[c].cpu().numpy(), want)
 
 
+def _w16(shape, seed, bits=16):
+    """Weights of ``bits`` bits with the int16 edges -32768, -129, 128 and
+    32767 planted down the first four columns (where ``bits`` reaches them)."""
+    lim = 2 ** (bits - 1)
+    w = np.random.default_rng(seed).integers(-lim, lim, shape).astype(np.int32)
+    for j, v in enumerate([-(2**15), -129, 128, 2**15 - 1][: shape[-1]]):
+        if -lim <= v < lim:
+            w[..., ::3, j] = v
+    return w
+
+
+def _spikes_fitting_int8(shape, seed):
+    """Binary spikes, with the first 16-row strip all -128: against a column
+    of -32768 its chunk sums to 2**30, the most the int32 fragment holds."""
+    s = (np.random.default_rng(seed).random(shape) < 0.2).astype(np.int32)
+    s[..., :16, :] = -128
+    return s
+
+
+@pytest.mark.parametrize("layout", ["single", "shared_s", "per_candidate"])
+@pytest.mark.parametrize("N", [10, 128])
+@pytest.mark.parametrize("K", [128, 256, 300, 1100])
+def test_spike_matmul_int16_weights_match_plain(cuda, K, N, layout):
+    """Weights of 9-16 bits times spikes that fit int8 on the two weight
+    planes, exact against the int64 product wrapped to int32 at the int16
+    edges; K = 1100 leaves no room for the high plane, so there the block
+    keeps the CUDA cores."""
+    P, M = 3, 1000
+    s = _spikes_fitting_int8((M, K) if layout != "per_candidate" else (P, M, K), seed=K)
+    w = _w16((K, N) if layout == "single" else (P, K, N), seed=N)
+    got = spike_matmul(torch.from_numpy(s).to(cuda), torch.from_numpy(w).to(cuda))
+    torch.cuda.synchronize()
+    if layout == "single":
+        np.testing.assert_array_equal(got.cpu().numpy(), _wrapped_dense(s, w))
+        return
+    for c in range(P):
+        want = _wrapped_dense(s if s.ndim == 2 else s[c], w[c])
+        np.testing.assert_array_equal(got[c].cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_spike_matmul_batch_mixes_weight_widths(cuda, shared):
+    """One launch over candidates of 4, 8, 9, 12 and 16 bits and one beyond
+    int16, as a sweep mixes widths: the int8 pass, the weight planes and the
+    CUDA cores side by side at the sweep's layer-0 shape."""
+    bits = [4, 8, 9, 12, 16, 21]
+    P, M, K, N = len(bits), 20 * 231, 256, 128
+    s = _spikes_fitting_int8((M, K) if shared else (P, M, K), seed=1)
+    w = np.stack([_w16((K, N), seed=b, bits=b) for b in bits])
+    got = spike_matmul(torch.from_numpy(s).to(cuda), torch.from_numpy(w).to(cuda))
+    torch.cuda.synchronize()
+    for c in range(P):
+        want = _wrapped_dense(s if shared else s[c], w[c])
+        np.testing.assert_array_equal(got[c].cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_spike_matmul_graded_spikes_with_int16_weights(cuda, batched):
+    """Graded spikes (128..3999) in a few strips meet 12- and 16-bit weights:
+    those strips' chunks take the CUDA cores, the rest the weight planes."""
+    M, K, N = 25 * 64, 300, 128
+    rng = np.random.default_rng(7)
+    s = _raster(M, K, seed=8, rate=0.12)
+    for strip in rng.choice(M // 16, 6, replace=False):
+        s[16 * strip + rng.integers(0, 16), rng.integers(0, K)] = rng.integers(128, 4000)
+    w = np.stack([_w16((K, N), seed=3, bits=12), _w16((K, N), seed=4)])
+    s_t, w_t = torch.from_numpy(s).to(cuda), torch.from_numpy(w if batched else w[1]).to(cuda)
+    got = spike_matmul(s_t, w_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, spike_matmul_plain(s_t, w_t))
+    for c, g in enumerate(got if batched else [got]):
+        np.testing.assert_array_equal(g.cpu().numpy(), _wrapped_dense(s, w[c if batched else 1]))
+
+
 @pytest.mark.parametrize("topology,neuron", [("ata_f", "lif"), ("ata_t", "if"), ("ff", "synaptic")])
 def test_population_sweep_on_the_card_matches_serial_and_cpu(cuda, topology, neuron):
     from repro_torch.data import snn_datasets as tds

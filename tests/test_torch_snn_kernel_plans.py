@@ -7,8 +7,10 @@ as the kernel takes it, and held to the JAX package exactly (no tolerance):
   strips and 256-deep K chunks.  A chunk takes the int8 route (its values
   narrowed to int8, summed into a fresh int32, then added into a uint32
   accumulator) when the strip's chunk of s and the tile's weights fit int8,
-  else the int32 multiply-add route into the same accumulator.  Held to JAX
-  ``spike_matmul(..., interpret=True)``.
+  byte planes of s where only the weights fit, two byte planes of the
+  weights (high then low, in one int32) where the weights fit int16 and the
+  chunk of s fits int8, else the int32 multiply-add route into the same
+  accumulator.  Held to JAX ``spike_matmul(..., interpret=True)``.
 * ``sparse_accum`` gives each event row a warp: per 128-column pass and
   32-slot group it takes the ballot of nonzero slots and walks its set bits
   in slot order, dealing them to the warp's two 16-lane groups, clamping
@@ -34,6 +36,7 @@ from repro_torch.kernels.quant_matmul.spike_matmul import (
     STRIP,
     block_smem,
     plan,
+    planes_fit,
     spike_matmul,
     spike_matmul_plain,
     weight_row_bytes,
@@ -52,6 +55,10 @@ def _fits_i8(t: torch.Tensor) -> bool:
     return t.numel() == 0 or (int(t.min()) >= -128 and int(t.max()) <= 127)
 
 
+def _fits_i16(t: torch.Tensor) -> bool:
+    return t.numel() == 0 or (int(t.min()) >= -(2**15) and int(t.max()) < 2**15)
+
+
 # ---------------------------------------------------------------------------
 # spike_matmul
 # ---------------------------------------------------------------------------
@@ -60,7 +67,7 @@ def _fits_i8(t: torch.Tensor) -> bool:
 def emulate_spike_matmul(s: torch.Tensor, w: torch.Tensor):
     """csrc/spike_matmul.cu's arithmetic.  Returns the int32 result and the
     route of each (column tile, strip, chunk): "int8", ("planes", the byte
-    planes that ran) or "int32"."""
+    planes that ran), "w16" (the two weight planes) or "int32"."""
     M, K = s.shape
     N = w.shape[1]
     p = plan(M, K, N)
@@ -79,6 +86,8 @@ def emulate_spike_matmul(s: torch.Tensor, w: torch.Tensor):
     for tile, c0 in enumerate(range(0, N, p.bn)):
         cols = slice(c0, min(N, c0 + p.bn))
         w8 = p.kind == "tensor" and _fits_i8(w[:, cols])  # the block's __syncthreads_or
+        # the high plane's __syncthreads_or, where the plane fits the staging area
+        w16 = not w8 and p.kind == "tensor" and planes_fit(K, p.bn) and _fits_i16(w[:, cols])
         for strip, r0 in enumerate(range(0, M, STRIP)):
             rows = slice(r0, min(M, r0 + STRIP))
             for chunk, k0 in enumerate(range(0, K, CHUNK)):
@@ -96,6 +105,14 @@ def emulate_spike_matmul(s: torch.Tensor, w: torch.Tensor):
                             add_pass(rows, cols, b, wc, 8 * plane)
                             ran.append(plane)
                     routes[(tile, strip, chunk)] = ("planes", tuple(ran))
+                elif w16 and _fits_i8(sc):  # the high plane (s8), << 8, then the low (u8)
+                    hi, lo = wc >> 8, wc & 0xFF
+                    frag = (sc @ hi) << 8
+                    assert int(frag.abs().max()) <= 2**30  # no int32 overflow
+                    frag = frag + sc @ lo
+                    assert int(frag.abs().max()) <= 2**30
+                    acc[rows, cols] = (acc[rows, cols] + (frag & MASK32)) & MASK32
+                    routes[(tile, strip, chunk)] = "w16"
                 else:
                     for k in range(ks.start, ks.stop):  # one IMAD per k, mod 2**32
                         prod = (s64[rows, k, None] * w64[None, k, cols]) & MASK32
@@ -150,8 +167,8 @@ def test_spike_range_edges(where, value):
     if where == "s":  # only strip 0 holds the value
         assert routes[(0, 0, 0)] == ("int8" if value < 128 else ("planes", (0,)))
         assert routes[(0, 1, 0)] == "int8"
-    else:  # the weights decide for the whole column tile
-        assert set(routes.values()) == {"int8" if value < 128 else "int32"}
+    else:  # the weights decide for the whole column tile: 128 takes the weight planes
+        assert set(routes.values()) == {"int8" if value < 128 else "w16"}
 
 
 def test_one_value_of_200_sends_one_strip_to_byte_planes():
@@ -200,6 +217,56 @@ def test_spike_mixed_signs_and_full_int8_range():
     w = rng.integers(-128, 128, (96, 40)).astype(np.int32)
     routes = _check_spike(s, w)
     assert set(routes.values()) == {"int8"}
+
+
+@pytest.mark.parametrize("K,N", [(256, 128), (300, 24), (128, 10)])
+@pytest.mark.parametrize("value", [-(2**15), -129, 128, 2**15 - 1])
+def test_int16_weights_take_the_two_weight_planes(K, N, value):
+    """Weights of 9-16 bits with spikes that fit int8: every tile through the
+    high and the low weight plane, exact at the int16 edges.  A strip of
+    -128s times a column of -2**15 sums to 2**30, the most the int32
+    fragment holds."""
+    M = 40
+    s = _binary(M, K, seed=K + N, rate=0.5)
+    s[:16, :] = -128
+    w = _w(K, N, seed=N, bits=16)
+    w[:, 0] = value
+    routes = _check_spike(s, w)
+    assert set(routes.values()) == {"w16"}
+
+
+def test_graded_spikes_with_int16_weights_take_the_cuda_cores():
+    """A chunk of graded spikes meets the int16 weights on the CUDA cores;
+    the other chunks of the same block keep the weight planes."""
+    M, K, N = 48, 512, 16
+    s = _binary(M, K, seed=12)
+    s[20, 300] = 200
+    routes = _check_spike(s, _w(K, N, seed=13, bits=12))
+    assert routes.pop((0, 1, 1)) == "int32"
+    assert set(routes.values()) == {"w16"}
+
+
+@pytest.mark.parametrize("value", [2**15, -(2**15) - 1, 2**27])
+def test_weights_beyond_int16_stay_on_the_cuda_cores(value):
+    M, K, N = 32, 256, 128
+    w = _w(K, N, seed=14, bits=16)
+    w[100, 7] = value
+    routes = _check_spike(_binary(M, K, seed=15), w)
+    assert set(routes.values()) == {"int32"}
+
+
+def test_weight_planes_need_room_in_the_staging_area():
+    """The high plane takes over the int32 staging area: up to K = 1024 at
+    bn = 16 and 128 (the sweep's and the main path's shapes fit), 1280 at bn
+    = 8; deeper int16 weights keep the CUDA cores."""
+    for K, bn, fits in [(1024, 128, True), (1025, 128, False), (1024, 16, True),
+                        (1025, 16, False), (1280, 8, True), (1281, 8, False)]:
+        assert planes_fit(K, bn) is fits, (K, bn)
+    for M, K, N in MAIN_SHAPES + [(4620, 256, 128), (4620, 128, 10), (231, 128, 128)]:
+        p = plan(M, K, N, batch=512)
+        assert p.kind == "tensor" and planes_fit(K, p.bn)
+    routes = _check_spike(_binary(20, 1100, seed=16), _w(1100, 16, seed=17, bits=10))
+    assert set(routes.values()) == {"int32"}
 
 
 # ---------------------------------------------------------------------------

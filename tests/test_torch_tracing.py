@@ -29,7 +29,13 @@ from repro_torch.core.shard import make_mesh
 from repro_torch.core.snn_layer import LayerConfig, NeuronModel, Topology
 from repro_torch.data.snn_datasets import SpikeDataset
 from repro_torch.kernels import work
-from repro_torch.kernels.quant_matmul.spike_matmul import CHUNK, STRIP, plan, spike_matmul
+from repro_torch.kernels.quant_matmul.spike_matmul import (
+    CHUNK,
+    STRIP,
+    plan,
+    planes_fit,
+    spike_matmul,
+)
 from repro_torch.snn.train import eval_int, eval_int_population
 
 
@@ -274,34 +280,43 @@ ROUTES = ("tensor", "planes", "cuda_cores")
 
 def _expected_macs(s: np.ndarray, w: np.ndarray) -> list[int]:
     """[tensor, planes, cuda_cores] multiply-adds of ``s`` [P, M, K] @ ``w``
-    [P, K, N] by the kernel's rules: a block's columns run on the CUDA cores
-    unless every weight of its slice fits int8; then each 16-row strip's
-    256-deep chunk runs in one pass where every spike of it fits int8, else
-    in byte planes.  A tile counts its rows, depth and columns inside [M, K,
-    N]."""
+    [P, K, N] by the kernel's rules: where every weight of a block's slice
+    fits int8, each 16-row strip's 256-deep chunk runs in one pass where
+    every spike of it fits int8, else in byte planes; where they fit int16
+    (and the high plane fits the block), a chunk whose spikes fit int8 runs
+    in the two weight planes, a graded one on the CUDA cores; wider weights
+    run on the CUDA cores.  A tile counts its rows, depth and columns inside
+    [M, K, N]."""
     P, M, K = s.shape
     N = w.shape[2]
     p = plan(M, K, N, P if P > 1 else 1)
     fits = lambda a: bool(np.all((a >= -128) & (a <= 127)))
+    fits16 = lambda a: bool(np.all((a >= -(2**15)) & (a < 2**15)))
     out = [0, 0, 0]
     n_chunks = max(1, -(-K // CHUNK))
     for c in range(P):
         for j in range(p.grid[1]):
             cols = slice(j * p.bn, (j + 1) * p.bn)
             w8 = p.kind == "tensor" and fits(w[c][:, cols])
+            w16 = p.kind == "tensor" and planes_fit(K, p.bn) and fits16(w[c][:, cols])
             for r in range(0, M, STRIP):
                 for k in range(n_chunks):
                     tile = s[c][r : r + STRIP, k * CHUNK : (k + 1) * CHUNK]
                     macs = tile.size * w[c][0, cols].size
-                    route = 2 if not w8 else 0 if fits(tile) else 1
+                    if w8:
+                        route = 0 if fits(tile) else 1
+                    else:
+                        route = 1 if w16 and fits(tile) else 2
                     out[route] += macs
     assert sum(out) == P * M * K * N
     return out
 
 
-def _population(seed=0, P=4, M=100, K=300, N=128):
-    """Candidate 0 narrow with binary spikes, 1 with wide weights, 2 with
-    graded spikes everywhere, 3 with one graded spike (row 0, chunk 0)."""
+def _population(seed=0, P=6, M=100, K=300, N=128):
+    """Candidate 0 narrow with binary spikes, 1 with int16 weights, 2 with
+    graded spikes everywhere, 3 with one graded spike (row 0, chunk 0), 4
+    with weights beyond int16, 5 with int16 weights and two graded spikes
+    (rows 0 and 50, chunk 0)."""
     rng = np.random.default_rng(seed)
     s = (rng.random((P, M, K)) < 0.2).astype(np.int32)
     w = rng.integers(-8, 8, (P, K, N)).astype(np.int32)
@@ -310,6 +325,9 @@ def _population(seed=0, P=4, M=100, K=300, N=128):
     s[2][:, 0] = 300  # every row of every chunk holds a graded value
     s[2][:, CHUNK] = 300
     s[3][0, 0] = 1000
+    w[4] = rng.integers(-(2**20), 2**20, (K, N))
+    w[5] = rng.integers(-2000, 2000, (K, N))
+    s[5][0, 0], s[5][50, 3] = 1000, 200
     return s, w
 
 
@@ -323,8 +341,8 @@ def _run_counted(s, w, device):
 def test_expected_macs_follow_the_kernels_rules():
     s, w = _population()
     mkn = 100 * 300 * 128  # one candidate's multiply-adds
-    graded = STRIP * CHUNK * 128  # candidate 3's one graded tile
-    assert _expected_macs(s, w) == [2 * mkn - graded, mkn + graded, mkn]
+    graded = STRIP * CHUNK * 128  # one graded tile (candidate 3's, candidate 5's two)
+    assert _expected_macs(s, w) == [2 * mkn - graded, 3 * mkn - graded, mkn + 2 * graded]
 
 
 @pytest.mark.cuda
@@ -332,7 +350,7 @@ def test_route_counter_counts_each_route(cuda):
     s, w = _population()
     mkn, graded = 100 * 300 * 128, STRIP * CHUNK * 128
     out, macs = _run_counted(s, w, cuda)
-    assert macs == [2 * mkn - graded, mkn + graded, mkn]
+    assert macs == [2 * mkn - graded, 3 * mkn - graded, mkn + 2 * graded]
     # a shared raster ([M, K] @ [P, K, N]) and single products with several column blocks
     for s2, w2 in [
         (s[0], w),
